@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels for the n-TangentProp hot path.
+
+``jet_dense`` fuses one dense layer's stacked GEMM with the Faa di Bruno
+activation epilogue (K1, csrc/jet_dense.cu); ``act_jet`` is the standalone
+epilogue (K2, csrc/act_jet.cu).  ``ref.py`` holds their plain PyTorch
+versions; ``ops.py`` dispatches (kernel on CUDA tensors, plain version on
+CPU tensors) and counts launches.  The kernels are built at first use
+(cuda_lib.py), never at import.
+"""
+
+from . import ops, ref
+from .ops import (EpilogueKind, act_jet, epilogues, jet_dense, launch_counts,
+                  reset_launch_counts)
+
+__all__ = ["ops", "ref", "EpilogueKind", "act_jet", "epilogues", "jet_dense",
+           "launch_counts", "reset_launch_counts"]

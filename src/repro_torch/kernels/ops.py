@@ -1,0 +1,173 @@
+"""Public dispatch for the jet kernels of the dense path.
+
+:func:`jet_dense` and :func:`act_jet` launch the hand-written CUDA kernels
+for CUDA tensors and run their plain versions (kernels/ref.py) only for CPU
+tensors, so the CPU tests reach every line around the kernels.  There is no
+fallback: on the card a wrapper launches its kernel or raises, and both
+refuse orders above :data:`MAX_ORDER` on every device, so ``impl="cuda"``
+means the same thing on the CPU as on the card.
+
+* Both accept **arbitrary leading batch axes** -- ``(n+1, *batch, D)`` --
+  and fold them into the kernel's batch dimension (a free reshape).
+* :func:`epilogues` is the typed capability registry: fusable name ->
+  :class:`EpilogueKind`.  ``ACTIVATION`` entries are the closed-form tables
+  the dense kernel's epilogue can run; ``FUSED_OP`` names whole-chain
+  kernels of the transformer slice, none of which is ported yet.
+* The wrappers are ``torch.autograd.Function``s whose backward recomputes
+  through the plain version, as the reference's ``custom_vjp``s do: the
+  residuals are just the layer inputs, so activation memory stays O(n M).
+"""
+
+from __future__ import annotations
+
+import enum
+from types import MappingProxyType
+from typing import Mapping
+
+import torch
+
+from . import jet_dense as _k1
+from . import ref
+from . import tanh_jet as _k2
+from .tanh_jet import KERNEL_ACTS, MAX_ORDER, check_order
+
+__all__ = ["EpilogueKind", "epilogues", "act_jet", "jet_dense", "MAX_ORDER",
+           "launch_counts", "reset_launch_counts"]
+
+
+class EpilogueKind(enum.Enum):
+    """What a fusable-name entry in :func:`epilogues` is capable of.
+
+    ``ACTIVATION``
+        a closed-form Taylor table the *dense kernel* can evaluate in its
+        Faa di Bruno epilogue (also valid standalone via ``act_jet``);
+    ``FUSED_OP``
+        a dedicated whole-chain kernel reached through its own dispatch
+        function -- never a dense epilogue.
+    """
+
+    ACTIVATION = "activation"
+    FUSED_OP = "fused_op"
+
+
+_EPILOGUE_KINDS: dict = {a: EpilogueKind.ACTIVATION for a in KERNEL_ACTS}
+
+
+def epilogues() -> Mapping[str, EpilogueKind]:
+    """The capability registry: fusable name -> :class:`EpilogueKind`,
+    read-only."""
+    return MappingProxyType(_EPILOGUE_KINDS)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {c.name: c.count for c in (_k1.LAUNCHES, _k2.LAUNCHES)}
+
+
+def reset_launch_counts() -> None:
+    for c in (_k1.LAUNCHES, _k2.LAUNCHES):
+        c.reset()
+
+
+def _fold_batch(coeffs: torch.Tensor, keep: int = 1) -> tuple[torch.Tensor, tuple]:
+    """(n+1, *batch, *trailing) -> ((n+1, prod(batch), *trailing), batch),
+    preserving the last ``keep`` axes.  The inverse is a plain reshape of
+    the kernel output."""
+    batch = tuple(coeffs.shape[1:-keep])
+    flat = 1
+    for s in batch:
+        flat *= s
+    return coeffs.reshape(tuple(coeffs.shape[:1]) + (flat,)
+                          + tuple(coeffs.shape[-keep:])), batch
+
+
+def _check_activation(activation: str | None, allow_none: bool) -> None:
+    if activation is None and allow_none:
+        return
+    if activation not in KERNEL_ACTS:
+        raise ValueError(
+            f"no kernel epilogue for activation {activation!r}; the kernels "
+            f"take {KERNEL_ACTS}" + (" or None" if allow_none else "")
+            + " (route others through jet_dense(..., None) and the jet algebra)")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return False
+    if t.device.type == "cpu":
+        return True
+    raise ValueError(f"the jet kernels run on CUDA tensors (plain version on "
+                     f"CPU tensors), got a tensor on {t.device}")
+
+
+def _act_jet_impl(coeffs: torch.Tensor, activation: str) -> torch.Tensor:
+    if _on_cpu(coeffs):
+        return ref.act_jet_ref(coeffs, activation)
+    return _k2.act_jet_cuda(coeffs, activation)
+
+
+def _jet_dense_impl(coeffs, w, b, activation):
+    if _on_cpu(coeffs):
+        return ref.jet_dense_ref(coeffs, w, b, activation)
+    return _k1.jet_dense_cuda(coeffs, w, b, activation)
+
+
+class _ActJet(torch.autograd.Function):
+    """Forward: the kernel (plain version on CPU).  Backward: a recompute
+    through the plain version."""
+
+    @staticmethod
+    def forward(ctx, coeffs, activation):
+        ctx.activation = activation
+        ctx.save_for_backward(coeffs)
+        return _act_jet_impl(coeffs, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        (coeffs,) = ctx.saved_tensors
+        with torch.enable_grad():
+            c = coeffs.detach().requires_grad_()
+            out = ref.act_jet_ref(c, ctx.activation)
+        (gc,) = torch.autograd.grad(out, c, g)
+        return gc, None
+
+
+class _JetDense(torch.autograd.Function):
+    """Forward: the fused kernel (plain version on CPU).  Backward: a
+    recompute through the plain version."""
+
+    @staticmethod
+    def forward(ctx, coeffs, w, b, activation):
+        ctx.activation = activation
+        ctx.save_for_backward(coeffs, w, b)
+        return _jet_dense_impl(coeffs, w, b, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            out = ref.jet_dense_ref(*leaves, ctx.activation)
+        grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None)
+
+
+def act_jet(coeffs: torch.Tensor, activation: str = "tanh") -> torch.Tensor:
+    """Activation jet (n+1, *batch, W) -> same shape."""
+    _check_activation(activation, allow_none=False)
+    check_order(coeffs.shape[0])
+    flat, batch = _fold_batch(coeffs)
+    out = _ActJet.apply(flat, activation)
+    return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-1:]))
+
+
+def jet_dense(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              activation: str | None = "tanh") -> torch.Tensor:
+    """Fused dense layer + activation jet: (n+1, *batch, Din) -> (n+1,
+    *batch, Dout).  Extra leading batch axes fold into the kernel's batch
+    dimension and unfold on the way out."""
+    _check_activation(activation, allow_none=True)
+    check_order(coeffs.shape[0])
+    flat, batch = _fold_batch(coeffs)
+    out = _JetDense.apply(flat, w, b, activation)
+    return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-1:]))

@@ -1,0 +1,101 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on the CUDA device unless the caller asks for the CPU.
+
+chip_smoke.py, the port's on-card smoke run, is held to the same rules and
+must fail -- printing no result -- where there is no GPU or no checkout."""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+    for p in PORT.rglob("*.py") if p.name != "__init__.py") + ["repro_torch"]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_port_modules_import_without_jax_or_reference():
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {MODULES!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'repro' or k.startswith('repro.'))\n"
+        "print(json.dumps({'n': len(mods), 'bad': bad}))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [] and res["n"] == len(MODULES) >= 16
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_neither_jax_nor_reference(path):
+    for name in _imported_names(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+    text = path.read_text()
+    assert "import jax" not in text and "from repro." not in text \
+        and "import repro." not in text
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
+    from repro_torch import bridge, resolve_device
+    from repro_torch.core.modules import Dense
+    from repro_torch.core.network import DenseMLP
+    from repro_torch.core.ntp import init_mlp
+    from repro_torch.serving import DerivativeServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = DenseMLP(d_in=2, width=4, depth=2, d_out=1)
+    gen = torch.Generator().manual_seed(0)
+    params = net.init(gen, torch.float64, device="cpu")
+    for call in (lambda: resolve_device(None),
+                 lambda: init_mlp(gen, 2, 4, 2, 1),
+                 lambda: net.init(gen, torch.float64),
+                 lambda: Dense(2, 3).init(gen),
+                 lambda: DerivativeServer(net, params, "ntp/cuda"),
+                 lambda: bridge.params_from_numpy(bridge.params_to_numpy(params))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with DerivativeServer(net, params, "ntp/cuda", device="cpu") as srv:
+        assert srv.device == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_gpu_and_without_checkout(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-GPU failure cannot show")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
