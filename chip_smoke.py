@@ -7,26 +7,38 @@ Phases, each failing loudly with a non-zero exit:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of the
    hand-written kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
-2. every kernel against its plain PyTorch version on the card: K2
-   (``act_jet``) for tanh/sigmoid/sin, orders 1-8, f32 and f64, ragged and
-   serving shapes (tolerances at TOL_F64 / TOL_F32 below); K1 (``jet_dense``) for None/tanh/sigmoid/sin at the served
-   model's layer shapes (2->32, 32->32, 32->1) and a ragged one;
-3. the served main path: a ``DerivativeServer`` on the ``pinn-pde`` DenseMLP
-   (d_in 2, width 32, depth 3, d_out 1, tanh, float64, random weights from
-   ``--seed``) under engine ``ntp/cuda``, plus the same weights as a module
-   graph with standalone Activation leaves (the K2 launch), both answering
-   concurrent ``grid(order=4)``, ``cross((0,0,1,1))`` and ``cross((0,1))``
-   requests of 5..512 rows.  Every table is held against the eager ``ntp``
-   engine on the card and against nested autodiff; the launch counters,
-   zeroed just before this phase and read just after, must show 4 K1
-   launches per engine call (and 3 K2 launches per call of the unfused
-   graph);
+2. every kernel against its plain PyTorch version on the card, orders 1-8,
+   f32 and f64 (tolerances at TOL_F64 / TOL_F32 below): K2 (``act_jet``) for
+   tanh/sigmoid/sin at ragged and serving shapes; K1 (``jet_dense``) for
+   None/tanh/sigmoid/sin at the served layer shapes (2->32, 32->32, 32->1)
+   and a ragged one; K3 (``jet_rms_norm``) at the served (n+1, 16384, 32)
+   and a ragged (n+1, 37, 24); K4 (``jet_flash_attention``) at the served
+   (n+1, 8192, 2, 2, 16) x wo (2, 16, 32), a ragged multi-block
+   (n+1, 3, 4, 70, 8) x (4, 8, 20) and a wide-head (n+1, 2, 4, 37, 96) x
+   (4, 96, 48) (three head dims per lane, over 48 KB of shared memory from
+   order 3 in f64), each under the none, causal and ("local", 2) masks;
+3. the served main paths, each with the launch counters zeroed just before
+   it and read just after:
+   a. a ``DerivativeServer`` on the ``pinn-pde`` DenseMLP (d_in 2, width 32,
+      depth 3, d_out 1, tanh, float64, random weights from ``--seed``) under
+      engine ``ntp/cuda``, plus the same weights as a module graph with
+      standalone Activation leaves (the K2 launch), both answering
+      concurrent ``grid(order=4)``, ``cross((0,0,1,1))`` and ``cross((0,1))``
+      requests of 5..512 rows; 4 K1 launches per engine call (and 3 K2 per
+      call of the unfused graph);
+   b. a server on the ``pinn-pde`` Transformer trunk (d_in 2, width 32,
+      depth 3, 2 heads, mlp_ratio 2, tanh, no mask, float64, random weights
+      from ``--seed``) under ``ntp/cuda``, answering the same requests; 16
+      K1, 7 K3 and 3 K4 launches per engine call and no K2;
+   every table is held against the eager ``ntp`` engine on the card and
+   against nested autodiff (the trunk's at the 5- and 37-row sizes only);
 4. times from CUDA events after warm-up at the 512-row serving shapes: each
    kernel's device time (the host's enqueue kept off the clock, see
-   ``device_time_ms``) and host dispatch time, its plain version, the GEMM
-   part alone (``torch.matmul``), the bound from bytes and operations, and
-   per request kind the server's p50/p99 for ``ntp/cuda`` and eager ``ntp``
-   beside the engine call's device time;
+   ``device_time_ms``) and host dispatch time, its plain version, the
+   nearest library call (the GEMM part of K1; for K3/K4 the order-0
+   function alone), the bound from bytes and operations, and per request
+   kind each server's p50/p99 for ``ntp/cuda`` and eager ``ntp`` beside the
+   engine call's device time;
 5. a JSON line describing each kernel, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -37,7 +49,9 @@ script imports nothing of JAX: it needs PyTorch with CUDA and ``nvcc``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -70,6 +84,19 @@ F32_EXACT_ORDERS = 4
 F32_DRIFT = 4.0
 TOL_SERVED = 1e-12     # served ntp/cuda vs eager ntp, relative per table slice
 TOL_AUTODIFF = 1e-9    # vs nested autodiff: that tower's own rounding
+# The trunk's cross tables are held relative to the size of the terms the
+# polarization identity sums (see polarization_scale), not to the table's
+# own max: with the init's zero embedding bias, RMSNorm of a token x_t * w
+# is near-singular at x_t = 0, directional 4th derivatives there reach
+# ~1e10 while the mixed partial stays ~1e4, and every engine alike (eager
+# against autodiff too) loses those digits to cancellation.
+
+TRUNK = dict(d_in=2, width=32, depth=3, d_out=1, n_heads=2, mlp_ratio=2,
+             activation="tanh", mask=None)
+TRUNK_PER_CALL = {"jet_dense": 16, "act_jet": 0, "jet_rms_norm": 7,
+                  "jet_flash_attention": 3}
+TRUNK_AUTODIFF_SIZES = (5, 37)
+FLASH_MASKS = (None, "causal", ("local", 2))
 
 
 class SmokeFailure(RuntimeError):
@@ -92,7 +119,8 @@ def rel_err(a, b, keep: int) -> float:
     return float((d / s).max()) if d.numel() else 0.0
 
 
-def device_time_ms(fn, reps: int, warmup: int = 3) -> tuple[float, float]:
+def device_time_ms(fn, reps: int, warmup: int = 3,
+                   what: str = "") -> tuple[float, float]:
     """(device ms, host ms) per call of ``fn``.
 
     A spin kernel (``torch.cuda._sleep``) holds the device while the host
@@ -120,7 +148,9 @@ def device_time_ms(fn, reps: int, warmup: int = 3) -> tuple[float, float]:
         if spin_ms > 1.2 * host_ms:          # the queue filled before the spin ended
             return t0.elapsed_time(t1) / reps, host_ms / reps
         cycles = int(cycles * 2 * host_ms / max(spin_ms, 1e-3))
-    raise SmokeFailure("the spin kernel never outlasted the host's enqueue")
+    raise SmokeFailure(f"timing {what or fn}: the spin kernel never outlasted "
+                       f"the host's enqueue (last: spin {spin_ms:.3f} ms, host "
+                       f"{host_ms:.3f} ms for {reps} calls)")
 
 
 def nvidia_smi_line() -> str:
@@ -208,6 +238,75 @@ def check_kernels(gen, report: dict) -> dict:
     return worst
 
 
+def check_trunk_kernels(gen, report: dict, worst: dict) -> None:
+    """K3 and K4 against their plain versions (see TOL_*)."""
+    import torch
+    from repro_torch.core.modules import attention_mask, normalize_attention_mask
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.jet_attention import (jet_flash_attention_cuda,
+                                                   jet_rms_norm_cuda)
+
+    worst.update(jet_rms_norm=0.0, jet_flash_attention=0.0)
+    rows = []
+
+    def rms_plain(c, g):
+        return ref.jet_rms_norm_ref(c, g, 1e-6)
+
+    for dt in (torch.float32, torch.float64):
+        tol = TOL_F32 if dt == torch.float32 else TOL_F64
+        for bsz, width in ((16384, 32), (37, 24)):
+            e_max = 0.0
+            for n in range(1, 9):
+                x = 0.5 * torch.randn((n + 1, bsz, width), generator=gen,
+                                      device=DEVICE, dtype=dt)
+                g = 1.0 + 0.2 * torch.randn((width,), generator=gen,
+                                            device=DEVICE, dtype=dt)
+                got, want = jet_rms_norm_cuda(x, g, 1e-6), rms_plain(x, g)
+                torch.cuda.synchronize()
+                e_max = max(e_max, holds(got, want, rms_plain, (x, g), dt, n,
+                                         f"jet_rms_norm {dt} order {n} "
+                                         f"({bsz}, {width})"))
+                worst["jet_rms_norm"] = max(worst["jet_rms_norm"],
+                                            float((got - want).abs().max()))
+            rows.append(("jet_rms_norm", str(dt), "-", (bsz, width), "1-8",
+                         e_max, tol))
+        for bsz, heads, t, dh, dm in ((8192, 2, 2, 16, 32), (3, 4, 70, 8, 20),
+                                      (2, 4, 37, 96, 48)):
+            scale = dh ** -0.5
+            for mask in FLASH_MASKS:
+                kind, window = normalize_attention_mask(mask)
+                dense = attention_mask(mask, t, DEVICE)
+
+                def flash_plain(q, k, v, wo):
+                    return ref.jet_flash_attention_ref(q, k, v, wo, scale, dense)
+
+                e_max = 0.0
+                for n in range(1, 9):
+                    q, k, v = (0.5 * torch.randn((n + 1, bsz, heads, t, dh),
+                                                 generator=gen, device=DEVICE,
+                                                 dtype=dt) for _ in range(3))
+                    wo = torch.randn((heads, dh, dm), generator=gen,
+                                     device=DEVICE, dtype=dt) / (heads * dh) ** 0.5
+                    got = jet_flash_attention_cuda(q, k, v, wo, scale, kind, window)
+                    want = flash_plain(q, k, v, wo)
+                    torch.cuda.synchronize()
+                    e_max = max(e_max, holds(
+                        got, want, flash_plain, (q, k, v, wo), dt, n,
+                        f"jet_flash_attention {kind}{window or ''} {dt} order "
+                        f"{n} ({bsz}, {heads}, {t}, {dh})->{dm}"))
+                    worst["jet_flash_attention"] = max(
+                        worst["jet_flash_attention"], float((got - want).abs().max()))
+                rows.append(("jet_flash_attention", str(dt),
+                             f"{kind}{window or ''}", (bsz, heads, t, dh, dm),
+                             "1-8", e_max, tol))
+    for r in rows:
+        print(f"  {r[0]:19s} {r[1]:13s} {r[2]:7s} {str(r[3]):22s} orders {r[4]:5s} "
+              f"max rel err {r[5]:.2e} (tol {r[6]:.0e})")
+    report["kernel_checks"] += [dict(zip(("kernel", "dtype", "mask", "shape",
+                                          "orders", "max_rel_err", "tol"), r))
+                                for r in rows]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the served main path
 # ---------------------------------------------------------------------------
@@ -247,20 +346,14 @@ REQUESTS = (("grid", 4), ("cross", (0, 0, 1, 1)), ("cross", (0, 1)))
 SIZES = (5, 37, 200, 512)
 
 
-def serve_main_path(net, params, gen, report: dict) -> dict:
+def serve_concurrently(servers: dict, xs: dict, jobs: list):
+    """Three client threads per server submit ``jobs`` (kind, request, rows)
+    on inputs ``xs`` at once.  The launch counters are zeroed just before
+    and read just after; the servers are closed on the way out.  Returns
+    (tables keyed (server name, *job), launch counts, server metrics)."""
     import torch
-    from repro_torch.core.engines import DerivativeEngine
     from repro_torch.kernels import ops
-    from repro_torch.serving import DerivativeServer
 
-    mnet, mparams = unfused(net, params)
-    eager, autodiff = (DerivativeEngine.from_spec(s) for s in ("ntp", "autodiff"))
-    xs = {n: torch.rand((n, net.d_in), generator=gen, device=DEVICE,
-                        dtype=torch.float64) * 2 - 1 for n in SIZES}
-    jobs = [(kind, req, n) for kind, req in REQUESTS for n in SIZES]
-
-    servers = {"ntp/cuda": DerivativeServer(net, params, "ntp/cuda"),
-               "ntp/cuda unfused": DerivativeServer(mnet, mparams, "ntp/cuda")}
     results, errors = {}, []
 
     def client(name, server, part):
@@ -289,7 +382,24 @@ def serve_main_path(net, params, gen, report: dict) -> dict:
             srv.close()
     require(not any(t.is_alive() for t in threads), "a client thread hung")
     require(not errors, f"served requests failed: {errors}")
-    require(len(results) == 2 * len(jobs), "missing served results")
+    require(len(results) == len(servers) * len(jobs), "missing served results")
+    return results, launches, metrics
+
+
+def serve_main_path(net, params, gen, report: dict) -> dict:
+    import torch
+    from repro_torch.core.engines import DerivativeEngine
+    from repro_torch.serving import DerivativeServer
+
+    mnet, mparams = unfused(net, params)
+    eager, autodiff = (DerivativeEngine.from_spec(s) for s in ("ntp", "autodiff"))
+    xs = {n: torch.rand((n, net.d_in), generator=gen, device=DEVICE,
+                        dtype=torch.float64) * 2 - 1 for n in SIZES}
+    jobs = [(kind, req, n) for kind, req in REQUESTS for n in SIZES]
+    results, launches, metrics = serve_concurrently(
+        {"ntp/cuda": DerivativeServer(net, params, "ntp/cuda"),
+         "ntp/cuda unfused": DerivativeServer(mnet, mparams, "ntp/cuda")},
+        xs, jobs)
 
     batches = {name: m["batches"] for name, m in metrics.items()}
     want_k1 = 4 * batches["ntp/cuda"] + 4 * batches["ntp/cuda unfused"]
@@ -337,6 +447,93 @@ def serve_main_path(net, params, gen, report: dict) -> dict:
           f"{worst['served_vs_autodiff']:.2e} (tol {TOL_AUTODIFF:.0e})")
     report["served"] = {"launches": launches, "batches": batches,
                         "worst_rel_err": worst, "metrics": metrics}
+    return launches
+
+
+def polarization_scale(engine, net, params, x, axes) -> float:
+    """max over rows of (1/(2^m m!)) sum_eps |D^m_{v_eps} f|: the size of the
+    terms the polarization identity in ``engine.cross`` sums, hence the
+    scale of any engine's rounding error in that cross table."""
+    import torch
+    m, d, n = len(axes), x.shape[-1], x.shape[0]
+    signs = torch.tensor(list(itertools.product((1.0, -1.0), repeat=m)),
+                         dtype=x.dtype, device=x.device)
+    dirs = torch.zeros((2 ** m, d), dtype=x.dtype, device=x.device)
+    for k, a in enumerate(axes):
+        dirs[:, a] += signs[:, k]
+    with torch.no_grad():
+        dm = engine.derivs(net, params, x.repeat(2 ** m, 1), m,
+                           dirs.repeat_interleave(n, dim=0))[m]
+    terms = dm.abs().reshape(2 ** m, n, -1).sum(0)
+    return float(terms.max()) / (2 ** m * math.factorial(m))
+
+
+def serve_trunk(net, params, gen, report: dict) -> dict:
+    """Phase 3b: the Transformer trunk served under ntp/cuda."""
+    import torch
+    from repro_torch.core.engines import DerivativeEngine
+    from repro_torch.serving import DerivativeServer
+
+    eager, autodiff = (DerivativeEngine.from_spec(s) for s in ("ntp", "autodiff"))
+    xs = {n: torch.rand((n, net.d_in), generator=gen, device=DEVICE,
+                        dtype=torch.float64) * 2 - 1 for n in SIZES}
+    jobs = [(kind, req, n) for kind, req in REQUESTS for n in SIZES]
+    results, launches, metrics = serve_concurrently(
+        {"trunk": DerivativeServer(net, params, "ntp/cuda")}, xs, jobs)
+    metrics = metrics["trunk"]
+
+    batches = metrics["batches"]
+    want = {name: per * batches for name, per in TRUNK_PER_CALL.items()}
+    print(f"  launches in the served trunk run: {launches}; engine calls "
+          f"(batches): {batches}; expected {want}")
+    for name, n in want.items():
+        require(launches[name] == n,
+                f"{name} launched {launches[name]} times in the trunk run, "
+                f"want {n} ({TRUNK_PER_CALL[name]} per engine call)")
+
+    worst = {"served_vs_eager": 0.0, "served_vs_autodiff": 0.0,
+             "cross_vs_eager_of_table_max": 0.0}
+    by_request = {f"{kind}{req}": {"vs_eager": 0.0, "vs_autodiff": 0.0}
+                  for kind, req in REQUESTS}
+    for kind, req, n in jobs:
+        mine = by_request[f"{kind}{req}"]
+        x, served = xs[n], results[("trunk", kind, req, n)]
+        with torch.no_grad():
+            direct = (eager.grid(net, params, x, req) if kind == "grid"
+                      else eager.cross(net, params, x, req))
+        require(served.shape == direct.shape and bool(torch.isfinite(served).all()),
+                f"served trunk {kind} {req} N={n}: shape {tuple(served.shape)} "
+                f"want {tuple(direct.shape)}, or non-finite values")
+        if kind == "grid":
+            e = rel_err(served, direct, 2)
+        else:
+            scale = polarization_scale(eager, net, params, x, req)
+            e = float((served - direct).abs().max()) / scale
+            worst["cross_vs_eager_of_table_max"] = max(
+                worst["cross_vs_eager_of_table_max"], rel_err(served, direct, 0))
+        worst["served_vs_eager"] = max(worst["served_vs_eager"], e)
+        mine["vs_eager"] = max(mine["vs_eager"], e)
+        require(e <= TOL_SERVED, f"served trunk {kind} {req} N={n} vs eager: {e:.3e}")
+        if n in TRUNK_AUTODIFF_SIZES:
+            ad = (autodiff.grid(net, params, x, req) if kind == "grid"
+                  else autodiff.cross(net, params, x, req)).detach()
+            e = rel_err(served, ad, 2) if kind == "grid" else \
+                float((served - ad).abs().max()) / scale
+            worst["served_vs_autodiff"] = max(worst["served_vs_autodiff"], e)
+            mine["vs_autodiff"] = max(mine["vs_autodiff"], e)
+            require(e <= TOL_AUTODIFF,
+                    f"served trunk {kind} {req} N={n} vs autodiff: {e:.3e}")
+    print(f"  served trunk tables: {len(jobs)}; worst rel err vs eager ntp "
+          f"{worst['served_vs_eager']:.2e} (tol {TOL_SERVED:.0e}; cross tables "
+          f"relative to the polarization terms, {worst['cross_vs_eager_of_table_max']:.2e} "
+          f"of the table's own max), vs autodiff at N in {TRUNK_AUTODIFF_SIZES} "
+          f"{worst['served_vs_autodiff']:.2e} (tol {TOL_AUTODIFF:.0e})")
+    for key, w in by_request.items():
+        print(f"    {key}: vs eager {w['vs_eager']:.2e}, vs autodiff "
+              f"{w['vs_autodiff']:.2e}")
+    report["served_trunk"] = {"launches": launches, "batches": batches,
+                              "worst_rel_err": worst, "by_request": by_request,
+                              "metrics": metrics}
     return launches
 
 
@@ -444,6 +641,174 @@ def time_server(net, params, gen, report: dict) -> dict:
     return out
 
 
+def graph_time_ms(fn, reps: int = 20) -> float:
+    """Device ms per call of ``fn``, from replays of one CUDA graph of it.
+
+    The graph holds every kernel the call launches, so the replays run them
+    back to back with no host in between.  Used for calls that enqueue
+    more kernels than the launch queue holds, which defeat the spin of
+    ``device_time_ms``: the plain versions of K3/K4 and the trunk's engine
+    calls (the eager one runs ~2000 small kernels)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def event_time_ms(fn, reps: int = 20) -> float:
+    """Median device ms of single calls of ``fn``, each bracketed by CUDA
+    events after a synchronize.  For a call that synchronizes the host
+    itself (f64 ``scaled_dot_product_attention`` does), which neither
+    ``device_time_ms`` nor a CUDA graph can take; device idle inside the
+    call counts, so this is an upper bound on its device time."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return sorted(times)[reps // 2]
+
+
+def time_trunk_kernels(gen, report: dict) -> dict:
+    """K3 and K4 at the cross-512 serving shapes of the trunk (16 directions
+    x 512 rows x 2 tokens), beside their plain versions, the order-0
+    library calls and their bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.jet_attention import (jet_flash_attention_cuda,
+                                                   jet_rms_norm_cuda)
+
+    n1, rows, width, heads = 5, 16 * 512, TRUNK["width"], TRUNK["n_heads"]
+    dh, t, dt = width // heads, TRUNK["d_in"], torch.float64
+    item = torch.empty((), dtype=dt).element_size()
+    out = {}
+
+    x = 0.5 * torch.randn((n1, rows * t, width), generator=gen, device=DEVICE,
+                          dtype=dt)
+    g = 1.0 + 0.2 * torch.randn((width,), generator=gen, device=DEVICE, dtype=dt)
+    ms, host = device_time_ms(lambda: jet_rms_norm_cuda(x, g, 1e-6), 100,
+                              what="jet_rms_norm")
+    plain = graph_time_ms(lambda: ref.jet_rms_norm_ref(x, g, 1e-6))
+    lib, _ = device_time_ms(lambda: F.rms_norm(x[0], (width,), g, 1e-6), 100,
+                            what="F.rms_norm")
+    nbytes = (2 * x.numel() + g.numel()) * item
+    flops = rows * t * width * (2 * n1 * (n1 + 1) + n1) + rows * t * n1 * n1
+    bound = bound_ms(nbytes, flops, str(dt))
+    err = float((jet_rms_norm_cuda(x, g, 1e-6) - ref.jet_rms_norm_ref(x, g, 1e-6))
+                .abs().max())
+    out["jet_rms_norm"] = {
+        "shape": list(x.shape), "dtype": str(dt), "ms": ms, "host_ms": host,
+        "plain_ms": plain, "library_order0_ms": lib,
+        "library_order0_call": "torch.nn.functional.rms_norm on c_0",
+        "bound_ms": bound[0], "bound_by": bound[1], "bytes": nbytes,
+        "flops": flops, "max_abs_err": err}
+
+    q, k, v = (0.5 * torch.randn((n1, rows, heads, t, dh), generator=gen,
+                                 device=DEVICE, dtype=dt) for _ in range(3))
+    wo = torch.randn((heads, dh, width), generator=gen, device=DEVICE,
+                     dtype=dt) / width ** 0.5
+    scale = dh ** -0.5
+
+    def library_order0():
+        o = F.scaled_dot_product_attention(q[0], k[0], v[0], scale=scale)
+        return o.transpose(1, 2).reshape(rows, t, heads * dh) @ wo.reshape(-1, width)
+
+    ms, host = device_time_ms(
+        lambda: jet_flash_attention_cuda(q, k, v, wo, scale), 100,
+        what="jet_flash_attention")
+    plain = graph_time_ms(lambda: ref.jet_flash_attention_ref(q, k, v, wo, scale))
+    lib = event_time_ms(library_order0)
+    nbytes = (3 * q.numel() + wo.numel() + n1 * rows * t * width) * item
+    # no mask: every query keeps all T keys
+    pairs = rows * heads * t * t
+    flops = (pairs * (2 * n1 * (n1 + 1) * dh + 2 * n1 * n1)
+             + rows * heads * t * n1 * n1 * dh
+             + rows * t * n1 * 2 * heads * dh * width)
+    bound = bound_ms(nbytes, flops, str(dt))
+    err = float((jet_flash_attention_cuda(q, k, v, wo, scale)
+                 - ref.jet_flash_attention_ref(q, k, v, wo, scale)).abs().max())
+    out["jet_flash_attention"] = {
+        "shape": list(q.shape), "wo": list(wo.shape), "dtype": str(dt),
+        "ms": ms, "host_ms": host, "plain_ms": plain, "library_order0_ms": lib,
+        "library_order0_call": "scaled_dot_product_attention on c_0, then @ wo "
+                               "(events around single calls: it synchronizes)",
+        "bound_ms": bound[0], "bound_by": bound[1], "bytes": nbytes,
+        "flops": flops, "max_abs_err": err}
+    for name, r in out.items():
+        print(f"  {name} {tuple(r['shape'])} f64: {r['ms'] * 1e3:.2f} us (plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, order-0 library call "
+              f"{r['library_order0_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}; host dispatch "
+              f"{r['host_ms'] * 1e3:.2f} us)")
+    report["trunk_kernel_times"] = out
+    return out
+
+
+def time_trunk_server(net, params, gen, report: dict) -> dict:
+    """Per request kind at the 512 bucket: the trunk server's latency (one
+    client, no flush window) beside the device time of the bare engine call
+    (``graph_time_ms``), whose ratio is the device's busy share."""
+    import torch
+    from repro_torch.core.engines import DerivativeEngine
+    from repro_torch.serving import DerivativeServer
+
+    x = torch.rand((512, net.d_in), generator=gen, device=DEVICE,
+                   dtype=torch.float64) * 2 - 1
+    out = {}
+    for spec in ("ntp/cuda", "ntp"):
+        engine = DerivativeEngine.from_spec(spec)
+        for kind, req in REQUESTS[:2]:
+            fn = engine.grid if kind == "grid" else engine.cross
+            with torch.no_grad():
+                dev_ms = graph_time_ms(lambda: fn(net, params, x, req))
+            with DerivativeServer(net, params, spec, flush_window_s=0.0) as srv:
+                call = (lambda: srv.grid(x, req)) if kind == "grid" else \
+                    (lambda: srv.cross(x, req))
+                for _ in range(10):
+                    call()
+                srv.latency = type(srv.latency)()
+                t0 = time.perf_counter()
+                for _ in range(100):
+                    call()
+                wall = time.perf_counter() - t0
+                lat = srv.latency.snapshot()
+            key = f"{spec} {kind}{req} N=512"
+            busy = dev_ms * 1e3 / lat["p50_us"]
+            out[key] = {"p50_us": lat["p50_us"], "p99_us": lat["p99_us"],
+                        "mean_us": lat["mean_us"], "requests_per_s": 100 / wall,
+                        "engine_device_us": dev_ms * 1e3,
+                        "device_busy_share": busy}
+            print(f"  trunk server {key}: p50 {lat['p50_us']:.1f} us, p99 "
+                  f"{lat['p99_us']:.1f} us, {100 / wall:.1f} requests/s (one "
+                  f"client); engine call device {dev_ms * 1e3:.1f} us (graph "
+                  f"replay); device busy {100 * busy:.1f}% of p50")
+    report["trunk_server_latency"] = out
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -465,7 +830,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.core.network import DenseMLP
+    from repro_torch.core.network import DenseMLP, Transformer
     from repro_torch.kernels import cuda_lib
 
     report: dict = {"seed": args.seed}
@@ -486,15 +851,24 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
     print("[2] kernels against their plain versions")
     worst = check_kernels(gen, report)
+    check_trunk_kernels(gen, report, worst)
 
     net = DenseMLP(d_in=2, width=32, depth=3, d_out=1, activation="tanh")
     params = net.init(torch.Generator().manual_seed(args.seed), dtype=torch.float64)
-    print("[3] served main path: pinn-pde DenseMLP(2, 32, 3, 1, tanh) f64, ntp/cuda")
+    print("[3a] served main path: pinn-pde DenseMLP(2, 32, 3, 1, tanh) f64, ntp/cuda")
     launches = serve_main_path(net, params, gen, report)
+    trunk = Transformer(**TRUNK)
+    trunk_params = trunk.init(torch.Generator().manual_seed(args.seed),
+                              dtype=torch.float64)
+    print("[3b] served main path: pinn-pde Transformer(2, 32, 3, 1, 2 heads, "
+          "mlp_ratio 2, tanh) f64, ntp/cuda")
+    trunk_launches = serve_trunk(trunk, trunk_params, gen, report)
 
     print("[4] times (CUDA events, warm L2, back-to-back device work)")
     times = time_kernels(net, params, gen, report)
     time_server(net, params, gen, report)
+    trunk_times = time_trunk_kernels(gen, report)
+    time_trunk_server(trunk, trunk_params, gen, report)
 
     t = times["cross512"]
     kernels = []
@@ -506,12 +880,32 @@ def main(argv=None) -> int:
         k = t[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches[name] + trunk_launches[name],
+            "launches_by_path": {"dense_mlp": launches[name],
+                                 "transformer": trunk_launches[name]},
             "max_abs_err": max(worst[name], k["max_abs_err"]),
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             "gemm_only_ms": k.get("gemm_only_ms"), "host_ms": k["host_ms"],
             "shape": t["shape"], "dtype": t["dtype"]})
+    for name, source, replaces in (
+            ("jet_rms_norm", "src/repro_torch/kernels/csrc/jet_rms_norm.cu",
+             "src/repro/kernels/jet_attention.py:393"),
+            ("jet_flash_attention",
+             "src/repro_torch/kernels/csrc/jet_flash_attention.cu",
+             "src/repro/kernels/jet_attention.py:315")):
+        k = trunk_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name] + trunk_launches[name],
+            "launches_by_path": {"dense_mlp": launches[name],
+                                 "transformer": trunk_launches[name]},
+            "max_abs_err": max(worst[name], k["max_abs_err"]),
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+            "library_order0_ms": k["library_order0_ms"],
+            "library_order0_call": k["library_order0_call"],
+            "host_ms": k["host_ms"], "shape": k["shape"], "dtype": k["dtype"]})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

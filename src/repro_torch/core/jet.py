@@ -12,9 +12,10 @@ constants:
   contraction (core/partitions.py) with closed-form outer coefficients
   (core/activations.py).
 
-This is the part of the reference algebra that the dense path and the
-activations reach; the attention and normalization rules (softmax, rms_norm,
-layer_norm, div, rsqrt) come with the transformer slice.
+This is the part of the reference algebra that the dense path, the
+activations and the transformer trunk reach (softmax, rms_norm and the
+power-series recurrences under them); ``log`` and ``layer_norm`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -94,10 +95,14 @@ def seed(x: torch.Tensor, v: torch.Tensor | None, order: int) -> Jet:
 
 
 def const(x: JetLike, order: int, like: Jet | None = None) -> Jet:
-    """Constant-in-t jet (only c_0 populated)."""
+    """Constant-in-t jet (only c_0 populated).  A Python number is filled
+    in on ``like``'s device: a host-made tensor would be a blocking copy on
+    every call (``rms_norm``'s eps, the softmax mask constant)."""
     if isinstance(x, Jet):
         return x
-    if like is not None:
+    if like is not None and isinstance(x, (int, float)):
+        x = torch.full((), x, dtype=like.dtype, device=like.device)
+    elif like is not None:
         x = torch.as_tensor(x, dtype=like.dtype, device=like.device)
     else:
         x = torch.as_tensor(x)
@@ -186,6 +191,21 @@ def linear(a: Jet, w: torch.Tensor, b: torch.Tensor | None = None) -> Jet:
     return Jet(out)
 
 
+def _stack_axes(axis):
+    """Axes of the underlying tensor -> axes of the coefficient stack."""
+    if isinstance(axis, int):
+        return axis if axis < 0 else axis + 1
+    return tuple(_stack_axes(a) for a in axis)
+
+
+def reduce_sum(a: Jet, axis, keepdims: bool = False) -> Jet:
+    return Jet(a.coeffs.sum(dim=_stack_axes(axis), keepdim=keepdims))
+
+
+def reduce_mean(a: Jet, axis, keepdims: bool = False) -> Jet:
+    return Jet(a.coeffs.mean(dim=_stack_axes(axis), keepdim=keepdims))
+
+
 def where(mask: torch.Tensor, a: JetLike, b: JetLike) -> Jet:
     """Select with a t-constant predicate (exact a.e.; mask must not depend on t)."""
     a, b = _promote(a, b)
@@ -211,6 +231,72 @@ def _cauchy(a: Jet, b: Jet,
 def mul(a: JetLike, b: JetLike) -> Jet:
     a, b = _promote(a, b)
     return _cauchy(a, b, torch.mul)
+
+
+def einsum(eq: str, a: JetLike, b: JetLike) -> Jet:
+    """Jet-valued contraction: out_k = sum_{i+j=k} einsum(eq, a_i, b_j).
+
+    If one operand is t-constant the convolution degenerates to a per-
+    coefficient einsum.  No broadcast alignment: the subscripts fix the
+    ranks."""
+    if isinstance(a, Jet) and not isinstance(b, Jet):
+        return jmap(lambda c: torch.einsum(eq, c, b), a)
+    if isinstance(b, Jet) and not isinstance(a, Jet):
+        return jmap(lambda c: torch.einsum(eq, a, c), b)
+    if a.order != b.order:
+        raise ValueError(f"jet order mismatch: {a.order} vs {b.order}")
+    return _cauchy(a, b, lambda x, y: torch.einsum(eq, x, y))
+
+
+# ---------------------------------------------------------------------------
+# power-series recurrences
+# ---------------------------------------------------------------------------
+
+def exp(a: Jet) -> Jet:
+    """e_0 = exp(a_0);  e_k = (1/k) sum_{j=1..k} j a_j e_{k-j}."""
+    n = a.order
+    rows = [torch.exp(a.coeffs[0])]
+    for k in range(1, n + 1):
+        acc = a.coeffs[k] * rows[0] * k  # j = k term
+        for j in range(1, k):
+            acc = acc + j * a.coeffs[j] * rows[k - j]
+        rows.append(acc / k)
+    return Jet(torch.stack(rows))
+
+
+def div(a: JetLike, b: JetLike) -> Jet:
+    """c_k = (a_k - sum_{j=1..k} b_j c_{k-j}) / b_0."""
+    a, b = _promote(a, b)
+    inv0 = 1.0 / b.coeffs[0]
+    rows = [a.coeffs[0] * inv0]
+    for k in range(1, a.order + 1):
+        acc = a.coeffs[k]
+        for j in range(1, k + 1):
+            acc = acc - b.coeffs[j] * rows[k - j]
+        rows.append(acc * inv0)
+    return Jet(torch.stack(rows))
+
+
+def powr(a: Jet, r: float) -> Jet:
+    """a^r (real r) via the J.C.P. Miller recurrence:
+    c_k = (1/(k a_0)) sum_{j=1..k} ((r+1) j - k) a_j c_{k-j}."""
+    n = a.order
+    inv0 = 1.0 / a.coeffs[0]
+    rows = [torch.pow(a.coeffs[0], r)]
+    for k in range(1, n + 1):
+        acc = ((r + 1) * 1 - k) * a.coeffs[1] * rows[k - 1]
+        for j in range(2, k + 1):
+            acc = acc + ((r + 1) * j - k) * a.coeffs[j] * rows[k - j]
+        rows.append(acc * inv0 / k)
+    return Jet(torch.stack(rows))
+
+
+def sqrt(a: Jet) -> Jet:
+    return powr(a, 0.5)
+
+
+def rsqrt(a: Jet) -> Jet:
+    return powr(a, -0.5)
 
 
 # ---------------------------------------------------------------------------
@@ -289,3 +375,38 @@ def activation(a: Jet, name: str) -> Jet:
         return _COMPOSITE_ACTS[name](a)
     raise KeyError(f"unknown activation {name!r}; known: "
                    f"{sorted(set(TAYLOR_STACKS) | set(_COMPOSITE_ACTS))}")
+
+
+# ---------------------------------------------------------------------------
+# softmax & norms (built from the primitives; used by attention jets)
+# ---------------------------------------------------------------------------
+
+# Finite stand-in for -inf at masked softmax positions: exp underflows to
+# exactly 0 (killing the whole e-jet there by the exp recurrence), while
+# arithmetic on it stays NaN-free -- a true -inf would produce inf - inf
+# under the shift and 0 * inf in the recurrences.  The flash kernel
+# (kernels/csrc/jet_flash_attention.cu) uses the same constant.
+MASK_NEG = -1e30
+
+
+def softmax(a: Jet, axis: int = -1, mask: torch.Tensor | None = None) -> Jet:
+    """Softmax jet over ``axis``; ``mask`` is an optional t-constant boolean
+    keep-matrix (True = attend, broadcastable against the coefficients).
+    Masked positions are replaced by the constant jet ``MASK_NEG`` *before*
+    the exp recurrence, so their probability jets vanish identically at
+    every order.  A row that keeps no position becomes the uniform
+    distribution with zero higher-order coefficients.  The shift is
+    detached: it is t-constant and cancels in the division."""
+    if mask is not None:
+        a = where(mask, a, MASK_NEG)
+    shift = a.coeffs[0].amax(dim=axis, keepdim=True).detach()
+    e = exp(sub(a, const(shift, a.order, like=a)))
+    s = reduce_sum(e, axis=axis, keepdims=True)
+    return div(e, s)
+
+
+def rms_norm(x: Jet, gamma: torch.Tensor, eps: float = 1e-6,
+             axis: int = -1, offset: float = 0.0) -> Jet:
+    ms = reduce_mean(mul(x, x), axis=axis, keepdims=True)
+    inv = rsqrt(add(ms, eps))
+    return scale(mul(x, inv), (offset + gamma))

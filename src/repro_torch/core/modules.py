@@ -5,22 +5,30 @@ A :class:`Module` is the smallest jet-traceable unit -- ``init`` / ``apply``
 (``repro_torch.core.network``):
 
 * **leaves** own parameters and the jet rules for one operation --
-  :class:`Dense` (with the fused ``jet_dense`` kernel path) and
-  :class:`Activation`;
+  :class:`Dense` (with the fused ``jet_dense`` kernel path),
+  :class:`Activation`, and the transformer trunk's :class:`RMSNorm`,
+  :class:`SelfAttention`, :class:`MLPBlock`, :class:`CoordinateEmbedding`
+  and :class:`TokenPool`;
 * **combinators** own structure only -- :class:`Sequential` (params are a
   tuple, one entry per child, drawn from the generator in child order) and
   :class:`Residual` (``x + inner(x)``; jet addition is exact).
 
 ``impl="cuda"`` routes every Dense contraction through
 ``repro_torch.kernels.ops.jet_dense``, fusing the activation into the
-kernel's epilogue when ``ops.epilogues()`` marks the name ``ACTIVATION``;
-anything unfused runs the jet algebra, so a module mixes kernel and eager
-paths freely.  The transformer leaves (RMSNorm, SelfAttention, ...) come
-with the transformer slice.
+kernel's epilogue when ``ops.epilogues()`` marks the name ``ACTIVATION``,
+every RMSNorm through ``ops.jet_rms_norm`` and everything of an attention
+layer after its q/k/v projections through ``ops.jet_flash_attention`` (the
+``"rms_norm"`` / ``"flash_attention"`` ``FUSED_OP`` entries of the same
+registry); anything unfused runs the jet algebra, so a module mixes kernel
+and eager paths freely.  ``SelfAttention`` carries the attention-mask
+surface (``mask=None | "causal" | ("local", window)``, canonicalized by
+:func:`normalize_attention_mask`), honoured alike by the primal ``apply``,
+the eager jet path (``J.softmax(mask=...)``) and the flash kernel.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
 
@@ -58,9 +66,54 @@ def _check_impl(impl: str) -> None:
 
 
 def _is_activation_epilogue(name: str) -> bool:
-    """Can the dense kernel run ``name`` in its Faa di Bruno epilogue?"""
+    """Can the dense kernel run ``name`` in its Faa di Bruno epilogue?  The
+    FUSED_OP entries ("rms_norm", "flash_attention") are not dense
+    epilogues and take their own dispatch."""
     from repro_torch.kernels import ops as kops
     return kops.epilogues().get(name) is kops.EpilogueKind.ACTIVATION
+
+
+# every canonical attention-mask kind normalize_attention_mask can emit
+ATTENTION_MASK_KINDS = ("none", "causal", "local")
+
+
+def normalize_attention_mask(mask) -> tuple:
+    """Canonicalize an attention-mask spec to a hashable ``(kind, window)``
+    pair: ``None``/"none" -> ("none", 0), "causal" -> ("causal", 0),
+    ("local", w) -> ("local", int(w)) with w >= 1.  The single validation
+    point shared by :class:`SelfAttention` and the flash-kernel dispatch in
+    ``repro_torch.kernels.ops``."""
+    if mask is None or mask == "none" or mask == ("none", 0):
+        return ("none", 0)
+    if mask == "causal" or mask == ("causal", 0):
+        return ("causal", 0)
+    if (isinstance(mask, (tuple, list)) and len(mask) == 2
+            and mask[0] == "local"):
+        window = int(mask[1])
+        if window < 1:
+            raise ValueError(f"local attention window must be >= 1, "
+                             f"got {mask[1]!r}")
+        return ("local", window)
+    raise ValueError(f"unknown attention mask {mask!r}; want None, "
+                     "'causal', or ('local', window)")
+
+
+def attention_mask(mask, t: int, device=None) -> torch.Tensor | None:
+    """Dense (T, T) boolean keep-matrix for a mask spec (None for "none"),
+    on ``device`` (the CPU by default): what the eager softmax path, the
+    primal forward and the flash kernel's backward recompute consume.
+    ``local(w)`` is a causal sliding window -- query q attends keys j with
+    ``q - w < j <= q`` -- so the diagonal is always kept and no query row
+    is ever fully masked."""
+    kind, window = normalize_attention_mask(mask)
+    if kind == "none":
+        return None
+    qi = torch.arange(t, device=device)[:, None]
+    kj = torch.arange(t, device=device)[None, :]
+    keep = kj <= qi
+    if kind == "local":
+        keep = keep & ((qi - kj) < window)
+    return keep
 
 
 def dense_jet(jet: J.Jet, w: torch.Tensor, b: torch.Tensor | None,
@@ -137,6 +190,187 @@ class Activation(Module):
             from repro_torch.kernels import ops as kops
             return J.Jet(kops.act_jet(jet.coeffs, self.name))
         return J.activation(jet, self.name)
+
+
+@dataclass(frozen=True)
+class RMSNorm(Module):
+    """Pre-norm RMS normalization over the trailing feature axis; params are
+    the gain ``gamma`` (ones-init).  Smooth everywhere (rsqrt of a positive
+    mean square), so the jet is exact at every order.  Under
+    ``impl="cuda"`` the whole chain (mean-square convolution, rsqrt
+    recurrence, gain) runs as the fused ``ops.jet_rms_norm`` kernel."""
+
+    dim: int
+    eps: float = 1e-6
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None) -> Params:
+        return torch.ones((self.dim,), dtype=dtype, device=resolve_device(device))
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        ms = (x * x).mean(dim=-1, keepdim=True)
+        return x * torch.rsqrt(ms + self.eps) * params
+
+    def jet_apply(self, params: Params, jet: J.Jet, *,
+                  impl: str = "torch") -> J.Jet:
+        _check_impl(impl)
+        if impl == "cuda":
+            from repro_torch.kernels import ops as kops
+            return J.Jet(kops.jet_rms_norm(jet.coeffs, params, eps=self.eps))
+        return J.rms_norm(jet, params, eps=self.eps)
+
+
+@dataclass(frozen=True)
+class SelfAttention(Module):
+    """Multi-head scaled-dot-product self-attention over the token axis
+    (``x``: (..., T, dim)); params ``{"wq", "wk", "wv", "wo"}``, each
+    (dim, dim).  Scores are a jet x jet Cauchy-convolved einsum, softmax
+    goes through the exp/div power-series recurrences, and the value
+    contraction is a second jet x jet einsum.
+
+    ``mask``: ``None`` (dense), ``"causal"``, or ``("local", window)`` -- a
+    causal sliding window where query q attends keys j with
+    ``q - window < j <= q``.
+
+    Under ``impl="cuda"`` the q/k/v projections run the dense kernel and
+    everything downstream -- Cauchy QK^T, scale, masked softmax, value
+    contraction, output projection -- runs as ONE flash-jet launch
+    (``ops.jet_flash_attention``), so the (Tq, Tk) score jet never reaches
+    device memory."""
+
+    dim: int
+    n_heads: int = 2
+    mask: Any = None
+
+    def __post_init__(self):
+        if self.dim % self.n_heads:
+            raise ValueError(f"dim={self.dim} not divisible by "
+                             f"n_heads={self.n_heads}")
+        # canonicalize (and validate) so equal masks hash equal and the
+        # spec stays hashable inside the frozen dataclass
+        kind, window = normalize_attention_mask(self.mask)
+        canon = None if kind == "none" else \
+            ("causal" if kind == "causal" else (kind, window))
+        object.__setattr__(self, "mask", canon)
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None) -> Params:
+        device = resolve_device(device)
+        return {name: xavier_uniform(generator, self.dim, self.dim, dtype,
+                                     device)
+                for name in ("wq", "wk", "wv", "wo")}
+
+    def _split_heads(self, c: torch.Tensor) -> torch.Tensor:
+        return c.reshape(tuple(c.shape[:-1]) + (self.n_heads, self.head_dim))
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        q = self._split_heads(x @ params["wq"])
+        k = self._split_heads(x @ params["wk"])
+        v = self._split_heads(x @ params["wv"])
+        s = torch.einsum("...qhd,...khd->...hqk", q, k) / math.sqrt(self.head_dim)
+        keep = attention_mask(self.mask, x.shape[-2], x.device)
+        if keep is not None:
+            s = torch.where(keep, s, torch.full_like(s, J.MASK_NEG))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("...hqk,...khd->...qhd", p, v)
+        return o.reshape(tuple(o.shape[:-2]) + (self.dim,)) @ params["wo"]
+
+    def jet_apply(self, params: Params, jet: J.Jet, *,
+                  impl: str = "torch") -> J.Jet:
+        split = lambda j: J.Jet(self._split_heads(j.coeffs))
+        q = split(dense_jet(jet, params["wq"], None, None, impl))
+        k = split(dense_jet(jet, params["wk"], None, None, impl))
+        v = split(dense_jet(jet, params["wv"], None, None, impl))
+        scale = 1.0 / math.sqrt(self.head_dim)
+        if impl == "cuda":
+            # one launch for the rest of the block; the head axis stays
+            # inside the kernel so the output projection (which mixes
+            # heads) folds into its epilogue
+            from repro_torch.kernels import ops as kops
+            to_heads = lambda c: c.movedim(-2, -3)        # (..., H, T, Dh)
+            return J.Jet(kops.jet_flash_attention(
+                to_heads(q.coeffs), to_heads(k.coeffs), to_heads(v.coeffs),
+                params["wo"], scale, mask=self.mask))
+        s = J.scale(J.einsum("...qhd,...khd->...hqk", q, k), scale)
+        p = J.softmax(s, axis=-1, mask=attention_mask(
+            self.mask, jet.shape[-2], jet.device))
+        o = J.einsum("...hqk,...khd->...qhd", p, v)
+        o = J.Jet(o.coeffs.reshape(tuple(o.coeffs.shape[:-2]) + (self.dim,)))
+        return dense_jet(o, params["wo"], None, None, impl)
+
+
+@dataclass(frozen=True)
+class MLPBlock(Module):
+    """Transformer feed-forward: ``Dense(dim, hidden, act) -> Dense(hidden,
+    dim)``; params are the inner :class:`Sequential`'s tuple."""
+
+    dim: int
+    hidden: int
+    activation: str = "tanh"
+
+    def _seq(self) -> "Sequential":
+        return Sequential((Dense(self.dim, self.hidden, self.activation),
+                           Dense(self.hidden, self.dim, None)))
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None) -> Params:
+        return self._seq().init(generator, dtype, device)
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return self._seq().apply(params, x)
+
+    def jet_apply(self, params: Params, jet: J.Jet, *,
+                  impl: str = "torch") -> J.Jet:
+        return self._seq().jet_apply(params, jet, impl=impl)
+
+
+@dataclass(frozen=True)
+class CoordinateEmbedding(Module):
+    """Tokens from coordinates: input point ``x`` (..., d_in) becomes d_in
+    tokens, token t = ``x_t * w[t] + b[t]`` (..., d_in, dim).  Each
+    coordinate gets its own embedding row, so ``w``/``b`` double as learned
+    positional encodings; the map is linear, hence jet-exact (the bias
+    lands on coefficient 0 only)."""
+
+    d_in: int
+    dim: int
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None) -> Params:
+        device = resolve_device(device)
+        return (xavier_uniform(generator, self.d_in, self.dim, dtype, device),
+                torch.zeros((self.d_in, self.dim), dtype=dtype, device=device))
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        w, b = params
+        return x[..., :, None] * w + b
+
+    def jet_apply(self, params: Params, jet: J.Jet, *,
+                  impl: str = "torch") -> J.Jet:
+        _check_impl(impl)
+        w, b = params
+        coeffs = jet.coeffs[..., :, None] * w
+        return J.Jet(torch.cat([coeffs[:1] + b, coeffs[1:]]))
+
+
+@dataclass(frozen=True)
+class TokenPool(Module):
+    """Mean over the token axis (..., T, dim) -> (..., dim); linear, so the
+    jet reduces coefficient-wise."""
+
+    axis: int = -2
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=self.axis)
+
+    def jet_apply(self, params: Params, jet: J.Jet, *,
+                  impl: str = "torch") -> J.Jet:
+        _check_impl(impl)
+        return J.reduce_mean(jet, axis=self.axis)
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +450,11 @@ def make_module(name: str, **kwargs) -> Module:
 for _name, _factory in (
     ("dense", Dense),
     ("activation", Activation),
+    ("rms_norm", RMSNorm),
+    ("self_attention", SelfAttention),
+    ("mlp_block", MLPBlock),
+    ("coordinate_embedding", CoordinateEmbedding),
+    ("token_pool", TokenPool),
     ("sequential", Sequential),
     ("residual", Residual),
 ):

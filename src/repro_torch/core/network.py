@@ -16,10 +16,11 @@ public parameter tree onto that graph.
 =================  ==========================================================
 DenseMLP           uniform-width MLP over :class:`repro_torch.core.ntp.MLPParams`
 MLP                variable per-layer widths
+Transformer        pre-norm self-attention trunk over coordinate tokens
 =================  ==========================================================
 
-The residual, Fourier-feature and transformer networks come with later
-slices of the port.
+The residual and Fourier-feature networks come with a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from typing import Any, Callable, Dict, Protocol, Tuple, runtime_checkable
 import torch
 
 from . import jet as J
-from .modules import Dense, Module, Sequential
+from .modules import (CoordinateEmbedding, Dense, MLPBlock, Module, Residual,
+                      RMSNorm, SelfAttention, Sequential, TokenPool)
 from .ntp import MLPParams, init_mlp, mlp_apply
 
 Params = Any  # parameter tree; its structure is owned by the network
@@ -152,6 +154,63 @@ class MLP(_Composed):
 
 
 # ---------------------------------------------------------------------------
+# Transformer: pre-norm self-attention trunk over coordinate tokens
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Transformer(_Composed):
+    """Attention PINN trunk: each input coordinate becomes a token
+    (:class:`CoordinateEmbedding`, whose per-coordinate rows double as
+    learned positional encodings), ``depth`` pre-norm blocks of
+    ``Residual(RMSNorm -> SelfAttention)`` then ``Residual(RMSNorm ->
+    MLPBlock)`` mix the tokens, and a final RMSNorm -> mean token pool ->
+    linear head reads out ``d_out`` components.  Params are the module
+    graph's native tuple.
+
+    Under ``impl="cuda"`` one jet forward launches, per block, the q/k/v
+    and MLP dense kernels (5), the flash-jet attention kernel (1) and the
+    fused RMSNorm kernel (2), plus the final RMSNorm and the head's dense
+    kernel.
+    """
+
+    d_in: int
+    width: int               # token embedding dim (d_model)
+    depth: int               # number of attention + MLP block pairs
+    d_out: int
+    n_heads: int = 2
+    mlp_ratio: int = 2       # feed-forward hidden dim = mlp_ratio * width
+    activation: str = "tanh"
+    mask: Any = None         # None | "causal" | ("local", window)
+
+    def __post_init__(self):
+        if self.width % self.n_heads:
+            raise ValueError(f"width={self.width} not divisible by "
+                             f"n_heads={self.n_heads}")
+        # validate + canonicalize once here: configs pass lists, the
+        # dataclass must stay hashable
+        probe = SelfAttention(self.width, self.n_heads, self.mask)
+        object.__setattr__(self, "mask", probe.mask)
+
+    def _graph(self) -> Module:
+        mods = [CoordinateEmbedding(self.d_in, self.width)]
+        for _ in range(self.depth):
+            mods.append(Residual(Sequential((
+                RMSNorm(self.width),
+                SelfAttention(self.width, self.n_heads, self.mask)))))
+            mods.append(Residual(Sequential((
+                RMSNorm(self.width),
+                MLPBlock(self.width, self.mlp_ratio * self.width,
+                         self.activation)))))
+        mods += [RMSNorm(self.width), TokenPool(),
+                 Dense(self.width, self.d_out, None)]
+        return Sequential(tuple(mods))
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None) -> Params:
+        return self._graph().init(generator, dtype, device)
+
+
+# ---------------------------------------------------------------------------
 # registry: named factories for configs / CLIs
 # ---------------------------------------------------------------------------
 
@@ -183,3 +242,4 @@ def make_network(kind: str, *, d_in: int, d_out: int, width: int, depth: int,
 register_network("dense", DenseMLP)
 register_network("mlp", lambda *, d_in, d_out, width, depth, activation="tanh",
                  **kw: MLP((d_in,) + (width,) * depth + (d_out,), activation))
+register_network("transformer", Transformer)

@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_D = ctypes.c_double
 _SIGNATURES = {
     # x, out, n_elem, n1, act, dtype, starts, terms, coef, poly, stream
     "act_jet_launch": (_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P),
@@ -39,6 +42,12 @@ _SIGNATURES = {
     # starts, terms, coef, poly, stream
     "jet_dense_launch": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P),
+    # x, gamma, out, bsz, width, n1, dtype, eps, stream
+    "jet_rms_norm_launch": (_P, _P, _P, _I64, _I, _I, _I, _D, _P),
+    # q, k, v, wo, out, bsz, heads, t, dh, dm, n1, dtype, scale, mask,
+    # window, stream
+    "jet_flash_attention_launch": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                                   _I, _I, _D, _I, _I, _P),
 }
 
 
@@ -107,6 +116,16 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = library().jetk_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the library's launcher ``name`` with ``args`` on ``device``'s
+    current stream (the device made current around the call); raise on a
+    CUDA error."""
+    with torch.cuda.device(device):
+        rc = getattr(library(), name)(*args,
+                                      torch.cuda.current_stream().cuda_stream)
+    check(rc, name.removesuffix("_launch"))
 
 
 def _nvcc() -> str:

@@ -1,0 +1,106 @@
+"""Launch wrappers of the transformer trunk's kernels: K3, the fused jet
+RMSNorm (csrc/jet_rms_norm.cu), and K4, the flash-jet attention block
+(csrc/jet_flash_attention.cu).  They replace the reference's
+kernels/jet_attention.py::jet_rms_norm_pallas and
+::jet_flash_attention_pallas.
+
+* :func:`jet_rms_norm_cuda`: (n+1, B, W) stack + (W,) gain -> the
+  normalized jet, one warp per row (mean-square convolution, Miller rsqrt
+  recurrence, normalizing product and gain in one pass).
+* :func:`jet_flash_attention_cuda`: Q/K/V stacks (n+1, B, H, T, Dh) and the
+  output projection (H, Dh, Dm) -> the block output jet (n+1, B, T, Dm),
+  online softmax over the coefficient axis, no score jet in device memory.
+
+Their plain versions are :func:`repro_torch.kernels.ref.jet_rms_norm_ref`
+and :func:`~repro_torch.kernels.ref.jet_flash_attention_ref`.  Both kernels
+take contiguous float32/float64 tensors and orders 0..8.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+from .cuda_lib import LaunchCounter
+from .tanh_jet import DTYPE_CODES, check_cuda_tensor, check_order
+
+MASK_CODES = {"none": 0, "causal": 1, "local": 2}
+MAX_HEAD_DIM = 128            # csrc/jet_flash_attention.cu: 32 x kMaxDPL
+_FLASH_WARPS = 4              # csrc/jet_flash_attention.cu: kWarps
+_SMEM_LIMIT = 232448          # shared memory a block can use on Hopper
+
+RMS_NORM_LAUNCHES = LaunchCounter("jet_rms_norm")
+FLASH_LAUNCHES = LaunchCounter("jet_flash_attention")
+
+
+def _same_device(*ts: torch.Tensor) -> None:
+    if any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"tensors must share a device, got "
+                         f"{[str(t.device) for t in ts]}")
+
+
+def jet_rms_norm_cuda(coeffs: torch.Tensor, gamma: torch.Tensor,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """K3 on the card: (n+1, B, W) + (W,) -> (n+1, B, W)."""
+    check_cuda_tensor(coeffs, "coeffs", 3)
+    check_cuda_tensor(gamma, "gamma", 1, coeffs.dtype)
+    _same_device(coeffs, gamma)
+    n1, bsz, width = coeffs.shape
+    check_order(n1)
+    if gamma.shape[0] != width:
+        raise ValueError(f"gamma shape {tuple(gamma.shape)} != ({width},)")
+    out = torch.empty_like(coeffs)
+    cuda_lib.launch("jet_rms_norm_launch", coeffs.device, coeffs.data_ptr(),
+                    gamma.data_ptr(), out.data_ptr(), bsz, width, n1,
+                    DTYPE_CODES[coeffs.dtype], float(eps))
+    RMS_NORM_LAUNCHES.add()
+    return out
+
+
+def flash_smem_bytes(n1: int, heads: int, head_dim: int,
+                     dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K4 block: per warp, the current head's
+    query jet and every head's output jet."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return _FLASH_WARPS * (heads + 1) * n1 * head_dim * item
+
+
+def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, wo: torch.Tensor, scale: float,
+                             mask: str = "none", window: int = 0) -> torch.Tensor:
+    """K4 on the card: q/k/v (n+1, B, H, T, Dh), wo (H, Dh, Dm) ->
+    (n+1, B, T, Dm).  ``mask`` in {"none", "causal", "local"}; "local"
+    attends keys j with ``q - window < j <= q``."""
+    check_cuda_tensor(q, "q", 5)
+    for name, t in (("k", k), ("v", v)):
+        check_cuda_tensor(t, name, 5, q.dtype)
+        if t.shape != q.shape:
+            raise ValueError(f"q/k/v shape mismatch: {tuple(q.shape)} vs "
+                             f"{name} {tuple(t.shape)}")
+    check_cuda_tensor(wo, "wo", 3, q.dtype)
+    _same_device(q, k, v, wo)
+    n1, bsz, heads, t, dh = q.shape
+    check_order(n1)
+    if tuple(wo.shape[:2]) != (heads, dh):
+        raise ValueError(f"wo shape {tuple(wo.shape)} incompatible with "
+                         f"(H, Dh) = ({heads}, {dh})")
+    if mask not in MASK_CODES:
+        raise ValueError(f"unknown mask variant {mask!r}")
+    if mask == "local" and window < 1:
+        raise ValueError(f"local mask needs window >= 1, got {window}")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM}, got {dh}")
+    smem = flash_smem_bytes(n1, heads, dh, q.dtype)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the flash kernel needs {smem} bytes of shared "
+                         f"memory for {heads} heads x {dh} dims at order "
+                         f"{n1 - 1}; a block has {_SMEM_LIMIT}")
+    dm = wo.shape[2]
+    out = torch.empty((n1, bsz, t, dm), dtype=q.dtype, device=q.device)
+    cuda_lib.launch("jet_flash_attention_launch", q.device, q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), wo.data_ptr(), out.data_ptr(),
+                    bsz, heads, t, dh, dm, n1, DTYPE_CODES[q.dtype],
+                    float(scale), MASK_CODES[mask], int(window))
+    FLASH_LAUNCHES.add()
+    return out

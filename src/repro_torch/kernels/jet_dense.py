@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_lib import LaunchCounter, check, library
+from . import cuda_lib
+from .cuda_lib import LaunchCounter
 from .tanh_jet import (ACT_CODES, DTYPE_CODES, KERNEL_ACTS, check_cuda_tensor,
                        check_order, device_tables)
 
@@ -42,12 +43,9 @@ def jet_dense_cuda(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     dout = w.shape[1]
     out = torch.empty((n1, bsz, dout), dtype=coeffs.dtype, device=coeffs.device)
     tables = device_tables(coeffs.dtype, coeffs.device)
-    with torch.cuda.device(coeffs.device):
-        rc = library().jet_dense_launch(
-            coeffs.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            bsz, din, dout, n1, ACT_CODES[activation],
-            DTYPE_CODES[coeffs.dtype], *tables.pointers,
-            torch.cuda.current_stream().cuda_stream)
-    check(rc, "jet_dense")
+    cuda_lib.launch("jet_dense_launch", coeffs.device, coeffs.data_ptr(),
+                    w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, din, dout,
+                    n1, ACT_CODES[activation], DTYPE_CODES[coeffs.dtype],
+                    *tables.pointers)
     LAUNCHES.add()
     return out

@@ -1,18 +1,21 @@
-"""Public dispatch for the jet kernels of the dense path.
+"""Public dispatch for the jet kernels.
 
-:func:`jet_dense` and :func:`act_jet` launch the hand-written CUDA kernels
-for CUDA tensors and run their plain versions (kernels/ref.py) only for CPU
-tensors, so the CPU tests reach every line around the kernels.  There is no
-fallback: on the card a wrapper launches its kernel or raises, and both
+:func:`jet_dense` and :func:`act_jet` (the dense path) and
+:func:`jet_rms_norm` and :func:`jet_flash_attention` (the transformer
+trunk) launch the hand-written CUDA kernels for CUDA tensors and run their
+plain versions (kernels/ref.py) only for CPU tensors, so the CPU tests
+reach every line around the kernels.  There is no
+fallback: on the card a wrapper launches its kernel or raises, and all
 refuse orders above :data:`MAX_ORDER` on every device, so ``impl="cuda"``
 means the same thing on the CPU as on the card.
 
-* Both accept **arbitrary leading batch axes** -- ``(n+1, *batch, D)`` --
+* All accept **arbitrary leading batch axes** -- ``(n+1, *batch, D)`` --
   and fold them into the kernel's batch dimension (a free reshape).
 * :func:`epilogues` is the typed capability registry: fusable name ->
   :class:`EpilogueKind`.  ``ACTIVATION`` entries are the closed-form tables
-  the dense kernel's epilogue can run; ``FUSED_OP`` names whole-chain
-  kernels of the transformer slice, none of which is ported yet.
+  the dense kernel's epilogue can run; ``FUSED_OP`` entries
+  (``"rms_norm"``, ``"flash_attention"``) are whole-chain kernels with
+  their own dispatch function.
 * The wrappers are ``torch.autograd.Function``s whose backward recomputes
   through the plain version, as the reference's ``custom_vjp``s do: the
   residuals are just the layer inputs, so activation memory stays O(n M).
@@ -26,12 +29,14 @@ from typing import Mapping
 
 import torch
 
+from . import jet_attention as _k34
 from . import jet_dense as _k1
 from . import ref
 from . import tanh_jet as _k2
 from .tanh_jet import KERNEL_ACTS, MAX_ORDER, check_order
 
-__all__ = ["EpilogueKind", "epilogues", "act_jet", "jet_dense", "MAX_ORDER",
+__all__ = ["EpilogueKind", "epilogues", "act_jet", "jet_dense",
+           "jet_rms_norm", "jet_flash_attention", "MAX_ORDER",
            "launch_counts", "reset_launch_counts"]
 
 
@@ -50,7 +55,13 @@ class EpilogueKind(enum.Enum):
     FUSED_OP = "fused_op"
 
 
-_EPILOGUE_KINDS: dict = {a: EpilogueKind.ACTIVATION for a in KERNEL_ACTS}
+_EPILOGUE_KINDS: dict = {
+    **{a: EpilogueKind.ACTIVATION for a in KERNEL_ACTS},
+    "rms_norm": EpilogueKind.FUSED_OP,
+    "flash_attention": EpilogueKind.FUSED_OP,
+}
+_COUNTERS = (_k1.LAUNCHES, _k2.LAUNCHES, _k34.RMS_NORM_LAUNCHES,
+             _k34.FLASH_LAUNCHES)
 
 
 def epilogues() -> Mapping[str, EpilogueKind]:
@@ -61,11 +72,11 @@ def epilogues() -> Mapping[str, EpilogueKind]:
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {c.name: c.count for c in (_k1.LAUNCHES, _k2.LAUNCHES)}
+    return {c.name: c.count for c in _COUNTERS}
 
 
 def reset_launch_counts() -> None:
-    for c in (_k1.LAUNCHES, _k2.LAUNCHES):
+    for c in _COUNTERS:
         c.reset()
 
 
@@ -171,3 +182,103 @@ def jet_dense(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     flat, batch = _fold_batch(coeffs)
     out = _JetDense.apply(flat, w, b, activation)
     return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-1:]))
+
+
+# ---------------------------------------------------------------------------
+# the transformer trunk: fused rms_norm and the flash-jet attention block
+# ---------------------------------------------------------------------------
+
+def _rms_norm_impl(coeffs, gamma, eps):
+    if _on_cpu(coeffs):
+        return ref.jet_rms_norm_ref(coeffs, gamma, eps)
+    return _k34.jet_rms_norm_cuda(coeffs.contiguous(), gamma.contiguous(), eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Forward: the fused kernel (plain version on CPU).  Backward: a
+    recompute through the plain version."""
+
+    @staticmethod
+    def forward(ctx, coeffs, gamma, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(coeffs, gamma)
+        return _rms_norm_impl(coeffs, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            out = ref.jet_rms_norm_ref(*leaves, ctx.eps)
+        grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None)
+
+
+def jet_rms_norm(coeffs: torch.Tensor, gamma: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Fused rms_norm jet: (n+1, *batch, W) -> same shape, normalized over
+    the trailing feature axis and scaled by the (W,) gain.  Leading batch
+    axes (the token axis included) fold into the kernel's batch dimension."""
+    check_order(coeffs.shape[0])
+    flat, batch = _fold_batch(coeffs)
+    out = _RMSNorm.apply(flat, gamma, eps)
+    return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-1:]))
+
+
+def _flash_attention_impl(q, k, v, wo, scale, mask):
+    kind, window = mask
+    if _on_cpu(q):
+        from repro_torch.core.modules import attention_mask
+        return ref.jet_flash_attention_ref(
+            q, k, v, wo, scale, mask=attention_mask(mask, q.shape[-2]))
+    # SelfAttention hands over (B, T, H, Dh) projections viewed as
+    # (B, H, T, Dh); the kernel reads contiguous stacks
+    return _k34.jet_flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                         v.contiguous(), wo.contiguous(),
+                                         scale, kind, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash kernel (plain version on CPU).  Backward: a
+    recompute through the plain version with the dense keep-matrix, as the
+    reference's ``_flash_attention_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, wo, scale, mask):
+        ctx.scale, ctx.mask = scale, mask
+        ctx.save_for_backward(q, k, v, wo)
+        return _flash_attention_impl(q, k, v, wo, scale, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.modules import attention_mask
+        inputs = ctx.saved_tensors
+        dense = attention_mask(ctx.mask, inputs[0].shape[-2], inputs[0].device)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            out = ref.jet_flash_attention_ref(*leaves, ctx.scale, mask=dense)
+        grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None)
+
+
+def jet_flash_attention(q_coeffs: torch.Tensor, k_coeffs: torch.Tensor,
+                        v_coeffs: torch.Tensor, wo: torch.Tensor,
+                        scale: float, mask=None) -> torch.Tensor:
+    """Flash-jet attention block: Q/K/V stacks (n+1, *batch, H, T, Dh) plus
+    the output projection ``wo`` -- (H*Dh, Dm) as stored by
+    ``SelfAttention`` (head-major rows), or already (H, Dh, Dm) -- to the
+    block output jet (n+1, *batch, T, Dm) in one launch.  ``mask`` is
+    anything ``repro_torch.core.modules.normalize_attention_mask`` accepts.
+    Extra leading batch axes fold into the kernel's batch dimension and
+    unfold on the way out."""
+    from repro_torch.core.modules import normalize_attention_mask
+    mask = normalize_attention_mask(mask)
+    check_order(q_coeffs.shape[0])
+    h, d = q_coeffs.shape[-3], q_coeffs.shape[-1]
+    if wo.ndim == 2:
+        wo = wo.reshape(h, d, wo.shape[-1])
+    qf, batch = _fold_batch(q_coeffs, keep=3)
+    kf, _ = _fold_batch(k_coeffs, keep=3)
+    vf, _ = _fold_batch(v_coeffs, keep=3)
+    out = _FlashAttention.apply(qf, kf, vf, wo, scale, mask)
+    return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-2:]))

@@ -63,3 +63,55 @@ def jet_dense_ref(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if activation is None:
         return z
     return act_jet_ref(z, activation)
+
+
+def jet_flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            wo: torch.Tensor, scale: float,
+                            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Full attention-block oracle: Q/K/V stacks (n+1, B, H, T, Dh) and the
+    output projection ``wo`` (H, Dh, Dm) -> the block output jet
+    (n+1, B, T, Dm).
+
+    Straight-line scores -> masked softmax -> value contraction -> output
+    projection, all as explicit Cauchy convolutions / power-series
+    recurrences (no core.jet, no online rescaling -- the O(T^2)-memory
+    computation the tiled kernel must reproduce).  ``mask`` is a dense
+    boolean (Tq, Tk) keep-matrix (True = attend); masked ``s_0`` becomes
+    -1e30 before the exp recurrence, so masked e-jets vanish."""
+    n1 = q.shape[0]
+    s = [scale * sum(torch.einsum("bhqd,bhkd->bhqk", q[i], k[m - i])
+                     for i in range(m + 1)) for m in range(n1)]
+    if mask is not None:
+        s[0] = torch.where(mask, s[0], torch.full_like(s[0], -1e30))
+    shift = s[0].amax(dim=-1, keepdim=True)
+    e = [torch.exp(s[0] - shift)]
+    for m in range(1, n1):
+        e.append(sum(j * s[j] * e[m - j] for j in range(1, m + 1)) / m)
+    tot = [em.sum(dim=-1, keepdim=True) for em in e]
+    p = [e[0] / tot[0]]
+    for m in range(1, n1):
+        p.append((e[m] - sum(tot[j] * p[m - j] for j in range(1, m + 1)))
+                 / tot[0])
+    o = [sum(torch.einsum("bhqk,bhkd->bhqd", p[i], v[m - i])
+             for i in range(m + 1)) for m in range(n1)]
+    return torch.stack([torch.einsum("bhqd,hdo->bqo", om, wo) for om in o])
+
+
+def jet_rms_norm_ref(coeffs: torch.Tensor, gamma: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """Fused rms_norm oracle: (n+1, B, W) stack + (W,) gain -> rms_norm jet.
+
+    Straight-line mean-square convolution, binomial-series rsqrt (Miller
+    recurrence, r = -1/2, coefficient ``(0.5 j - m)``), normalizing
+    convolution, gain."""
+    n1 = coeffs.shape[0]
+    ms = [sum((coeffs[i] * coeffs[m - i]).mean(dim=-1, keepdim=True)
+              for i in range(m + 1)) for m in range(n1)]
+    ms[0] = ms[0] + eps
+    inv = [1.0 / torch.sqrt(ms[0])]
+    for m in range(1, n1):
+        inv.append(sum((0.5 * j - m) * ms[j] * inv[m - j]
+                       for j in range(1, m + 1)) / (m * ms[0]))
+    out = [sum(coeffs[m - j] * inv[j] for j in range(m + 1)) * gamma
+           for m in range(n1)]
+    return torch.stack(out)

@@ -21,8 +21,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import cuda_lib
 from .bell_tables import fdb_terms, sigmoid_poly_rows, tanh_poly_rows
-from .cuda_lib import LaunchCounter, check, library
+from .cuda_lib import LaunchCounter
 
 KERNEL_ACTS = ("tanh", "sigmoid", "sin")
 MAX_ORDER = 8                 # template N1 runs over 1..9 (csrc/act_jet.cuh)
@@ -112,11 +113,8 @@ def act_jet_cuda(coeffs: torch.Tensor, activation: str = "tanh") -> torch.Tensor
     check_order(n1)
     out = torch.empty_like(coeffs)
     tables = device_tables(coeffs.dtype, coeffs.device)
-    with torch.cuda.device(coeffs.device):
-        rc = library().act_jet_launch(
-            coeffs.data_ptr(), out.data_ptr(), b * w, n1,
-            ACT_CODES[activation], DTYPE_CODES[coeffs.dtype], *tables.pointers,
-            torch.cuda.current_stream().cuda_stream)
-    check(rc, "act_jet")
+    cuda_lib.launch("act_jet_launch", coeffs.device, coeffs.data_ptr(),
+                    out.data_ptr(), b * w, n1, ACT_CODES[activation],
+                    DTYPE_CODES[coeffs.dtype], *tables.pointers)
     LAUNCHES.add()
     return out

@@ -188,6 +188,6 @@ def test_cross_validates_axes(setup):
 
 
 def test_network_registry():
-    assert network_names() == ("dense", "mlp")
+    assert network_names() == ("dense", "mlp", "transformer")
     with pytest.raises(KeyError):
-        make_network("transformer", d_in=2, d_out=1, width=4, depth=1)
+        make_network("residual", d_in=2, d_out=1, width=4, depth=1)

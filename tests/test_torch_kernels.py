@@ -155,14 +155,22 @@ def test_cpu_path_launches_nothing():
     tops.act_jet(x, "tanh")
     tops.jet_dense(x, torch.zeros((4, 2), dtype=torch.float64),
                    torch.zeros(2, dtype=torch.float64), None)
-    assert tops.launch_counts() == {"jet_dense": 0, "act_jet": 0}
+    tops.jet_rms_norm(x, torch.ones(4, dtype=torch.float64))
+    qkv = torch.zeros((3, 2, 2, 5, 4), dtype=torch.float64)
+    tops.jet_flash_attention(qkv, qkv, qkv, torch.zeros((8, 3), dtype=torch.float64),
+                             0.5, "causal")
+    assert tops.launch_counts() == {"jet_dense": 0, "act_jet": 0,
+                                    "jet_rms_norm": 0, "jet_flash_attention": 0}
 
 
 def test_epilogue_registry_is_typed_and_read_only():
-    reg = tops.epilogues()
-    assert set(reg) == set(tanh_jet.KERNEL_ACTS) == set(jops.epilogues()) & {
-        "tanh", "sigmoid", "sin"}
-    assert all(kind is tops.EpilogueKind.ACTIVATION for kind in reg.values())
+    """The port's registry is the reference's minus the kernels it has not
+    ported ("attention_scores", K5), entry for entry of the same kind."""
+    reg, jreg = tops.epilogues(), jops.epilogues()
+    assert set(reg) == set(jreg) - {"attention_scores"}
+    assert all(reg[name].value == jreg[name].value for name in reg)
+    assert {n for n, k in reg.items() if k is tops.EpilogueKind.ACTIVATION} \
+        == set(tanh_jet.KERNEL_ACTS)
     with pytest.raises(TypeError):
         reg["relu"] = tops.EpilogueKind.ACTIVATION
 
