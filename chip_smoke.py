@@ -17,6 +17,16 @@ Phases, each failing loudly with a non-zero exit:
    (n+1, 3, 4, 70, 8) x (4, 8, 20) and a wide-head (n+1, 2, 4, 37, 96) x
    (4, 96, 48) (three head dims per lane, over 48 KB of shared memory from
    order 3 in f64), each under the none, causal and ("local", 2) masks;
+   2c. K5 (``jet_attention_scores``) at the reference's test shapes (B, T, D)
+   (5, 3, 4), (19, 2, 8), (3, 1, 1), the memory comparison's (4, 64, 8) and
+   (4, 256, 8) and a ragged (2, 70, 16), plus the softmax's row-sum
+   invariant (rows sum to 1 at order 0, to 0 above);
+   2d. K5's path: the rows of the reference's
+   ``benchmarks/memory_scaling.py::_attention_rows`` through the public ops
+   (order 2, B 2, H 2, Dh 8, Dm 16, f32, T in 64/256/1024), launch counts
+   zeroed before and read after: the peak of ``max_memory_allocated``
+   above the inputs must grow with T^2 for K5 and no faster than T for K4;
+   plus the score op's backward;
 3. the served main paths, each with the launch counters zeroed just before
    it and read just after:
    a. a ``DerivativeServer`` on the ``pinn-pde`` DenseMLP (d_in 2, width 32,
@@ -38,9 +48,25 @@ Phases, each failing loudly with a non-zero exit:
    nearest library call (the GEMM part of K1; for K3/K4 the order-0
    function alone), the bound from bytes and operations, and per request
    kind each server's p50/p99 for ``ntp/cuda`` and eager ``ntp`` beside the
-   engine call's device time;
-5. a JSON line describing each kernel, the ``nvidia-smi`` line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+   engine call's device time; K5 at (4, 256, 8) and (4, 1024, 8), orders 2
+   and 8, beside its plain version and softmax(scale q_0 k_0^T);
+5. Burgers training (``pinn.trainer.train``) on pinn-mlp (3 x 24 tanh,
+   f64) at 512 domain + 128 origin points, k = 1 and k = 3 (a u-jet of
+   order 8: the top of the kernels' template), Adam then L-BFGS under
+   ``ntp/cuda`` and eager ``ntp`` from the same init and draws, counters
+   zeroed before and read after each run: losses and lambda agree at every
+   logged step (TOL_TRAIN), 9 K1 launches per loss evaluation, lambda moves
+   toward 1/(2k) at k = 1; times per Adam step (wall, CUDA events, profiler
+   device-busy split into the kernels and the eager rest) and per L-BFGS
+   iteration for ``ntp/cuda``, ``ntp`` and a few ``autodiff`` steps;
+6. operator training (``train_operator``): Navier-Stokes on the pinn-pde
+   DenseMLP (16 K1 per step) and heat on the pinn-pde Transformer trunk
+   (16 K1, 7 K3, 3 K4 per step), n_domain 1024, under ``ntp/cuda`` and
+   eager ``ntp``: losses agree, launches asserted, time per step;
+7. a JSON line describing each of the five kernels, the ``nvidia-smi``
+   line, and as the last line ``{"ok": true, "device": {...}}``.
+
+Each phase prints its wall seconds.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The
 script imports nothing of JAX: it needs PyTorch with CUDA and ``nvcc``.
@@ -97,6 +123,35 @@ TRUNK_PER_CALL = {"jet_dense": 16, "act_jet": 0, "jet_rms_norm": 7,
                   "jet_flash_attention": 3}
 TRUNK_AUTODIFF_SIZES = (5, 37)
 FLASH_MASKS = (None, "causal", ("local", 2))
+
+# K5 (jet_attention_scores): the reference's test shapes (ragged T, T = 1,
+# D = 1), the memory comparison's (B*H, T, Dh) and a ragged multi-warp T
+SCORES_SHAPES = ((5, 3, 4), (19, 2, 8), (3, 1, 1), (4, 64, 8), (4, 256, 8),
+                 (2, 70, 16))
+# benchmarks/memory_scaling.py::_attention_rows at order 2, float32
+MEMORY_T = (64, 256, 1024)
+MEMORY = dict(order=2, bsz=2, heads=2, dh=8, dm=16)
+# K5 timed at the memory comparison's (B*H, T, Dh), f64; the kernels line
+# reports the last shape at the first order
+SCORES_TIMED = ((4, 256, 8), (4, 1024, 8))
+SCORES_TIMED_ORDERS = (2, 8)
+
+# Training phases.  Burgers: pinn-mlp (3 x 24 tanh, d_in = d_out = 1, f64)
+# at the paper's 512 domain + 128 origin points.  Operators: pinn-pde.
+BURGERS_KS = (1, 3)
+BURGERS_ADAM, BURGERS_LBFGS = 30, 5
+OPERATOR_ADAM = 20
+OPERATOR_RUNS = (
+    ("navier-stokes", "dense", {}),
+    ("heat", "transformer", {"n_heads": 2, "mlp_ratio": 2}),
+)
+# ntp/cuda vs eager ntp training from the same init and draws, relative per
+# logged loss (and lambda): both run the reference's Adam, which rounds the
+# float64 parameters through float32 each step, so one float32 rounding
+# that the ~1e-13 gradient difference tips moves a parameter by 6e-8
+# relative; L-BFGS carries what Adam left.
+TOL_TRAIN = 1e-6
+TIMED_STEPS = {"ntp/cuda": 10, "ntp": 10, "autodiff": 3}
 
 
 class SmokeFailure(RuntimeError):
@@ -305,6 +360,165 @@ def check_trunk_kernels(gen, report: dict, worst: dict) -> None:
     report["kernel_checks"] += [dict(zip(("kernel", "dtype", "mask", "shape",
                                           "orders", "max_rel_err", "tol"), r))
                                 for r in rows]
+
+
+def row_sum_dev(p) -> float:
+    """Worst |sum_keys p_m - [m == 0]| relative to the row's absolute mass
+    sum_keys |p_m| (floored at 1): the softmax jet's rows sum to 1 at order
+    0 and to 0 at every higher order."""
+    import torch
+    p = p.double()
+    sums, mass = p.sum(-1), p.abs().sum(-1).clamp_min(1.0)
+    sums[0] -= 1.0
+    return float((sums.abs() / mass).max())
+
+
+def check_scores_kernel(gen, report: dict, worst: dict) -> None:
+    """Phase 2c: K5 against its plain version (TOL_* gates) and the row-sum
+    invariant (f64: TOL_F64; f32: TOL_F32 through order F32_EXACT_ORDERS,
+    above that within F32_DRIFT times the plain version's own deviation)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.jet_attention import jet_attention_scores_cuda
+
+    worst["jet_attention_scores"] = 0.0
+    rows = []
+    for dt in (torch.float32, torch.float64):
+        tol = TOL_F32 if dt == torch.float32 else TOL_F64
+        for bsz, t, d in SCORES_SHAPES:
+            scale = d ** -0.5
+
+            def plain(q, k):
+                return ref.jet_attention_scores_ref(q, k, scale)
+
+            e_max, rs_max = 0.0, 0.0
+            for n in range(1, 9):
+                q, k = (0.6 * torch.randn((n + 1, bsz, t, d), generator=gen,
+                                          device=DEVICE, dtype=dt) for _ in range(2))
+                got, want = jet_attention_scores_cuda(q, k, scale), plain(q, k)
+                torch.cuda.synchronize()
+                what = f"jet_attention_scores {dt} order {n} ({bsz}, {t}, {d})"
+                e_max = max(e_max, holds(got, want, plain, (q, k), dt, n, what))
+                worst["jet_attention_scores"] = max(
+                    worst["jet_attention_scores"], float((got - want).abs().max()))
+                rs, rs_plain = row_sum_dev(got), row_sum_dev(want)
+                allowed = tol if (dt == torch.float64 or n <= F32_EXACT_ORDERS) \
+                    else F32_DRIFT * max(rs_plain, TOL_F32)
+                require(rs <= allowed, f"{what}: rows sum off by {rs:.3e} of their "
+                                       f"mass (plain {rs_plain:.3e}; allowed {allowed:.1e})")
+                rs_max = max(rs_max, rs)
+            rows.append(("jet_attention_scores", str(dt), (bsz, t, d), "1-8", e_max,
+                         rs_max, tol))
+    for r in rows:
+        print(f"  {r[0]:20s} {r[1]:13s} {str(r[2]):13s} orders {r[3]:4s} max rel err "
+              f"{r[4]:.2e}, row sums {r[5]:.2e} (tol {r[6]:.0e})")
+    report["kernel_checks"] += [dict(zip(("kernel", "dtype", "shape", "orders",
+                                          "max_rel_err", "row_sum_dev", "tol"), r))
+                                for r in rows]
+
+
+def holds_f32_sum(got, plain, args, what: str) -> float:
+    """A float32 kernel result whose sums run over up to 1024 keys, held
+    against the plain version in float64 on the same inputs: within
+    F32_DRIFT times the plain version's own float32 error (floored at
+    TOL_F32).  Returns the kernel's error relative to the f64 result."""
+    exact = plain(*(a.double() for a in args))
+    e_kernel = rel_err(got, exact, 1)
+    e_plain = rel_err(plain(*args), exact, 1)
+    require(e_kernel <= F32_DRIFT * max(e_plain, TOL_F32),
+            f"{what}: f32 error vs f64 {e_kernel:.3e}, the plain version's "
+            f"{e_plain:.3e}; allowed {F32_DRIFT:g}x")
+    return e_kernel
+
+
+def peak_bytes(fn):
+    """(peak of ``torch.cuda.max_memory_allocated`` above what was allocated
+    before ``fn`` ran, inputs included; ``fn``'s result)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
+def memory_rows(gen, report: dict) -> dict:
+    """Phase 2d, K5's path: the rows of the reference's
+    benchmarks/memory_scaling.py::_attention_rows on the card, through the
+    public ops.  Order 2, B = 2, H = 2, Dh = 8, Dm = 16, f32: the
+    materializing score jet (3, B*H, T, T) against the flash block, whose
+    output is (3, B, T, Dm).  Also the score op's backward against the plain
+    version's.  Launch counts are zeroed before and read after."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    n1 = MEMORY["order"] + 1
+    bsz, heads, dh, dm = MEMORY["bsz"], MEMORY["heads"], MEMORY["dh"], MEMORY["dm"]
+    scale = dh ** -0.5
+    out = {"config": dict(MEMORY, dtype="torch.float32"), "rows": []}
+    checks = {}
+    ops.reset_launch_counts()
+    for t in MEMORY_T:
+        q, k, v = (torch.randn((n1, bsz, heads, t, dh), generator=gen, device=DEVICE,
+                               dtype=torch.float32) for _ in range(3))
+        wo = torch.randn((heads, dh, dm), generator=gen, device=DEVICE,
+                         dtype=torch.float32)
+        scores, p = peak_bytes(lambda: ops.jet_attention_scores(q, k, scale))
+        flash, o = peak_bytes(lambda: ops.jet_flash_attention(q, k, v, wo, scale))
+        flat = (q.reshape(n1, bsz * heads, t, dh), k.reshape(n1, bsz * heads, t, dh))
+        checks[t] = (
+            holds_f32_sum(p.reshape(n1, bsz * heads, t, t),
+                          lambda a, b: ref.jet_attention_scores_ref(a, b, scale), flat,
+                          f"memory row T={t}: jet_attention_scores"),
+            holds_f32_sum(o, lambda *a: ref.jet_flash_attention_ref(*a, scale),
+                          (q, k, v, wo), f"memory row T={t}: jet_flash_attention"))
+        del p, o
+        out["rows"].append({"T": t, "scores_peak_bytes": scores,
+                            "flash_peak_bytes": flash, "rel_err_vs_f64": checks[t],
+                            "scores_output_bytes": n1 * bsz * heads * t * t * 4,
+                            "flash_output_bytes": n1 * bsz * t * dm * 4})
+        print(f"  T={t:5d}: peak above inputs, jet_attention_scores {scores / 1e6:9.3f} MB, "
+              f"jet_flash_attention {flash / 1e6:7.3f} MB; rel err vs f64 "
+              f"{checks[t][0]:.2e} / {checks[t][1]:.2e}")
+    # the op's backward (recompute through the plain version) on the card
+    q, k = (torch.randn((n1, bsz, heads, 64, dh), generator=gen, device=DEVICE,
+                        dtype=torch.float64, requires_grad=True) for _ in range(2))
+    g = torch.randn((n1, bsz, heads, 64, 64), generator=gen, device=DEVICE,
+                    dtype=torch.float64)
+    got = torch.autograd.grad(ops.jet_attention_scores(q, k, scale), (q, k), g)
+    want = torch.autograd.grad(
+        ref.jet_attention_scores_ref(q.reshape(n1, -1, 64, dh),
+                                     k.reshape(n1, -1, 64, dh), scale),
+        (q, k), g.reshape(n1, -1, 64, 64))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    e = max(rel_err(a, b, 0) for a, b in zip(got, want))
+    require(e <= TOL_F64, f"jet_attention_scores backward vs plain: {e:.3e}")
+    # one launch of each kernel per T, and the score op's forward under
+    # autograd (its backward recomputes through the plain version)
+    want_k5 = len(MEMORY_T) + 1
+    print(f"  backward vs plain {e:.2e} (tol {TOL_F64:.0e}); launches {launches}")
+    require(launches["jet_attention_scores"] == want_k5,
+            f"jet_attention_scores launched {launches['jet_attention_scores']} "
+            f"times, want {want_k5}")
+    require(launches["jet_flash_attention"] == len(MEMORY_T)
+            and launches["jet_dense"] == launches["jet_rms_norm"] == 0,
+            f"memory phase launched {launches}")
+    rows = out["rows"]
+    t_ratio = MEMORY_T[-1] / MEMORY_T[0]
+    s_growth = rows[-1]["scores_peak_bytes"] / rows[0]["scores_peak_bytes"]
+    f_growth = rows[-1]["flash_peak_bytes"] / rows[0]["flash_peak_bytes"]
+    print(f"  growth T {MEMORY_T[0]} -> {MEMORY_T[-1]} ({t_ratio:g}x): scores "
+          f"{s_growth:.1f}x (T^2 = {t_ratio ** 2:g}x), flash {f_growth:.1f}x")
+    require(s_growth >= 0.5 * t_ratio ** 2,
+            f"the score jet's peak grew {s_growth:.1f}x, not with T^2")
+    require(f_growth <= 2 * t_ratio,
+            f"the flash block's peak grew {f_growth:.1f}x, faster than T")
+    out.update(scores_growth=s_growth, flash_growth=f_growth, launches=launches,
+               backward_rel_err=e)
+    report["memory_rows"] = out
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -809,6 +1023,360 @@ def time_trunk_server(net, params, gen, report: dict) -> dict:
     return out
 
 
+def scores_key(shape, order: int) -> str:
+    return f"{tuple(shape)} order {order}"
+
+
+def time_scores_kernel(gen, report: dict) -> dict:
+    """K5 at the memory comparison's (B*H, T, Dh) = (4, 256, 8) and
+    (4, 1024, 8), f64, orders 2 and 8: device time, host dispatch, the plain
+    version (graph replay: it enqueues too many kernels for the spin), the
+    order-0 library computation softmax(scale q_0 k_0^T) and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.jet_attention import jet_attention_scores_cuda
+
+    dt = torch.float64
+    item = torch.empty((), dtype=dt).element_size()
+    out = {}
+    for bsz, t, d in SCORES_TIMED:
+        scale = d ** -0.5
+        for order in SCORES_TIMED_ORDERS:
+            n1 = order + 1
+            q, k = (0.6 * torch.randn((n1, bsz, t, d), generator=gen, device=DEVICE,
+                                      dtype=dt) for _ in range(2))
+            ms, host = device_time_ms(lambda: jet_attention_scores_cuda(q, k, scale),
+                                      20, what="jet_attention_scores")
+            plain = graph_time_ms(lambda: ref.jet_attention_scores_ref(q, k, scale),
+                                  reps=5)
+            lib, _ = device_time_ms(
+                lambda: torch.softmax(scale * q[0] @ k[0].transpose(-1, -2), dim=-1),
+                20, what="order-0 softmax")
+            nbytes = (2 * q.numel() + n1 * bsz * t * t) * item
+            # per (query, key) pair: the Cauchy terms of the score convolution
+            # (N1 (N1+1)/2 products of D-dot-products, 2 flops each) and the
+            # exp and division recurrences
+            flops = bsz * t * t * (n1 * (n1 + 1) * d + 2 * n1 * n1)
+            bound = bound_ms(nbytes, flops, str(dt))
+            err = float((jet_attention_scores_cuda(q, k, scale)
+                         - ref.jet_attention_scores_ref(q, k, scale)).abs().max())
+            key = scores_key((bsz, t, d), order)
+            out[key] = {"shape": [n1, bsz, t, d], "dtype": str(dt), "ms": ms,
+                        "host_ms": host, "plain_ms": plain, "library_order0_ms": lib,
+                        "bound_ms": bound[0], "bound_by": bound[1], "bytes": nbytes,
+                        "flops": flops, "max_abs_err": err}
+            print(f"  jet_attention_scores {key} f64: {ms * 1e3:.2f} us (plain "
+                  f"{plain * 1e3:.2f} us, order-0 softmax(q0 k0^T) {lib * 1e3:.2f} us, "
+                  f"bound {bound[0] * 1e3:.2f} us by {bound[1]}; host dispatch "
+                  f"{host * 1e3:.2f} us)")
+    report["scores_kernel_times"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5-6: PINN training under autograd through the kernels
+# ---------------------------------------------------------------------------
+
+KERNEL_NAMES = ("jet_dense", "act_jet", "jet_rms_norm", "jet_flash_attention",
+                "jet_attention_scores")
+
+
+def profile_ms(fn, reps: int) -> dict | None:
+    """Device busy ms per call of ``fn`` from ``torch.profiler``: the sum of
+    the CUDA kernels' (and copies') device intervals, split into the port's
+    own kernels (by their ``<name>_kernel`` symbol) and everything else
+    (the eager ops: backward recomputes, Adam, small ops).  None when the
+    profiler recorded no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {name: 0.0 for name in KERNEL_NAMES}
+    split["eager"] = 0.0
+    n_events = 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        n_events += 1
+        mine = [name for name in KERNEL_NAMES if f"{name}_kernel" in evt.name]
+        split[mine[0] if mine else "eager"] += us
+    if not n_events:
+        return None
+    busy = sum(split.values())
+    return {"busy_ms": busy / 1e3 / reps, "kernels_per_call": n_events / reps,
+            "by_kernel_ms": {k: v / 1e3 / reps for k, v in split.items() if v}}
+
+
+def kernel_ms(prof: dict) -> float:
+    """Device ms of the port's own kernels in a ``profile_ms`` result."""
+    return sum(v for name, v in prof["by_kernel_ms"].items() if name != "eager")
+
+
+def time_steps(step, reps: int, profiled: bool = True) -> dict:
+    """Per call of ``step``: wall ms (host clock to a synchronize), device
+    ms by CUDA events around the same calls (the device's span, idle gaps
+    included) and, from a separate profiled run, device busy ms."""
+    import torch
+    step()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    h0 = time.perf_counter()
+    t0.record()
+    for _ in range(reps):
+        step()
+    t1.record()
+    torch.cuda.synchronize()
+    out = {"wall_ms": (time.perf_counter() - h0) * 1e3 / reps,
+           "event_ms": t0.elapsed_time(t1) / reps, "reps": reps}
+    if profiled:
+        prof = profile_ms(step, min(reps, 3))
+        out["profile"] = prof
+        out["busy_share"] = prof["busy_ms"] / out["wall_ms"] if prof else None
+    return out
+
+
+def step_times(loss_fn, ps, batch, spec: str, lr: float) -> dict:
+    """Times of one Adam step of ``loss_fn`` from ``ps`` and of its forward
+    alone (the loss under autograd, no backward): the rest of a step is the
+    eager backward and the update."""
+    import torch
+    from repro_torch.optim import adam_init
+    from repro_torch.pinn.trainer import adam_step
+    from repro_torch.tree import leaves, unflatten
+
+    state = {"ps": ps, "opt": adam_init(ps)}
+
+    def step():
+        state["ps"], state["opt"], _, _ = adam_step(loss_fn, state["ps"],
+                                                     state["opt"], lr, *batch)
+
+    def forward():
+        ls = [leaf.detach().requires_grad_() for leaf in leaves(ps)]
+        return loss_fn(unflatten(ps, ls), *batch)
+
+    reps = TIMED_STEPS[spec]
+    profiled = spec != "autodiff"      # its traces run to millions of events
+    out = {"adam_step": time_steps(step, reps, profiled),
+           "forward": time_steps(forward, reps, profiled)}
+    torch.cuda.synchronize()
+    return out
+
+
+def _losses_agree(got, want, what: str) -> float:
+    require(len(got) == len(want), f"{what}: {len(got)} logged losses vs {len(want)}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        require(math.isfinite(a) and math.isfinite(b), f"{what}: non-finite loss at {i}")
+        e = abs(a - b) / max(abs(b), 1e-300)
+        require(e <= TOL_TRAIN, f"{what}: entry {i} {a!r} vs {b!r} ({e:.2e})")
+        worst = max(worst, e)
+    return worst
+
+
+def train_burgers(seed: int, report: dict) -> dict:
+    """Phase 5: Burgers profiles k = 1 and 3 on pinn-mlp (3 x 24 tanh, f64)
+    at 512 domain + 128 origin points, BURGERS_ADAM Adam steps and
+    BURGERS_LBFGS L-BFGS iterations under ntp/cuda and eager ntp from the
+    same init and draws; launch counts zeroed just before each ntp/cuda run
+    and read just after.  Then times per Adam step and per L-BFGS iteration
+    for ntp/cuda, ntp and (a few steps) autodiff."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.ntp import init_mlp
+    from repro_torch.data.collocation import resample, uniform_grid
+    from repro_torch.kernels import ops
+    from repro_torch.optim import lbfgs
+    from repro_torch.pinn.burgers import lambda_window
+    from repro_torch.pinn.trainer import (PINNRunConfig, burgers_loss_fn, train,
+                                          value_and_grad)
+
+    out, total = {}, {name: 0 for name in KERNEL_NAMES}
+    for k in BURGERS_KS:
+        cfg = PINNRunConfig(k=k, adam_steps=BURGERS_ADAM, lbfgs_steps=BURGERS_LBFGS,
+                            log_every=1, seed=seed)
+        runs = {}
+        for spec in ("ntp/cuda", "ntp"):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train(dataclasses.replace(cfg, engine=spec), device=DEVICE)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            runs[spec] = (res, launches, time.perf_counter() - t0)
+        res, launches, _ = runs["ntp/cuda"]
+        eager = runs["ntp"][0]
+        e_loss = _losses_agree(res.loss_history, eager.loss_history, f"burgers k={k} loss")
+        e_lam = _losses_agree(res.lam_history, eager.lam_history, f"burgers k={k} lambda")
+        evals = cfg.adam_steps + res.lbfgs_evals
+        want = 3 * cfg.depth * evals          # 3 u-jets per evaluation, one K1 per hidden layer
+        require(launches["jet_dense"] == want and sum(launches.values()) == want,
+                f"burgers k={k}: launches {launches}, want jet_dense {want} "
+                f"({3 * cfg.depth} per loss evaluation x {evals} evaluations)")
+        require(sum(runs["ntp"][1].values()) == 0, f"eager ntp launched {runs['ntp'][1]}")
+        lo, hi = lambda_window(k)
+        lam0 = 0.5 * (lo + hi)            # lam_raw starts at 0: the window's midpoint
+        require(lo < res.lam < hi, f"burgers k={k}: lambda {res.lam} left its window")
+        toward = abs(res.lam - res.target_lam) < abs(lam0 - res.target_lam)
+        if k == 1:
+            require(toward, f"burgers k=1: lambda {lam0} -> {res.lam} did not move "
+                            f"toward {res.target_lam}")
+        for name in KERNEL_NAMES:
+            total[name] += launches[name]
+        lbfgs_iters = len(res.loss_history) - cfg.adam_steps - 1
+
+        # times, from the same init and points as the run
+        gen = torch.Generator().manual_seed(seed)
+        params = init_mlp(gen, 1, cfg.width, cfg.depth, 1, torch.float64, DEVICE)
+        ps = (params, torch.zeros((), dtype=torch.float64, device=DEVICE))
+        batch = resample(gen, -cfg.domain, cfg.domain, cfg.n_domain, cfg.n_origin,
+                         cfg.origin_radius, torch.float64, DEVICE)
+        grid = (uniform_grid(-cfg.domain, cfg.domain, cfg.n_domain, torch.float64, DEVICE),
+                uniform_grid(-cfg.origin_radius, cfg.origin_radius, cfg.n_origin,
+                             torch.float64, DEVICE))
+        times = {}
+        for spec in ("ntp/cuda", "ntp", "autodiff"):
+            loss_fn = burgers_loss_fn(dataclasses.replace(cfg, engine=spec))
+            times[spec] = step_times(loss_fn, ps, batch, spec, cfg.adam_lr)
+            if spec != "autodiff":
+                def vg(p, loss_fn=loss_fn):
+                    (loss, _), grads = value_and_grad(loss_fn, p, *grid)
+                    return loss, grads
+                n_it = 3          # iterations per timed call: per-iteration numbers below
+                li = time_steps(lambda: lbfgs(vg, ps, steps=n_it), 1)
+                li["wall_ms"] /= n_it
+                li["event_ms"] /= n_it
+                if li["profile"]:
+                    li["profile"]["busy_ms"] /= n_it
+                    li["profile"]["kernels_per_call"] /= n_it
+                    li["profile"]["by_kernel_ms"] = {
+                        name: v / n_it for name, v in li["profile"]["by_kernel_ms"].items()}
+                times[spec]["lbfgs_iteration"] = li
+        ratio = times["autodiff"]["adam_step"]["wall_ms"] / times["ntp/cuda"]["adam_step"]["wall_ms"]
+        out[f"k={k}"] = {
+            "order": res.order, "lambda": res.lam, "lambda0": lam0,
+            "target_lambda": res.target_lam, "lambda_moved_toward_target": toward,
+            "lambda_history": res.lam_history, "loss_history": res.loss_history,
+            "eager_loss_history": eager.loss_history, "worst_rel_loss": e_loss,
+            "worst_rel_lambda": e_lam, "launches": launches, "loss_evaluations": evals,
+            "lbfgs_iterations": lbfgs_iters, "lbfgs_evals": res.lbfgs_evals,
+            "run_seconds": {s: r[2] for s, r in runs.items()},
+            "adam_time_s": {s: r[0].adam_time_s for s, r in runs.items()},
+            "lbfgs_time_s": {s: r[0].lbfgs_time_s for s, r in runs.items()},
+            "times": times, "autodiff_over_ntp_cuda_step": ratio}
+        print(f"  k={k} (order {res.order}, u-jet order {res.order + 1}): lambda "
+              f"{lam0:.6f} -> {res.lam:.6f} (target {res.target_lam:.6f}, "
+              f"{'toward' if toward else 'away from'} it); loss {res.loss_history[0]:.4e} -> "
+              f"{res.loss_history[-1]:.4e}; ntp/cuda vs ntp: losses {e_loss:.2e}, lambda "
+              f"{e_lam:.2e} (tol {TOL_TRAIN:.0e}); {launches['jet_dense']} jet_dense "
+              f"launches = {3 * cfg.depth} x {evals} evaluations")
+        for spec, tm in times.items():
+            a = tm["adam_step"]
+            line = (f"    {spec:8s} Adam step wall {a['wall_ms']:.2f} ms, events "
+                    f"{a['event_ms']:.2f} ms")
+            if a.get("profile"):
+                f = tm["forward"]["profile"]
+                line += (f", busy {a['profile']['busy_ms']:.2f} ms (forward "
+                         f"{f['busy_ms']:.2f} ms of it, the port's kernels "
+                         f"{kernel_ms(a['profile']):.3f} ms; wall forward "
+                         f"{tm['forward']['wall_ms']:.2f} ms)")
+            if "lbfgs_iteration" in tm:
+                li = tm["lbfgs_iteration"]
+                line += f"; L-BFGS iteration wall {li['wall_ms']:.2f} ms, events {li['event_ms']:.2f} ms"
+            print(line)
+        print(f"    autodiff / ntp/cuda per Adam step (wall): {ratio:.1f}x")
+    report["burgers_training"] = out
+    return total
+
+
+def train_operators(seed: int, report: dict) -> dict:
+    """Phase 6: OPERATOR_ADAM Adam steps of navier-stokes on the pinn-pde
+    DenseMLP and of heat on the pinn-pde Transformer trunk (n_domain 1024),
+    under ntp/cuda and eager ntp from the same init and draws; launch counts
+    zeroed just before each ntp/cuda run and read just after."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data.collocation import sample_box
+    from repro_torch.kernels import ops
+    from repro_torch.pinn.operators import get_operator
+    from repro_torch.pinn.trainer import (OperatorRunConfig, make_operator_net,
+                                          operator_loss_fn, train_operator)
+
+    per_call = {"dense": {"jet_dense": 4},
+                "transformer": {name: n for name, n in TRUNK_PER_CALL.items() if n}}
+    out, total = {}, {name: 0 for name in KERNEL_NAMES}
+    for op_name, network, net_kwargs in OPERATOR_RUNS:
+        cfg = OperatorRunConfig(op=op_name, network=network, net_kwargs=net_kwargs,
+                                width=32, depth=3, n_domain=1024,
+                                adam_steps=OPERATOR_ADAM, log_every=1, seed=seed)
+        op = get_operator(op_name)
+        runs = {}
+        for spec in ("ntp/cuda", "ntp"):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train_operator(dataclasses.replace(cfg, engine=spec), device=DEVICE)
+            torch.cuda.synchronize()
+            runs[spec] = (res, ops.launch_counts(), time.perf_counter() - t0)
+        res, launches, _ = runs["ntp/cuda"]
+        eager = runs["ntp"][0]
+        e_loss = _losses_agree(res.loss_history, eager.loss_history,
+                               f"{op_name}/{network} loss")
+        e_l2 = abs(res.l2_error - eager.l2_error) / eager.l2_error
+        require(e_l2 <= TOL_TRAIN, f"{op_name}/{network} l2 error {res.l2_error!r} vs "
+                                   f"{eager.l2_error!r}")
+        require(res.loss_history[-1] < res.loss_history[0],
+                f"{op_name}/{network}: loss did not fall")
+        engine_calls = 1 + len(op.mixed)              # one grid + one cross each
+        want = {name: n * engine_calls * cfg.adam_steps
+                for name, n in per_call[network].items()}
+        got = {name: n for name, n in launches.items() if n}
+        require(got == want, f"{op_name}/{network}: launches {launches}, want {want} "
+                             f"({per_call[network]} per engine call x {engine_calls} "
+                             f"calls x {cfg.adam_steps} steps)")
+        require(sum(runs["ntp"][1].values()) == 0, f"eager ntp launched {runs['ntp'][1]}")
+        for name in KERNEL_NAMES:
+            total[name] += launches[name]
+
+        net = make_operator_net(cfg)
+        params = net.init(torch.Generator().manual_seed(seed), dtype=torch.float64,
+                          device=DEVICE)
+        pts = sample_box(torch.Generator().manual_seed(seed + 2), op.domain,
+                         cfg.n_domain, torch.float64, DEVICE)
+        times = {spec: step_times(operator_loss_fn(dataclasses.replace(cfg, engine=spec),
+                                                   net, DEVICE),
+                                  params, (pts,), spec, cfg.adam_lr)
+                 for spec in ("ntp/cuda", "ntp")}
+        key = f"{op_name}/{network}"
+        out[key] = {"loss_history": res.loss_history,
+                    "eager_loss_history": eager.loss_history, "worst_rel_loss": e_loss,
+                    "l2_error": res.l2_error, "eager_l2_error": eager.l2_error,
+                    "launches": launches, "launches_per_step": per_call[network],
+                    "engine_calls_per_step": engine_calls,
+                    "run_seconds": {s: r[2] for s, r in runs.items()},
+                    "adam_time_s": {s: r[0].adam_time_s for s, r in runs.items()},
+                    "times": times}
+        print(f"  {key}: loss {res.loss_history[0]:.4e} -> {res.loss_history[-1]:.4e}, "
+              f"l2 {res.l2_error:.4e}; ntp/cuda vs ntp: losses {e_loss:.2e}, l2 "
+              f"{e_l2:.2e} (tol {TOL_TRAIN:.0e}); launches {got}")
+        for spec, tm in times.items():
+            a, f = tm["adam_step"], tm["forward"]
+            line = (f"    {spec:8s} Adam step wall {a['wall_ms']:.2f} ms, events "
+                    f"{a['event_ms']:.2f} ms; forward wall {f['wall_ms']:.2f} ms")
+            if a.get("profile"):
+                line += (f"; busy {a['profile']['busy_ms']:.2f} ms per step, forward "
+                         f"{f['profile']['busy_ms']:.2f} ms, the port's kernels "
+                         f"{kernel_ms(a['profile']):.3f} ms")
+            print(line)
+    report["operator_training"] = out
+    return total
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -834,6 +1402,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import cuda_lib
 
     report: dict = {"seed": args.seed}
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[1] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
@@ -848,27 +1417,64 @@ def main(argv=None) -> int:
     report.update(device=kind, nvidia_smi=smi, build_seconds=cuda_lib.LIBRARY.build_seconds,
                   max_registers=max(regs, default=0), max_spill_bytes=max(spills, default=0))
 
+    seconds = report["phase_seconds"] = {}
+    clock = [time.perf_counter(), None]
+
+    def phase(name: str, title: str) -> None:
+        """Close the running phase (print and keep its wall seconds) and
+        open ``name``."""
+        now = time.perf_counter()
+        if clock[1] is not None:
+            seconds[clock[1]] = now - clock[0]
+            print(f"    ({clock[1]}: {now - clock[0]:.1f} s)")
+        clock[:] = [now, name]
+        if name:
+            print(f"[{name}] {title}")
+
+    seconds["1"] = time.perf_counter() - t_start
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
-    print("[2] kernels against their plain versions")
+    phase("2", "kernels against their plain versions")
     worst = check_kernels(gen, report)
     check_trunk_kernels(gen, report, worst)
+    phase("2c", "K5 jet_attention_scores against its plain version")
+    check_scores_kernel(gen, report, worst)
+    phase("2d", "K5's path: the memory rows of memory_scaling._attention_rows "
+                "(order 2, B 2, H 2, Dh 8, Dm 16, f32) through the public ops")
+    memory_launches = memory_rows(gen, report)
 
     net = DenseMLP(d_in=2, width=32, depth=3, d_out=1, activation="tanh")
     params = net.init(torch.Generator().manual_seed(args.seed), dtype=torch.float64)
-    print("[3a] served main path: pinn-pde DenseMLP(2, 32, 3, 1, tanh) f64, ntp/cuda")
+    phase("3a", "served main path: pinn-pde DenseMLP(2, 32, 3, 1, tanh) f64, ntp/cuda")
     launches = serve_main_path(net, params, gen, report)
     trunk = Transformer(**TRUNK)
     trunk_params = trunk.init(torch.Generator().manual_seed(args.seed),
                               dtype=torch.float64)
-    print("[3b] served main path: pinn-pde Transformer(2, 32, 3, 1, 2 heads, "
-          "mlp_ratio 2, tanh) f64, ntp/cuda")
+    phase("3b", "served main path: pinn-pde Transformer(2, 32, 3, 1, 2 heads, "
+                "mlp_ratio 2, tanh) f64, ntp/cuda")
     trunk_launches = serve_trunk(trunk, trunk_params, gen, report)
 
-    print("[4] times (CUDA events, warm L2, back-to-back device work)")
+    phase("4", "times (CUDA events, warm L2, back-to-back device work)")
     times = time_kernels(net, params, gen, report)
     time_server(net, params, gen, report)
     trunk_times = time_trunk_kernels(gen, report)
     time_trunk_server(trunk, trunk_params, gen, report)
+    scores_times = time_scores_kernel(gen, report)
+
+    phase("5", f"Burgers training, pinn-mlp (3 x 24 tanh) f64, 512 + 128 points, "
+               f"k in {BURGERS_KS}: {BURGERS_ADAM} Adam + {BURGERS_LBFGS} L-BFGS, "
+               f"ntp/cuda vs ntp")
+    burgers_launches = train_burgers(args.seed, report)
+    phase("6", f"operator training, pinn-pde, n_domain 1024: {OPERATOR_ADAM} Adam "
+               f"steps, ntp/cuda vs ntp")
+    operator_launches = train_operators(args.seed, report)
+    phase("", "")
+
+    paths = {"dense_mlp": launches, "transformer": trunk_launches,
+             "scores_memory": memory_launches, "burgers_training": burgers_launches,
+             "operator_training": operator_launches}
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
 
     t = times["cross512"]
     kernels = []
@@ -880,9 +1486,8 @@ def main(argv=None) -> int:
         k = t[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name] + trunk_launches[name],
-            "launches_by_path": {"dense_mlp": launches[name],
-                                 "transformer": trunk_launches[name]},
+            "launches": sum(by_path(name).values()),
+            "launches_by_path": by_path(name),
             "max_abs_err": max(worst[name], k["max_abs_err"]),
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
@@ -897,15 +1502,30 @@ def main(argv=None) -> int:
         k = trunk_times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name] + trunk_launches[name],
-            "launches_by_path": {"dense_mlp": launches[name],
-                                 "transformer": trunk_launches[name]},
+            "launches": sum(by_path(name).values()),
+            "launches_by_path": by_path(name),
             "max_abs_err": max(worst[name], k["max_abs_err"]),
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             "library_order0_ms": k["library_order0_ms"],
             "library_order0_call": k["library_order0_call"],
             "host_ms": k["host_ms"], "shape": k["shape"], "dtype": k["dtype"]})
+    k = scores_times[scores_key(SCORES_TIMED[-1], SCORES_TIMED_ORDERS[0])]
+    kernels.append({
+        "name": "jet_attention_scores", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/jet_attention_scores.cu",
+        "replaces": "src/repro/kernels/jet_attention.py:118",
+        "launches": sum(by_path("jet_attention_scores").values()),
+        "launches_by_path": by_path("jet_attention_scores"),
+        "max_abs_err": max(worst["jet_attention_scores"], k["max_abs_err"]),
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None,
+        "library_order0_ms": k["library_order0_ms"],
+        "library_order0_call": "torch.softmax(scale * q_0 @ k_0^T) on c_0",
+        "host_ms": k["host_ms"], "shape": k["shape"], "dtype": k["dtype"],
+        "other_shapes": {key: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_order0_ms")}
+                         for key, v in scores_times.items()}})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

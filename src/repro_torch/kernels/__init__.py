@@ -4,17 +4,19 @@
 activation epilogue (K1, csrc/jet_dense.cu); ``act_jet`` is the standalone
 epilogue (K2, csrc/act_jet.cu); ``jet_rms_norm`` (K3, csrc/jet_rms_norm.cu)
 and ``jet_flash_attention`` (K4, csrc/jet_flash_attention.cu) are the
-transformer trunk's normalization and attention block.  ``ref.py`` holds
+transformer trunk's normalization and attention block;
+``jet_attention_scores`` (K5, csrc/jet_attention_scores.cu) materializes
+the softmaxed score jet.  ``ref.py`` holds
 their plain PyTorch versions; ``ops.py`` dispatches (kernel on CUDA
 tensors, plain version on CPU tensors) and counts launches.  The kernels
 are built at first use (cuda_lib.py), never at import.
 """
 
 from . import ops, ref
-from .ops import (EpilogueKind, act_jet, epilogues, jet_dense,
-                  jet_flash_attention, jet_rms_norm, launch_counts,
+from .ops import (EpilogueKind, act_jet, epilogues, jet_attention_scores,
+                  jet_dense, jet_flash_attention, jet_rms_norm, launch_counts,
                   reset_launch_counts)
 
 __all__ = ["ops", "ref", "EpilogueKind", "act_jet", "epilogues", "jet_dense",
-           "jet_flash_attention", "jet_rms_norm", "launch_counts",
-           "reset_launch_counts"]
+           "jet_attention_scores", "jet_flash_attention", "jet_rms_norm",
+           "launch_counts", "reset_launch_counts"]

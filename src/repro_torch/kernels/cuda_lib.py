@@ -48,6 +48,8 @@ _SIGNATURES = {
     # window, stream
     "jet_flash_attention_launch": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                                    _I, _I, _D, _I, _I, _P),
+    # q, k, out, bsz, t, d, n1, dtype, scale, stream
+    "jet_attention_scores_launch": (_P, _P, _P, _I64, _I, _I, _I, _I, _D, _P),
 }
 
 

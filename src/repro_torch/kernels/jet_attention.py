@@ -1,8 +1,9 @@
-"""Launch wrappers of the transformer trunk's kernels: K3, the fused jet
-RMSNorm (csrc/jet_rms_norm.cu), and K4, the flash-jet attention block
-(csrc/jet_flash_attention.cu).  They replace the reference's
-kernels/jet_attention.py::jet_rms_norm_pallas and
-::jet_flash_attention_pallas.
+"""Launch wrappers of the attention kernels: K3, the fused jet RMSNorm
+(csrc/jet_rms_norm.cu), K4, the flash-jet attention block
+(csrc/jet_flash_attention.cu), and K5, the materializing attention-score
+jet (csrc/jet_attention_scores.cu).  They replace the reference's
+kernels/jet_attention.py::jet_rms_norm_pallas, ::jet_flash_attention_pallas
+and ::jet_attention_scores_pallas.
 
 * :func:`jet_rms_norm_cuda`: (n+1, B, W) stack + (W,) gain -> the
   normalized jet, one warp per row (mean-square convolution, Miller rsqrt
@@ -10,9 +11,16 @@ kernels/jet_attention.py::jet_rms_norm_pallas and
 * :func:`jet_flash_attention_cuda`: Q/K/V stacks (n+1, B, H, T, Dh) and the
   output projection (H, Dh, Dm) -> the block output jet (n+1, B, T, Dm),
   online softmax over the coefficient axis, no score jet in device memory.
+* :func:`jet_attention_scores_cuda`: Q/K stacks (n+1, B, T, D) -> the
+  softmaxed score jet (n+1, B, T, T), one warp per query, key tiles shared
+  by the block's queries of one batch row; no
+  module dispatches it (the trunk runs K4), it backs
+  ``ops.jet_attention_scores`` and the materializing side of the
+  flash-vs-scores memory comparison.
 
-Their plain versions are :func:`repro_torch.kernels.ref.jet_rms_norm_ref`
-and :func:`~repro_torch.kernels.ref.jet_flash_attention_ref`.  Both kernels
+Their plain versions are :func:`repro_torch.kernels.ref.jet_rms_norm_ref`,
+:func:`~repro_torch.kernels.ref.jet_flash_attention_ref` and
+:func:`~repro_torch.kernels.ref.jet_attention_scores_ref`.  The kernels
 take contiguous float32/float64 tensors and orders 0..8.
 """
 
@@ -27,10 +35,13 @@ from .tanh_jet import DTYPE_CODES, check_cuda_tensor, check_order
 MASK_CODES = {"none": 0, "causal": 1, "local": 2}
 MAX_HEAD_DIM = 128            # csrc/jet_flash_attention.cu: 32 x kMaxDPL
 _FLASH_WARPS = 4              # csrc/jet_flash_attention.cu: kWarps
+_SCORES_WARPS = 8             # csrc/jet_attention_scores.cu: kWarps
+_SCORES_TILE = 32             # csrc/jet_attention_scores.cu: kTile
 _SMEM_LIMIT = 232448          # shared memory a block can use on Hopper
 
 RMS_NORM_LAUNCHES = LaunchCounter("jet_rms_norm")
 FLASH_LAUNCHES = LaunchCounter("jet_flash_attention")
+SCORES_LAUNCHES = LaunchCounter("jet_attention_scores")
 
 
 def _same_device(*ts: torch.Tensor) -> None:
@@ -103,4 +114,36 @@ def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                     bsz, heads, t, dh, dm, n1, DTYPE_CODES[q.dtype],
                     float(scale), MASK_CODES[mask], int(window))
     FLASH_LAUNCHES.add()
+    return out
+
+
+def scores_smem_bytes(n1: int, head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K5 block: the key tile (rows padded to
+    head_dim + 1) and each warp's query jet."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return n1 * (_SCORES_TILE * (head_dim + 1) + _SCORES_WARPS * head_dim) * item
+
+
+def jet_attention_scores_cuda(q: torch.Tensor, k: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """K5 on the card: q/k (n+1, B, T, D) -> the softmaxed score jet
+    (n+1, B, T, T)."""
+    check_cuda_tensor(q, "q", 4)
+    check_cuda_tensor(k, "k", 4, q.dtype)
+    if k.shape != q.shape:
+        raise ValueError(f"q/k shape mismatch: {tuple(q.shape)} vs "
+                         f"{tuple(k.shape)}")
+    _same_device(q, k)
+    n1, bsz, t, d = q.shape
+    check_order(n1)
+    smem = scores_smem_bytes(n1, d, q.dtype)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the score kernel needs {smem} bytes of shared "
+                         f"memory for head dim {d} at order {n1 - 1}; a block "
+                         f"has {_SMEM_LIMIT}")
+    out = torch.empty((n1, bsz, t, t), dtype=q.dtype, device=q.device)
+    cuda_lib.launch("jet_attention_scores_launch", q.device, q.data_ptr(),
+                    k.data_ptr(), out.data_ptr(), bsz, t, d, n1,
+                    DTYPE_CODES[q.dtype], float(scale))
+    SCORES_LAUNCHES.add()
     return out

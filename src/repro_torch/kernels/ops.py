@@ -1,8 +1,9 @@
 """Public dispatch for the jet kernels.
 
-:func:`jet_dense` and :func:`act_jet` (the dense path) and
+:func:`jet_dense` and :func:`act_jet` (the dense path),
 :func:`jet_rms_norm` and :func:`jet_flash_attention` (the transformer
-trunk) launch the hand-written CUDA kernels for CUDA tensors and run their
+trunk) and :func:`jet_attention_scores` (the materializing score jet)
+launch the hand-written CUDA kernels for CUDA tensors and run their
 plain versions (kernels/ref.py) only for CPU tensors, so the CPU tests
 reach every line around the kernels.  There is no
 fallback: on the card a wrapper launches its kernel or raises, and all
@@ -14,8 +15,8 @@ means the same thing on the CPU as on the card.
 * :func:`epilogues` is the typed capability registry: fusable name ->
   :class:`EpilogueKind`.  ``ACTIVATION`` entries are the closed-form tables
   the dense kernel's epilogue can run; ``FUSED_OP`` entries
-  (``"rms_norm"``, ``"flash_attention"``) are whole-chain kernels with
-  their own dispatch function.
+  (``"rms_norm"``, ``"attention_scores"``, ``"flash_attention"``) are
+  whole-chain kernels with their own dispatch function.
 * The wrappers are ``torch.autograd.Function``s whose backward recomputes
   through the plain version, as the reference's ``custom_vjp``s do: the
   residuals are just the layer inputs, so activation memory stays O(n M).
@@ -36,8 +37,8 @@ from . import tanh_jet as _k2
 from .tanh_jet import KERNEL_ACTS, MAX_ORDER, check_order
 
 __all__ = ["EpilogueKind", "epilogues", "act_jet", "jet_dense",
-           "jet_rms_norm", "jet_flash_attention", "MAX_ORDER",
-           "launch_counts", "reset_launch_counts"]
+           "jet_rms_norm", "jet_flash_attention", "jet_attention_scores",
+           "MAX_ORDER", "launch_counts", "reset_launch_counts"]
 
 
 class EpilogueKind(enum.Enum):
@@ -58,10 +59,11 @@ class EpilogueKind(enum.Enum):
 _EPILOGUE_KINDS: dict = {
     **{a: EpilogueKind.ACTIVATION for a in KERNEL_ACTS},
     "rms_norm": EpilogueKind.FUSED_OP,
+    "attention_scores": EpilogueKind.FUSED_OP,
     "flash_attention": EpilogueKind.FUSED_OP,
 }
 _COUNTERS = (_k1.LAUNCHES, _k2.LAUNCHES, _k34.RMS_NORM_LAUNCHES,
-             _k34.FLASH_LAUNCHES)
+             _k34.FLASH_LAUNCHES, _k34.SCORES_LAUNCHES)
 
 
 def epilogues() -> Mapping[str, EpilogueKind]:
@@ -281,4 +283,51 @@ def jet_flash_attention(q_coeffs: torch.Tensor, k_coeffs: torch.Tensor,
     kf, _ = _fold_batch(k_coeffs, keep=3)
     vf, _ = _fold_batch(v_coeffs, keep=3)
     out = _FlashAttention.apply(qf, kf, vf, wo, scale, mask)
+    return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-2:]))
+
+
+# ---------------------------------------------------------------------------
+# the materializing attention-score jet: Cauchy-product QK^T + scale +
+# softmax recurrences in one launch; no module dispatches it (SelfAttention
+# runs the flash kernel), it is the public op and the T^2 side of the
+# flash-vs-scores memory comparison
+# ---------------------------------------------------------------------------
+
+def _attention_scores_impl(q, k, scale):
+    if _on_cpu(q):
+        return ref.jet_attention_scores_ref(q, k, scale)
+    return _k34.jet_attention_scores_cuda(q.contiguous(), k.contiguous(), scale)
+
+
+class _AttentionScores(torch.autograd.Function):
+    """Forward: the score kernel (plain version on CPU).  Backward: a
+    recompute through the plain version, as the reference's
+    ``_attention_scores_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k)
+        return _attention_scores_impl(q, k, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            out = ref.jet_attention_scores_ref(*leaves, ctx.scale)
+        grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None)
+
+
+def jet_attention_scores(q_coeffs: torch.Tensor, k_coeffs: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """Fused attention-score jet: Q/K stacks (n+1, *batch, T, D) -> the
+    softmaxed probability jet (n+1, *batch, Tq, Tk).  Extra leading batch
+    axes (collocation batch, head axis) fold into the kernel's batch
+    dimension and unfold on the way out."""
+    check_order(q_coeffs.shape[0])
+    qf, batch = _fold_batch(q_coeffs, keep=2)
+    kf, _ = _fold_batch(k_coeffs, keep=2)
+    out = _AttentionScores.apply(qf, kf, scale)
     return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-2:]))

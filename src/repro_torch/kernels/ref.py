@@ -65,6 +65,29 @@ def jet_dense_ref(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return act_jet_ref(z, activation)
 
 
+def jet_attention_scores_ref(q: torch.Tensor, k: torch.Tensor,
+                             scale: float) -> torch.Tensor:
+    """Fused attention-score oracle: (n+1, B, T, D) Q/K coefficient stacks
+    -> the softmaxed score jet (n+1, B, Tq, Tk).
+
+    Straight-line: the Cauchy convolution of the score contraction, then the
+    softmax exp / sum / div power-series recurrences written out directly
+    (no core.jet, no shared kernel body)."""
+    n1 = q.shape[0]
+    s = [scale * sum(torch.einsum("bqd,bkd->bqk", q[i], k[m - i])
+                     for i in range(m + 1)) for m in range(n1)]
+    shift = s[0].amax(dim=-1, keepdim=True)
+    e = [torch.exp(s[0] - shift)]
+    for m in range(1, n1):
+        e.append(sum(j * s[j] * e[m - j] for j in range(1, m + 1)) / m)
+    tot = [em.sum(dim=-1, keepdim=True) for em in e]
+    p = [e[0] / tot[0]]
+    for m in range(1, n1):
+        p.append((e[m] - sum(tot[j] * p[m - j] for j in range(1, m + 1)))
+                 / tot[0])
+    return torch.stack(p)
+
+
 def jet_flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             wo: torch.Tensor, scale: float,
                             mask: torch.Tensor | None = None) -> torch.Tensor:

@@ -282,7 +282,8 @@ def test_dispatch_hands_the_launchers_contiguous_stacks(monkeypatch):
     name, args = calls[-1]
     assert name == "jet_rms_norm_launch" and args[3:] == (15, 8, n1, 1, 1e-5)
     assert tops.launch_counts() == {"jet_dense": 0, "act_jet": 0,
-                                    "jet_rms_norm": 1, "jet_flash_attention": 1}
+                                    "jet_rms_norm": 1, "jet_flash_attention": 1,
+                                    "jet_attention_scores": 0}
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():

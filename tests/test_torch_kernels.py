@@ -159,15 +159,17 @@ def test_cpu_path_launches_nothing():
     qkv = torch.zeros((3, 2, 2, 5, 4), dtype=torch.float64)
     tops.jet_flash_attention(qkv, qkv, qkv, torch.zeros((8, 3), dtype=torch.float64),
                              0.5, "causal")
+    tops.jet_attention_scores(qkv[:, :, 0], qkv[:, :, 1], 0.5)
     assert tops.launch_counts() == {"jet_dense": 0, "act_jet": 0,
-                                    "jet_rms_norm": 0, "jet_flash_attention": 0}
+                                    "jet_rms_norm": 0, "jet_flash_attention": 0,
+                                    "jet_attention_scores": 0}
 
 
 def test_epilogue_registry_is_typed_and_read_only():
-    """The port's registry is the reference's minus the kernels it has not
-    ported ("attention_scores", K5), entry for entry of the same kind."""
+    """Every TPU kernel is ported: the port's registry equals the
+    reference's, entry for entry of the same kind."""
     reg, jreg = tops.epilogues(), jops.epilogues()
-    assert set(reg) == set(jreg) - {"attention_scores"}
+    assert set(reg) == set(jreg)
     assert all(reg[name].value == jreg[name].value for name in reg)
     assert {n for n, k in reg.items() if k is tops.EpilogueKind.ACTIVATION} \
         == set(tanh_jet.KERNEL_ACTS)
