@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--against DIR]
 
 Phases, each failing loudly with a non-zero exit:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of the
-   hand-written kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
+   hand-written kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
+   and from its ``-Xptxas -v`` log the registers and spills of every
+   instantiation (printed for K1, K2 and K4 at f64, N1 = 5 and 9);
 2. every kernel against its plain PyTorch version on the card, orders 1-8,
    f32 and f64 (tolerances at TOL_F64 / TOL_F32 below): K2 (``act_jet``) for
    tanh/sigmoid/sin at ragged and serving shapes; K1 (``jet_dense``) for
@@ -15,8 +17,12 @@ Phases, each failing loudly with a non-zero exit:
    and a ragged (n+1, 37, 24); K4 (``jet_flash_attention``) at the served
    (n+1, 8192, 2, 2, 16) x wo (2, 16, 32), a ragged multi-block
    (n+1, 3, 4, 70, 8) x (4, 8, 20) and a wide-head (n+1, 2, 4, 37, 96) x
-   (4, 96, 48) (three head dims per lane, over 48 KB of shared memory from
-   order 3 in f64), each under the none, causal and ("local", 2) masks;
+   (4, 96, 48) (the long-T kernel at a wide head), each under the none,
+   causal and ("local", 2) masks; then the tilings' edges, orders 0, 4 and
+   8: K1 at DENSE_EDGE_SHAPES (ragged rows, din 1 and 2, dout 1, width
+   128, a ragged 4-column register tile) for every activation and None,
+   K4 at T in 1, 2, 3, 70 and 1024, Dh 1, 16 and 128, every mask including
+   local windows 1 and 5, and at the largest head count the wrapper admits;
    2c. K5 (``jet_attention_scores``) at the reference's test shapes (B, T, D)
    (5, 3, 4), (19, 2, 8), (3, 1, 1), the memory comparison's (4, 64, 8) and
    (4, 256, 8) and a ragged (2, 70, 16), plus the softmax's row-sum
@@ -49,7 +55,11 @@ Phases, each failing loudly with a non-zero exit:
    function alone), the bound from bytes and operations, and per request
    kind each server's p50/p99 for ``ntp/cuda`` and eager ``ntp`` beside the
    engine call's device time; K5 at (4, 256, 8) and (4, 1024, 8), orders 2
-   and 8, beside its plain version and softmax(scale q_0 k_0^T);
+   and 8, beside its plain version and softmax(scale q_0 k_0^T); K1 also
+   at the trunk's (5, 16384, 32), K4 at the memory comparison's row
+   (order 2, T 1024, f32); and a ``torch.profiler`` trace of the trunk's
+   ``cross((0,0,1,1))`` engine call at 512 rows over CUDA-graph replays,
+   device time split by kernel;
 5. Burgers training (``pinn.trainer.train``) on pinn-mlp (3 x 24 tanh,
    f64) at 512 domain + 128 origin points, k = 1 and k = 3 (a u-jet of
    order 8: the top of the kernels' template), Adam then L-BFGS under
@@ -63,7 +73,13 @@ Phases, each failing loudly with a non-zero exit:
    DenseMLP (16 K1 per step) and heat on the pinn-pde Transformer trunk
    (16 K1, 7 K3, 3 K4 per step), n_domain 1024, under ``ntp/cuda`` and
    eager ``ntp``: losses agree, launches asserted, time per step;
-7. a JSON line describing each of the five kernels, the ``nvidia-smi``
+7. K1 at the shapes the training phases launched it most (recorded while
+   they ran), beside its plain version and bound;
+8. only with ``--against DIR`` (another checkout, e.g. the parent commit
+   unpacked with ``git archive``): that checkout's K1, K2 and K4 against
+   this tree's in turns (other, this, this, other) at the served shapes,
+   and the phase-4 trace run with its K1 and K4 as well ("before");
+9. a JSON line describing each of the five kernels, the ``nvidia-smi``
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall seconds.
@@ -124,6 +140,20 @@ TRUNK_PER_CALL = {"jet_dense": 16, "act_jet": 0, "jet_rms_norm": 7,
 TRUNK_AUTODIFF_SIZES = (5, 37)
 FLASH_MASKS = (None, "causal", ("local", 2))
 
+# Edge shapes of phase 2 for the tiled kernels, orders 0, 4 and 8 (N1 1, 5,
+# 9), f32 and f64.  K1 (rows, din, dout): rows that are no multiple of a
+# tile, the input layer's din of 1 and 2, the readout's dout of 1, widths
+# above 32, and a ragged shape on the 4-column register tiles (rows from
+# 4224 up).  K4 (bsz, heads, t, dh, dm) at T in 1, 2, 3 (short-T kernel),
+# 70 and 1024 (long-T kernel), Dh 1, 16 and 128, every mask; plus, at f64
+# order 8, the most heads flash_geometry admits at Dh 128.
+DENSE_EDGE_SHAPES = ((1, 2, 32), (77, 1, 32), (1000, 32, 1), (1000, 2, 24),
+                     (1000, 128, 128), (4301, 32, 45))
+EDGE_ORDERS = (0, 4, 8)
+FLASH_EDGE_T = {1: 37, 2: 37, 3: 37, 70: 3, 1024: 1}       # T: batch rows
+FLASH_EDGE_DH = ((1, 20), (16, 32), (128, 48))             # (Dh, Dm)
+FLASH_EDGE_MASKS = (None, "causal", ("local", 1), ("local", 5))
+
 # K5 (jet_attention_scores): the reference's test shapes (ragged T, T = 1,
 # D = 1), the memory comparison's (B*H, T, Dh) and a ragged multi-warp T
 SCORES_SHAPES = ((5, 3, 4), (19, 2, 8), (3, 1, 1), (4, 64, 8), (4, 256, 8),
@@ -135,6 +165,9 @@ MEMORY = dict(order=2, bsz=2, heads=2, dh=8, dm=16)
 # reports the last shape at the first order
 SCORES_TIMED = ((4, 256, 8), (4, 1024, 8))
 SCORES_TIMED_ORDERS = (2, 8)
+# K1 shapes timed beside the served ones: every (n1, rows, din, dout, act)
+# the training phases handed it, at most this many, the most launched first
+TRAINING_SHAPES_TIMED = 8
 
 # Training phases.  Burgers: pinn-mlp (3 x 24 tanh, d_in = d_out = 1, f64)
 # at the paper's 512 domain + 128 origin points.  Operators: pinn-pde.
@@ -214,6 +247,63 @@ def nvidia_smi_line() -> str:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
     require(out.returncode == 0, f"nvidia-smi failed: {out.stdout.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 1: registers, spills and shared memory per kernel instantiation
+# ---------------------------------------------------------------------------
+
+KERNEL_SYMBOLS = ("jet_dense_kernel", "act_jet_kernel", "jet_rms_norm_kernel",
+                  "jet_flash_attention_short_kernel", "jet_flash_attention_long_kernel",
+                  "jet_attention_scores_kernel")
+ACT_NAMES = {0: "none", 1: "tanh", 2: "sigmoid", 3: "sin"}
+
+
+def kernel_resources(build_log: str) -> list[dict]:
+    """Per instantiation, from the ``-Xptxas -v`` lines of the build log:
+    the kernel, its dtype and integer template arguments (decoded from the
+    mangled name: N1 first; then the activation for K1/K2, the column tile
+    TN for K1, the head dims per lane DPL for K4), registers, spill bytes
+    and static shared memory (the kernels' tiles are dynamic shared memory,
+    sized per launch: see ``flash_geometry`` and jet_dense.cu)."""
+    out = []
+    for entry in build_log.split("Compiling entry function '")[1:]:
+        mangled = entry.split("'", 1)[0]
+        name = next((k for k in KERNEL_SYMBOLS if k + "I" in mangled), None)
+        m = name and re.search(re.escape(name) + r"I([df])((?:Li-?\d+E)*)E", mangled)
+        if not m:
+            continue
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
+        out.append({"kernel": name, "dtype": "f64" if m.group(1) == "d" else "f32",
+                    "template": [int(v) for v in re.findall(r"Li(-?\d+)E", m.group(2))],
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None,
+                    "spill_load_bytes": int(spill.group(2)) if spill else None,
+                    "static_smem_bytes": int(smem.group(1)) if smem else 0})
+    return out
+
+
+def print_resources(resources: list[dict]) -> None:
+    """The f64 N1 = 5 and 9 instantiations of K1, K2 and K4 (the served and
+    training orders), plus the worst spill of any instantiation."""
+    for r in resources:
+        n1 = r["template"][0] if r["template"] else None
+        if r["dtype"] != "f64" or n1 not in (5, 9) or r["kernel"] in (
+                "jet_rms_norm_kernel", "jet_attention_scores_kernel"):
+            continue
+        rest = r["template"][1:]
+        if r["kernel"] in ("jet_dense_kernel", "act_jet_kernel"):
+            rest = [ACT_NAMES.get(rest[0], rest[0])] + rest[1:]
+        print(f"    {r['kernel']:34s} f64 N1={n1} {str(rest):16s} registers "
+              f"{r['registers']}, spill {r['spill_store_bytes']}/{r['spill_load_bytes']} "
+              f"bytes")
+    worst = max(resources, key=lambda r: r["spill_store_bytes"] or 0, default=None)
+    if worst:
+        print(f"    worst spill of all {len(resources)} instantiations: "
+              f"{worst['spill_store_bytes']} bytes ({worst['kernel']} {worst['dtype']} "
+              f"{worst['template']})")
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +450,84 @@ def check_trunk_kernels(gen, report: dict, worst: dict) -> None:
     report["kernel_checks"] += [dict(zip(("kernel", "dtype", "mask", "shape",
                                           "orders", "max_rel_err", "tol"), r))
                                 for r in rows]
+
+
+def check_edge_shapes(gen, report: dict, worst: dict) -> None:
+    """Phase 2, the tilings' edges: K1 at DENSE_EDGE_SHAPES for every
+    activation and None, K4 at FLASH_EDGE_T x FLASH_EDGE_DH x every mask
+    and at the largest head count the wrapper admits, orders EDGE_ORDERS,
+    f32 and f64, against the plain versions at the TOL_* gates (f32 sums
+    over 1024 keys: the memory rows' rule, holds_f32_sum)."""
+    import torch
+    from repro_torch.core.modules import attention_mask, normalize_attention_mask
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.jet_attention import (flash_smem_bytes,
+                                                   jet_flash_attention_cuda, _SMEM_LIMIT)
+    from repro_torch.kernels.jet_dense import jet_dense_cuda
+
+    rows = []
+    for dt in (torch.float32, torch.float64):
+        tol = TOL_F32 if dt == torch.float32 else TOL_F64
+        for act in (None, "tanh", "sigmoid", "sin"):
+            for bsz, din, dout in DENSE_EDGE_SHAPES:
+                e_max = 0.0
+                for n in EDGE_ORDERS:
+                    x = 0.5 * torch.randn((n + 1, bsz, din), generator=gen,
+                                          device=DEVICE, dtype=dt)
+                    w = torch.randn((din, dout), generator=gen, device=DEVICE,
+                                    dtype=dt) / din ** 0.5
+                    b = 0.1 * torch.randn((dout,), generator=gen, device=DEVICE, dtype=dt)
+                    got = jet_dense_cuda(x, w, b, act)
+                    want = ref.jet_dense_ref(x, w, b, act)
+                    torch.cuda.synchronize()
+                    e_max = max(e_max, holds(
+                        got, want, lambda c, ww, bb: ref.jet_dense_ref(c, ww, bb, act),
+                        (x, w, b), dt, n, f"jet_dense edge {act} {dt} order {n} "
+                                          f"({bsz},{din}->{dout})"))
+                    worst["jet_dense"] = max(worst["jet_dense"],
+                                             float((got - want).abs().max()))
+                rows.append(("jet_dense", str(dt), str(act), (bsz, din, dout), e_max, tol))
+
+        shapes = [(bsz, 2, t, dh, dm, mask) for t, bsz in FLASH_EDGE_T.items()
+                  for dh, dm in FLASH_EDGE_DH for mask in FLASH_EDGE_MASKS]
+        orders = {shape: EDGE_ORDERS for shape in shapes}
+        if dt == torch.float64:      # the head count at the shared-memory edge
+            edge = max(h for h in range(1, 64)
+                       if flash_smem_bytes(9, h, 70, 128, dt) <= _SMEM_LIMIT)
+            orders[(1, edge, 70, 128, 4, None)] = (8,)
+        for (bsz, heads, t, dh, dm, mask), ns in orders.items():
+            kind, window = normalize_attention_mask(mask)
+            dense = attention_mask(mask, t, DEVICE)
+            scale = dh ** -0.5
+
+            def flash_plain(q, k, v, wo):
+                return ref.jet_flash_attention_ref(q, k, v, wo, scale, dense)
+
+            e_max = 0.0
+            for n in ns:
+                q, k, v = (0.5 * torch.randn((n + 1, bsz, heads, t, dh), generator=gen,
+                                             device=DEVICE, dtype=dt) for _ in range(3))
+                wo = torch.randn((heads, dh, dm), generator=gen, device=DEVICE,
+                                 dtype=dt) / (heads * dh) ** 0.5
+                got = jet_flash_attention_cuda(q, k, v, wo, scale, kind, window)
+                torch.cuda.synchronize()
+                what = (f"jet_flash_attention edge {kind}{window or ''} {dt} order {n} "
+                        f"({bsz}, {heads}, {t}, {dh})->{dm}")
+                if dt == torch.float32 and t >= 1024:
+                    e = holds_f32_sum(got, flash_plain, (q, k, v, wo), what)
+                else:
+                    want = flash_plain(q, k, v, wo)
+                    e = holds(got, want, flash_plain, (q, k, v, wo), dt, n, what)
+                    worst["jet_flash_attention"] = max(
+                        worst["jet_flash_attention"], float((got - want).abs().max()))
+                e_max = max(e_max, e)
+            rows.append(("jet_flash_attention", str(dt), f"{kind}{window or ''}",
+                         (bsz, heads, t, dh, dm), e_max, tol))
+    for r in rows:
+        print(f"  edge {r[0]:19s} {r[1]:13s} {r[2]:7s} {str(r[3]):24s} max rel err "
+              f"{r[4]:.2e} (tol {r[5]:.0e})")
+    report["edge_checks"] = [dict(zip(("kernel", "dtype", "variant", "shape",
+                                       "max_rel_err", "tol"), r)) for r in rows]
 
 
 def row_sum_dev(p) -> float:
@@ -769,7 +937,10 @@ def time_kernels(net, params, gen, report: dict) -> dict:
 
     n1, width = 5, net.width                 # order 4, the served requests
     out = {}
-    for label, rows in (("grid512", 2 * 512), ("cross512", 16 * 512)):
+    # the DenseMLP's grid(4) and cross((0,0,1,1)) at 512 rows, and the
+    # trunk's cross at 512 rows (two tokens a row)
+    for label, rows in (("grid512", 2 * 512), ("cross512", 16 * 512),
+                        ("trunk_cross512", 2 * 16 * 512)):
         x = 0.5 * torch.randn((n1, rows, width), generator=gen, device=DEVICE,
                               dtype=torch.float64)
         w, b = params.w_hidden[0], params.b_hidden[0]
@@ -778,6 +949,10 @@ def time_kernels(net, params, gen, report: dict) -> dict:
         k1_plain, _ = device_time_ms(lambda: ref.jet_dense_ref(x, w, b, "tanh"), 3)
         xf = x.reshape(n1 * rows, width)
         gemm, _ = device_time_ms(lambda: torch.matmul(xf, w), 100)
+        # where K1's time goes: the same launch without the epilogue, and a
+        # copy of the stack (its bytes, no arithmetic)
+        linear, _ = device_time_ms(lambda: jet_dense_cuda(x, w, b, None), 100)
+        copy, _ = device_time_ms(lambda: x.clone(), 100)
         k2, k2_host = device_time_ms(lambda: act_jet_cuda(x, "tanh"), 100)
         k2_plain, _ = device_time_ms(lambda: ref.act_jet_ref(x, "tanh"), 3)
         k1_bytes = (x.numel() + w.numel() + b.numel() + n1 * rows * width) * item
@@ -793,7 +968,8 @@ def time_kernels(net, params, gen, report: dict) -> dict:
         out[label] = {
             "shape": [n1, rows, width], "dtype": str(x.dtype),
             "jet_dense": {"ms": k1, "host_ms": k1_host, "plain_ms": k1_plain,
-                          "gemm_only_ms": gemm,
+                          "gemm_only_ms": gemm, "no_epilogue_ms": linear,
+                          "stack_copy_ms": copy,
                           "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
                           "bytes": k1_bytes, "flops": k1_flops, "max_abs_err": err1},
             "act_jet": {"ms": k2, "host_ms": k2_host, "plain_ms": k2_plain,
@@ -802,7 +978,8 @@ def time_kernels(net, params, gen, report: dict) -> dict:
                         "flops": k2_flops, "max_abs_err": err2},
         }
         print(f"  {label} hidden layer (5, {rows}, 32)x(32, 32) f64 tanh: "
-              f"jet_dense {k1 * 1e3:.2f} us (plain {k1_plain * 1e3:.2f} us, "
+              f"jet_dense {k1 * 1e3:.2f} us (without the epilogue {linear * 1e3:.2f} us; "
+              f"a copy of the stack {copy * 1e3:.2f} us; plain {k1_plain * 1e3:.2f} us, "
               f"GEMM part alone {gemm * 1e3:.2f} us, bound {k1_bound[0] * 1e3:.2f} us "
               f"by {k1_bound[1]}; host dispatch {k1_host * 1e3:.2f} us); act_jet "
               f"{k2 * 1e3:.2f} us (plain {k2_plain * 1e3:.2f} us, bound "
@@ -971,7 +1148,32 @@ def time_trunk_kernels(gen, report: dict) -> dict:
                                "(events around single calls: it synchronizes)",
         "bound_ms": bound[0], "bound_by": bound[1], "bytes": nbytes,
         "flops": flops, "max_abs_err": err}
+    # the memory comparison's largest row (order 2, B 2, H 2, T 1024, Dh 8,
+    # Dm 16, f32): the long-T kernel
+    n1m, bm, hm, tm, dhm, dmm = (MEMORY["order"] + 1, MEMORY["bsz"], MEMORY["heads"],
+                                 MEMORY_T[-1], MEMORY["dh"], MEMORY["dm"])
+    qm, km, vm = (torch.randn((n1m, bm, hm, tm, dhm), generator=gen, device=DEVICE,
+                              dtype=torch.float32) for _ in range(3))
+    wm = torch.randn((hm, dhm, dmm), generator=gen, device=DEVICE, dtype=torch.float32)
+    sm = dhm ** -0.5
+    ms, host = device_time_ms(lambda: jet_flash_attention_cuda(qm, km, vm, wm, sm), 20,
+                              what="jet_flash_attention memory row")
+    plain = graph_time_ms(lambda: ref.jet_flash_attention_ref(qm, km, vm, wm, sm), reps=5)
+    nbytes = (3 * qm.numel() + wm.numel() + n1m * bm * tm * dmm) * 4
+    pairs = bm * hm * tm * tm
+    flops = (pairs * (2 * n1m * (n1m + 1) * dhm + 2 * n1m * n1m)
+             + bm * hm * tm * n1m * n1m * dhm + bm * tm * n1m * 2 * hm * dhm * dmm)
+    bound = bound_ms(nbytes, flops, "torch.float32")
+    out["jet_flash_attention_memory_row"] = {
+        "shape": list(qm.shape), "wo": list(wm.shape), "dtype": "torch.float32",
+        "ms": ms, "host_ms": host, "plain_ms": plain, "bound_ms": bound[0],
+        "bound_by": bound[1], "bytes": nbytes, "flops": flops}
     for name, r in out.items():
+        if "library_order0_ms" not in r:
+            print(f"  {name} {tuple(r['shape'])} f32: {r['ms'] * 1e3:.2f} us (plain "
+                  f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us by "
+                  f"{r['bound_by']}; host dispatch {r['host_ms'] * 1e3:.2f} us)")
+            continue
         print(f"  {name} {tuple(r['shape'])} f64: {r['ms'] * 1e3:.2f} us (plain "
               f"{r['plain_ms'] * 1e3:.2f} us, order-0 library call "
               f"{r['library_order0_ms'] * 1e3:.2f} us, bound "
@@ -1073,6 +1275,208 @@ def time_scores_kernel(gen, report: dict) -> dict:
     return out
 
 
+def trace_trunk_cross(net, params, gen, report: dict, other=None) -> dict:
+    """Where the trunk's ``cross((0,0,1,1))`` call at the 512 bucket spends
+    its device time: ``torch.profiler`` over replays of one CUDA graph of
+    the engine call, device time summed per kernel name (the port's
+    kernels by symbol, the rest by PyTorch's kernel names).  With ``other``
+    (an earlier checkout's kernels, ``--against``) it traces the call with
+    that checkout's K1 and K4 first ("before"), then with this tree's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engines import DerivativeEngine
+    from repro_torch.kernels import ops
+
+    x = torch.rand((512, net.d_in), generator=gen, device=DEVICE,
+                   dtype=torch.float64) * 2 - 1
+    engine = DerivativeEngine.from_spec("ntp/cuda")
+    reps, out = 5, {}
+    variants = [("after", None)]
+    if other is not None:
+        variants.insert(0, ("before", other))
+    for label, kernels in variants:
+        saved = (ops._k1.jet_dense_cuda, ops._k34.jet_flash_attention_cuda)
+        if kernels is not None:
+            ops._k1.jet_dense_cuda = kernels["jet_dense"].jet_dense_cuda
+            ops._k34.jet_flash_attention_cuda = \
+                kernels["jet_attention"].jet_flash_attention_cuda
+        try:
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.no_grad(), torch.cuda.stream(side):
+                for _ in range(3):
+                    engine.cross(net, params, x, (0, 0, 1, 1))
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.no_grad(), torch.cuda.graph(graph):
+                engine.cross(net, params, x, (0, 0, 1, 1))
+            graph.replay()
+            torch.cuda.synchronize()
+            source = "graph replays"
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    graph.replay()
+                torch.cuda.synchronize()
+            if not any(e.device_type == DeviceType.CUDA for e in prof.events()):
+                source = "eager calls (the profiler saw no kernel of the replays)"
+                with torch.no_grad(), profile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        engine.cross(net, params, x, (0, 0, 1, 1))
+                    torch.cuda.synchronize()
+        finally:
+            ops._k1.jet_dense_cuda, ops._k34.jet_flash_attention_cuda = saved
+        by_name, launches = {}, {}
+        for evt in prof.events():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            mine = [n for n in KERNEL_NAMES if re.search(rf"\b{n}\w*_kernel\b", evt.name)]
+            key = mine[0] if mine else evt.name
+            by_name[key] = by_name.get(key, 0.0) + evt.time_range.elapsed_us() / reps
+            launches[key] = launches.get(key, 0) + 1 / reps
+        require(by_name, "the profiler recorded no device event in the graph replays")
+        total = sum(by_name.values())
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+        out[label] = {"device_us": total, "by_kernel_us": dict(ranked),
+                      "launches": {k: launches[k] for k, _ in ranked}, "source": source}
+        print(f"  trunk cross((0,0,1,1)) N=512, {label}: {total:.1f} us of device time "
+              f"per call in {sum(launches.values()):.0f} kernels (profiler over {source})")
+        for name, us in ranked[:10]:
+            print(f"    {us:9.1f} us  {launches[name]:5.0f} x  {name[:90]}")
+    report["trunk_cross_trace"] = out
+    return out
+
+
+def load_other_kernels(root: Path) -> dict:
+    """The kernel modules of another checkout (``--against``: e.g. the
+    parent commit unpacked with ``git archive``) under the package name
+    ``other_kernels``; it builds its own sources into its own ``_build``."""
+    import importlib
+    import importlib.util
+    pkg = Path(root).resolve() / "src" / "repro_torch" / "kernels"
+    require((pkg / "csrc").is_dir(), f"--against {root}: no {pkg / 'csrc'}")
+    spec = importlib.util.spec_from_file_location(
+        "other_kernels", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["other_kernels"] = mod
+    spec.loader.exec_module(mod)
+    return {name: importlib.import_module(f"other_kernels.{name}")
+            for name in ("cuda_lib", "jet_dense", "tanh_jet", "jet_attention")}
+
+
+def compare_turns(other: dict, gen, report: dict) -> dict:
+    """The other checkout's K1, K2 and K4 against this tree's on the same
+    inputs at the served shapes, device time in turns other, this, this,
+    other (``device_time_ms``, 100 calls each); outputs held to TOL_F64."""
+    import torch
+    from repro_torch.kernels.jet_attention import jet_flash_attention_cuda
+    from repro_torch.kernels.jet_dense import jet_dense_cuda
+    from repro_torch.kernels.tanh_jet import act_jet_cuda
+
+    other["cuda_lib"].library()
+    dt, out = torch.float64, {}
+    cases = []
+    for rows in (1024, 8192, 16384):
+        x = 0.5 * torch.randn((5, rows, 32), generator=gen, device=DEVICE, dtype=dt)
+        w = torch.randn((32, 32), generator=gen, device=DEVICE, dtype=dt) / 32 ** 0.5
+        b = 0.1 * torch.randn((32,), generator=gen, device=DEVICE, dtype=dt)
+        cases.append((f"jet_dense (5, {rows}, 32)x(32, 32) tanh",
+                      lambda x=x, w=w, b=b: other["jet_dense"].jet_dense_cuda(x, w, b, "tanh"),
+                      lambda x=x, w=w, b=b: jet_dense_cuda(x, w, b, "tanh")))
+        if rows != 16384:
+            cases.append((f"act_jet (5, {rows}, 32) tanh",
+                          lambda x=x: other["tanh_jet"].act_jet_cuda(x, "tanh"),
+                          lambda x=x: act_jet_cuda(x, "tanh")))
+    q, k, v = (0.5 * torch.randn((5, 8192, 2, 2, 16), generator=gen, device=DEVICE,
+                                 dtype=dt) for _ in range(3))
+    wo = torch.randn((2, 16, 32), generator=gen, device=DEVICE, dtype=dt) / 32 ** 0.5
+    cases.append(("jet_flash_attention (5, 8192, 2, 2, 16) x (2, 16, 32)",
+                  lambda: other["jet_attention"].jet_flash_attention_cuda(q, k, v, wo, 0.25),
+                  lambda: jet_flash_attention_cuda(q, k, v, wo, 0.25)))
+    qm, km, vm = (torch.randn((3, 2, 2, 1024, 8), generator=gen, device=DEVICE,
+                              dtype=torch.float32) for _ in range(3))
+    wm = torch.randn((2, 8, 16), generator=gen, device=DEVICE, dtype=torch.float32)
+    cases.append(("jet_flash_attention memory row (3, 2, 2, 1024, 8) x (2, 8, 16) f32",
+                  lambda: other["jet_attention"].jet_flash_attention_cuda(
+                      qm, km, vm, wm, 8 ** -0.5),
+                  lambda: jet_flash_attention_cuda(qm, km, vm, wm, 8 ** -0.5)))
+    for what, old, new in cases:
+        e = rel_err(new(), old(), 1)
+        torch.cuda.synchronize()
+        tol = TOL_F64 if "f32" not in what else 4 * TOL_F32
+        require(e <= tol, f"{what}: this tree vs the other checkout {e:.3e}")
+        turns = [device_time_ms(fn, 100 if "memory" not in what else 20, what=what)[0]
+                 for fn in (old, new, new, old)]
+        out[what] = {"turns_ms": turns, "order": ["other", "this", "this", "other"],
+                     "rel_err": e}
+        print(f"  {what}: other {turns[0] * 1e3:.2f} / this {turns[1] * 1e3:.2f} / this "
+              f"{turns[2] * 1e3:.2f} / other {turns[3] * 1e3:.2f} us (outputs agree to "
+              f"{e:.1e})")
+    report["turns"] = out
+    return out
+
+
+class ShapeRecorder:
+    """Counts the (n1, rows, din, dout, activation, dtype) of every K1
+    launch while installed in place of ``ops``' reference to
+    ``jet_dense_cuda``; used around the training runs."""
+
+    def __init__(self):
+        self.counts: dict = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._mod, self._fn = ops._k1, ops._k1.jet_dense_cuda
+
+        def recorded(coeffs, w, b, activation="tanh"):
+            key = (*coeffs.shape, w.shape[1], activation, str(coeffs.dtype))
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self._fn(coeffs, w, b, activation)
+
+        self._mod.jet_dense_cuda = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.jet_dense_cuda = self._fn
+
+
+def time_training_shapes(counts: dict, gen, report: dict) -> dict:
+    """Phase 7: K1 at the TRAINING_SHAPES_TIMED shapes the training phases
+    launched most, beside its plain version and its bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bell_tables import flop_estimate
+    from repro_torch.kernels.jet_dense import jet_dense_cuda
+
+    out = {}
+    ranked = sorted(counts.items(), key=lambda kv: -kv[1])[:TRAINING_SHAPES_TIMED]
+    for (n1, rows, din, dout, act, dtype), launches in ranked:
+        dt = getattr(torch, dtype.split(".")[-1])
+        x = 0.5 * torch.randn((n1, rows, din), generator=gen, device=DEVICE, dtype=dt)
+        w = torch.randn((din, dout), generator=gen, device=DEVICE, dtype=dt) / din ** 0.5
+        b = 0.1 * torch.randn((dout,), generator=gen, device=DEVICE, dtype=dt)
+        ms, host = device_time_ms(lambda: jet_dense_cuda(x, w, b, act), 100,
+                                  what="jet_dense")
+        # graph replay: at order 8 the plain version enqueues more kernels
+        # than the launch queue holds
+        plain = graph_time_ms(lambda: ref.jet_dense_ref(x, w, b, act), reps=5)
+        item = x.element_size()
+        nbytes = (x.numel() + w.numel() + b.numel() + n1 * rows * dout) * item
+        flops = 2 * n1 * rows * din * dout + rows * dout \
+            + (flop_estimate(n1 - 1, rows, dout) if act else 0)
+        bound = bound_ms(nbytes, flops, str(dt))
+        key = f"({n1}, {rows}, {din})x({din}, {dout}) {act} {dtype}"
+        out[key] = {"launches_in_training": launches, "ms": ms, "host_ms": host,
+                    "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+                    "bytes": nbytes, "flops": flops}
+        print(f"  jet_dense {key}: {ms * 1e3:.2f} us (plain {plain * 1e3:.2f} us, bound "
+              f"{bound[0] * 1e3:.2f} us by {bound[1]}; host dispatch {host * 1e3:.2f} us); "
+              f"{launches} launches in phases 5-6")
+    report["training_shape_times"] = out
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 5-6: PINN training under autograd through the kernels
 # ---------------------------------------------------------------------------
@@ -1104,7 +1508,8 @@ def profile_ms(fn, reps: int) -> dict | None:
             continue
         us = evt.time_range.elapsed_us()
         n_events += 1
-        mine = [name for name in KERNEL_NAMES if f"{name}_kernel" in evt.name]
+        mine = [name for name in KERNEL_NAMES
+                if re.search(rf"\b{name}\w*_kernel\b", evt.name)]
         split[mine[0] if mine else "eager"] += us
     if not n_events:
         return None
@@ -1383,6 +1788,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, inputs and queries")
+    ap.add_argument("--against", type=Path, default=None, metavar="DIR",
+                    help="another checkout of the repository (e.g. the parent commit "
+                         "unpacked with git archive): time its K1, K2 and K4 in turns "
+                         "with this tree's and trace the trunk's cross call with its "
+                         "kernels too (phase 8)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1414,8 +1824,11 @@ def main(argv=None) -> int:
     print(f"    kernels built in {cuda_lib.LIBRARY.build_seconds:.1f} s; "
           f"{len(regs)} instantiations, registers max {max(regs, default=0)}, "
           f"spill stores max {max(spills, default=0)} bytes")
+    resources = kernel_resources(cuda_lib.LIBRARY.build_log)
+    print_resources(resources)
     report.update(device=kind, nvidia_smi=smi, build_seconds=cuda_lib.LIBRARY.build_seconds,
-                  max_registers=max(regs, default=0), max_spill_bytes=max(spills, default=0))
+                  max_registers=max(regs, default=0), max_spill_bytes=max(spills, default=0),
+                  kernel_resources=resources)
 
     seconds = report["phase_seconds"] = {}
     clock = [time.perf_counter(), None]
@@ -1436,6 +1849,10 @@ def main(argv=None) -> int:
     phase("2", "kernels against their plain versions")
     worst = check_kernels(gen, report)
     check_trunk_kernels(gen, report, worst)
+    # the edge checks draw from their own generator: the later phases keep
+    # the inputs of the runs before them
+    check_edge_shapes(torch.Generator(device=DEVICE).manual_seed(args.seed + 1), report,
+                      worst)
     phase("2c", "K5 jet_attention_scores against its plain version")
     check_scores_kernel(gen, report, worst)
     phase("2d", "K5's path: the memory rows of memory_scaling._attention_rows "
@@ -1459,14 +1876,22 @@ def main(argv=None) -> int:
     trunk_times = time_trunk_kernels(gen, report)
     time_trunk_server(trunk, trunk_params, gen, report)
     scores_times = time_scores_kernel(gen, report)
+    other = load_other_kernels(args.against) if args.against else None
+    trace_trunk_cross(trunk, trunk_params, gen, report, other)
 
     phase("5", f"Burgers training, pinn-mlp (3 x 24 tanh) f64, 512 + 128 points, "
                f"k in {BURGERS_KS}: {BURGERS_ADAM} Adam + {BURGERS_LBFGS} L-BFGS, "
                f"ntp/cuda vs ntp")
-    burgers_launches = train_burgers(args.seed, report)
-    phase("6", f"operator training, pinn-pde, n_domain 1024: {OPERATOR_ADAM} Adam "
-               f"steps, ntp/cuda vs ntp")
-    operator_launches = train_operators(args.seed, report)
+    with ShapeRecorder() as shapes:
+        burgers_launches = train_burgers(args.seed, report)
+        phase("6", f"operator training, pinn-pde, n_domain 1024: {OPERATOR_ADAM} Adam "
+                   f"steps, ntp/cuda vs ntp")
+        operator_launches = train_operators(args.seed, report)
+    phase("7", "K1 jet_dense at the shapes the training phases launched it")
+    training_times = time_training_shapes(shapes.counts, gen, report)
+    if other is not None:
+        phase("8", f"K1, K2 and K4 of {args.against} (other) against this tree's, in turns")
+        compare_turns(other, gen, report)
     phase("", "")
 
     paths = {"dense_mlp": launches, "transformer": trunk_launches,
@@ -1477,6 +1902,23 @@ def main(argv=None) -> int:
         return {path: counts[name] for path, counts in paths.items()}
 
     t = times["cross512"]
+    other_shapes = {
+        "jet_dense": dict(
+            {f"{label} ({', '.join(map(str, times[label]['shape']))})x(32, 32) tanh "
+             f"torch.float64": {f: times[label]["jet_dense"][f]
+                                for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
+             for label in ("grid512", "trunk_cross512")},
+            **{key: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "launches_in_training")}
+               for key, v in training_times.items()}),
+        "act_jet": {f"grid512 ({', '.join(map(str, times['grid512']['shape']))}) tanh "
+                    f"torch.float64": {f: times["grid512"]["act_jet"][f]
+                                       for f in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        "jet_flash_attention": {
+            "memory row (3, 2, 2, 1024, 8)x(2, 8, 16) torch.float32": {
+                f: trunk_times["jet_flash_attention_memory_row"][f]
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        "jet_rms_norm": {}}
     kernels = []
     for name, source, replaces in (
             ("jet_dense", "src/repro_torch/kernels/csrc/jet_dense.cu",
@@ -1492,7 +1934,7 @@ def main(argv=None) -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             "gemm_only_ms": k.get("gemm_only_ms"), "host_ms": k["host_ms"],
-            "shape": t["shape"], "dtype": t["dtype"]})
+            "shape": t["shape"], "dtype": t["dtype"], "other_shapes": other_shapes[name]})
     for name, source, replaces in (
             ("jet_rms_norm", "src/repro_torch/kernels/csrc/jet_rms_norm.cu",
              "src/repro/kernels/jet_attention.py:393"),
@@ -1509,7 +1951,8 @@ def main(argv=None) -> int:
             "bound_by": k["bound_by"], "library_ms": None,
             "library_order0_ms": k["library_order0_ms"],
             "library_order0_call": k["library_order0_call"],
-            "host_ms": k["host_ms"], "shape": k["shape"], "dtype": k["dtype"]})
+            "host_ms": k["host_ms"], "shape": k["shape"], "dtype": k["dtype"],
+            "other_shapes": other_shapes[name]})
     k = scores_times[scores_key(SCORES_TIMED[-1], SCORES_TIMED_ORDERS[0])]
     kernels.append({
         "name": "jet_attention_scores", "route": "cuda",

@@ -36,18 +36,16 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _D = ctypes.c_double
 _SIGNATURES = {
-    # x, out, n_elem, n1, act, dtype, starts, terms, coef, poly, stream
-    "act_jet_launch": (_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P),
-    # x, w, bias, out, bsz, din, dout, n1, act, dtype,
-    # starts, terms, coef, poly, stream
-    "jet_dense_launch": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P),
+    # x, out, n_elem, n1, act, dtype, stream
+    "act_jet_launch": (_P, _P, _I64, _I, _I, _I, _P),
+    # x, w, bias, out, bsz, din, dout, n1, act, dtype, stream
+    "jet_dense_launch": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P),
     # x, gamma, out, bsz, width, n1, dtype, eps, stream
     "jet_rms_norm_launch": (_P, _P, _P, _I64, _I, _I, _I, _D, _P),
     # q, k, v, wo, out, bsz, heads, t, dh, dm, n1, dtype, scale, mask,
-    # window, stream
+    # window, group, rows, key_tile, dpl, stream
     "jet_flash_attention_launch": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                                   _I, _I, _D, _I, _I, _P),
+                                   _I, _I, _D, _I, _I, _I, _I, _I, _I, _P),
     # q, k, out, bsz, t, d, n1, dtype, scale, stream
     "jet_attention_scores_launch": (_P, _P, _P, _I64, _I, _I, _I, _I, _D, _P),
 }

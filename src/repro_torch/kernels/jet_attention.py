@@ -10,7 +10,8 @@ and ::jet_attention_scores_pallas.
   recurrence, normalizing product and gain in one pass).
 * :func:`jet_flash_attention_cuda`: Q/K/V stacks (n+1, B, H, T, Dh) and the
   output projection (H, Dh, Dm) -> the block output jet (n+1, B, T, Dm),
-  online softmax over the coefficient axis, no score jet in device memory.
+  online softmax over the coefficient axis, no score jet in device memory;
+  :func:`flash_geometry` picks its kernel (short or long T) and tiles.
 * :func:`jet_attention_scores_cuda`: Q/K stacks (n+1, B, T, D) -> the
   softmaxed score jet (n+1, B, T, T), one warp per query, key tiles shared
   by the block's queries of one batch row; no
@@ -26,6 +27,8 @@ take contiguous float32/float64 tensors and orders 0..8.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import cuda_lib
@@ -33,8 +36,12 @@ from .cuda_lib import LaunchCounter
 from .tanh_jet import DTYPE_CODES, check_cuda_tensor, check_order
 
 MASK_CODES = {"none": 0, "causal": 1, "local": 2}
-MAX_HEAD_DIM = 128            # csrc/jet_flash_attention.cu: 32 x kMaxDPL
-_FLASH_WARPS = 4              # csrc/jet_flash_attention.cu: kWarps
+MAX_HEAD_DIM = 128            # csrc/jet_flash_attention.cu: 32 lanes x 4 dims
+SHORT_T_MAX = 4               # T up to this runs jet_flash_attention_short_kernel
+_SHORT_THREADS = 128          # csrc/jet_flash_attention.cu: kShortThreads
+_OS_ROW_TILE = 8              # csrc/jet_flash_attention.cu: kOsRowTile
+_LONG_WARPS = 8               # queries per block of jet_flash_attention_long_kernel, at most
+_LONG_TILE = 32               # keys per shared-memory tile, at most (one a lane)
 _SCORES_WARPS = 8             # csrc/jet_attention_scores.cu: kWarps
 _SCORES_TILE = 32             # csrc/jet_attention_scores.cu: kTile
 _SMEM_LIMIT = 232448          # shared memory a block can use on Hopper
@@ -68,12 +75,77 @@ def jet_rms_norm_cuda(coeffs: torch.Tensor, gamma: torch.Tensor,
     return out
 
 
-def flash_smem_bytes(n1: int, heads: int, head_dim: int,
-                     dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one K4 block: per warp, the current head's
-    query jet and every head's output jet."""
+class FlashGeometry(NamedTuple):
+    """K4's tiling for one launch (csrc/jet_flash_attention.cu).
+
+    ``group > 0``: the short-T kernel, ``group`` lanes per (row, query) over
+    the head dims, ``rows`` batch rows per block.  ``group == 0``: the
+    long-T kernel, ``rows`` queries (warps) per block, key tiles of
+    ``key_tile``.  ``dpl`` head dims per lane; ``smem`` the block's dynamic
+    shared memory in bytes."""
+    group: int
+    rows: int
+    key_tile: int
+    dpl: int
+    smem: int
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def os_pitch(hd: int) -> int:
+    """Words between the output-jet rows the short-T kernel keeps in shared
+    memory for its projection: odd, so a warp's row groups hit distinct
+    banks (csrc/jet_flash_attention.cu::os_pitch)."""
+    return hd if hd % 2 else hd + 1
+
+
+def flash_geometry(n1: int, heads: int, t: int, head_dim: int,
+                   dtype: torch.dtype) -> FlashGeometry:
+    """The tiling the K4 launcher runs for these shapes (the kernels'
+    shared-memory formulas, csrc/jet_flash_attention.cu::short_smem_words
+    and ::long_smem_words, in bytes).  Short T (<= SHORT_T_MAX, and no more
+    queries than a block has lane groups) gives each query a group of
+    lanes, 4 head dims a lane, and packs as many batch rows into a
+    128-thread block as it has groups; its shared memory holds the rows'
+    output jets for the projection.  Long T takes 8 queries a block and
+    32-key tiles, shrinking the tile to 8 keys, then the warps, then the
+    tile again until the block fits ``_SMEM_LIMIT``.  Past that the
+    returned ``smem`` exceeds the limit and the wrapper refuses."""
     item = torch.empty((), dtype=dtype).element_size()
-    return _FLASH_WARPS * (heads + 1) * n1 * head_dim * item
+    group = min(32, _pow2_ceil(-(-head_dim // 4)))
+    groups = _SHORT_THREADS // group
+    if t <= min(SHORT_T_MAX, groups):
+        rows = groups // t
+        while True:
+            mrows = -(-rows * t * n1 // _OS_ROW_TILE) * _OS_ROW_TILE
+            smem = mrows * os_pitch(heads * head_dim) * item
+            if smem <= _SMEM_LIMIT or rows == 1:
+                break
+            rows //= 2
+        if smem <= _SMEM_LIMIT:
+            return FlashGeometry(group, rows, 0, 4, smem)
+    dpl = 1 if head_dim <= 32 else 2 if head_dim <= 64 else 4
+    warps, tile = _LONG_WARPS, _LONG_TILE
+
+    def long_smem() -> int:
+        return (2 * n1 * tile * (head_dim + 1)
+                + warps * (heads + 1) * n1 * head_dim) * item
+
+    while long_smem() > _SMEM_LIMIT and tile > 8:
+        tile //= 2
+    while long_smem() > _SMEM_LIMIT and warps > 1:
+        warps //= 2
+    while long_smem() > _SMEM_LIMIT and tile > 1:
+        tile //= 2
+    return FlashGeometry(0, warps, tile, dpl, long_smem())
+
+
+def flash_smem_bytes(n1: int, heads: int, t: int, head_dim: int,
+                     dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K4 block (see :func:`flash_geometry`)."""
+    return flash_geometry(n1, heads, t, head_dim, dtype).smem
 
 
 def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -102,9 +174,9 @@ def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernel takes head dims up to "
                          f"{MAX_HEAD_DIM}, got {dh}")
-    smem = flash_smem_bytes(n1, heads, dh, q.dtype)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"the flash kernel needs {smem} bytes of shared "
+    geo = flash_geometry(n1, heads, t, dh, q.dtype)
+    if geo.smem > _SMEM_LIMIT:
+        raise ValueError(f"the flash kernel needs {geo.smem} bytes of shared "
                          f"memory for {heads} heads x {dh} dims at order "
                          f"{n1 - 1}; a block has {_SMEM_LIMIT}")
     dm = wo.shape[2]
@@ -112,7 +184,8 @@ def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     cuda_lib.launch("jet_flash_attention_launch", q.device, q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), wo.data_ptr(), out.data_ptr(),
                     bsz, heads, t, dh, dm, n1, DTYPE_CODES[q.dtype],
-                    float(scale), MASK_CODES[mask], int(window))
+                    float(scale), MASK_CODES[mask], int(window), geo.group,
+                    geo.rows, geo.key_tile, geo.dpl)
     FLASH_LAUNCHES.add()
     return out
 

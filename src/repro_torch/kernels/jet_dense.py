@@ -2,11 +2,13 @@
 (csrc/jet_dense.cu; the reference's kernels/jet_dense.py::jet_dense_pallas).
 
 One layer of the paper's Algorithm 1 is ``jet -> W @ jet + b -> act-jet``.
-The kernel does both in one launch: each thread accumulates all ``n+1``
-coefficients of one output column across the K loop, adds the bias to
-``c_0`` only, and runs the Faa di Bruno epilogue it shares with K2 before a
-single store, so the pre-activation stack never goes to device memory.
-f32 accumulates in f32, f64 in f64.
+The kernel does both in one launch: a block stages a tile of rows (all
+``n+1`` coefficient planes) and of ``w`` in shared memory, each thread
+accumulates a register tile of one row x several columns over every plane,
+adds the bias to ``c_0`` only, and runs the Faa di Bruno epilogue it
+shares with K2 before a single store, so the pre-activation stack never
+goes to device memory.  f32 accumulates in f32, f64 in f64.  The tiling
+is the launcher's (csrc/jet_dense.cu); this wrapper checks and launches.
 
 Its plain version is :func:`repro_torch.kernels.ref.jet_dense_ref`.
 """
@@ -18,7 +20,7 @@ import torch
 from . import cuda_lib
 from .cuda_lib import LaunchCounter
 from .tanh_jet import (ACT_CODES, DTYPE_CODES, KERNEL_ACTS, check_cuda_tensor,
-                       check_order, device_tables)
+                       check_order)
 
 LAUNCHES = LaunchCounter("jet_dense")
 
@@ -42,10 +44,8 @@ def jet_dense_cuda(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"w {tuple(w.shape)}, b {tuple(b.shape)}")
     dout = w.shape[1]
     out = torch.empty((n1, bsz, dout), dtype=coeffs.dtype, device=coeffs.device)
-    tables = device_tables(coeffs.dtype, coeffs.device)
     cuda_lib.launch("jet_dense_launch", coeffs.device, coeffs.data_ptr(),
                     w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, din, dout,
-                    n1, ACT_CODES[activation], DTYPE_CODES[coeffs.dtype],
-                    *tables.pointers)
+                    n1, ACT_CODES[activation], DTYPE_CODES[coeffs.dtype])
     LAUNCHES.add()
     return out

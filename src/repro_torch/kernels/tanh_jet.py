@@ -8,27 +8,22 @@ Input is the scaled-Taylor coefficient stack of the pre-activations,
   2. ``F_m = P_m(u)``                        (Horner chains, m = 0..n)
   3. ``out_k = sum_{p in P(k)} C_p F_|p| prod_j c_j^{p_j}``
 
-Its plain version is :func:`repro_torch.kernels.ref.act_jet_ref`.  This
-module also packs the tables both kernels read (:func:`device_tables`) and
-holds the order limit of the kernels' templates.
+Its plain version is :func:`repro_torch.kernels.ref.act_jet_ref`.  The
+kernels read the partition terms and Horner rows as generated code
+(csrc/fdb_tables.cuh, from :mod:`.bell_tables`); this module holds the
+order limit of their templates and the checks both wrappers share.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
-from typing import NamedTuple
-
-import numpy as np
 import torch
 
 from . import cuda_lib
-from .bell_tables import fdb_terms, sigmoid_poly_rows, tanh_poly_rows
 from .cuda_lib import LaunchCounter
 
 KERNEL_ACTS = ("tanh", "sigmoid", "sin")
 MAX_ORDER = 8                 # template N1 runs over 1..9 (csrc/act_jet.cuh)
 _MAX_N1 = MAX_ORDER + 1
-_POLY_W = _MAX_N1 + 1
 ACT_CODES = {None: 0, "tanh": 1, "sigmoid": 2, "sin": 3}
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -41,50 +36,6 @@ def check_order(n_coeffs: int) -> None:
         raise ValueError(
             f"the CUDA jet kernels take orders 0..{MAX_ORDER} (a stack of at "
             f"most {_MAX_N1} coefficients), got order {n_coeffs - 1}")
-
-
-@lru_cache(maxsize=None)
-def _host_tables() -> tuple[np.ndarray, np.ndarray, int]:
-    """(ints, vals, n_terms) in the layout of csrc/act_jet.cuh::Tables:
-    ints = starts[9] ++ terms[n_terms][2] with terms = (|p|, exponents in
-    4-bit fields, p_1 lowest); vals = coef[n_terms] ++ tanh rows ++ sigmoid
-    rows, each rows block (9, 10) low -> high."""
-    starts, terms, coefs = [0], [], []
-    for order_terms in fdb_terms(MAX_ORDER):
-        for coef, m, powers in order_terms:
-            packed = 0
-            for j, e in powers:
-                packed |= e << (4 * (j - 1))
-            terms.append((m, packed))
-            coefs.append(coef)
-        starts.append(len(terms))
-    poly = np.zeros((2, _MAX_N1, _POLY_W))
-    for block, rows in enumerate((tanh_poly_rows(MAX_ORDER),
-                                  sigmoid_poly_rows(MAX_ORDER))):
-        for m, row in enumerate(rows):
-            poly[block, m, :len(row)] = row
-    ints = np.concatenate([np.asarray(starts, np.int32),
-                           np.asarray(terms, np.int32).reshape(-1)])
-    vals = np.concatenate([np.asarray(coefs, np.float64), poly.reshape(-1)])
-    return ints, vals, len(terms)
-
-
-class DeviceTables(NamedTuple):
-    ints: torch.Tensor
-    vals: torch.Tensor
-    pointers: tuple   # (starts, terms, coef, poly) addresses for the launchers
-
-
-@lru_cache(maxsize=None)
-def device_tables(dtype: torch.dtype, device: torch.device) -> DeviceTables:
-    """The packed tables on ``device``, values in ``dtype``.  Cached, so the
-    tensors outlive every launch that reads them."""
-    ints, vals, n_terms = _host_tables()
-    ti = torch.as_tensor(ints, device=device)
-    tv = torch.as_tensor(vals, device=device).to(dtype)
-    ptrs = (ti.data_ptr(), ti.data_ptr() + _MAX_N1 * ti.element_size(),
-            tv.data_ptr(), tv.data_ptr() + n_terms * tv.element_size())
-    return DeviceTables(ti, tv, ptrs)
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, ndim: int,
@@ -112,9 +63,8 @@ def act_jet_cuda(coeffs: torch.Tensor, activation: str = "tanh") -> torch.Tensor
     n1, b, w = coeffs.shape
     check_order(n1)
     out = torch.empty_like(coeffs)
-    tables = device_tables(coeffs.dtype, coeffs.device)
     cuda_lib.launch("act_jet_launch", coeffs.device, coeffs.data_ptr(),
                     out.data_ptr(), b * w, n1, ACT_CODES[activation],
-                    DTYPE_CODES[coeffs.dtype], *tables.pointers)
+                    DTYPE_CODES[coeffs.dtype])
     LAUNCHES.add()
     return out

@@ -272,7 +272,10 @@ def test_dispatch_hands_the_launchers_contiguous_stacks(monkeypatch):
     assert seen["wo"] == ((h, dh, 7), True)
     name, args = calls[-1]
     assert name == "jet_flash_attention_launch"
-    assert args[5:] == (6, h, t, dh, 7, n1, 1, 0.5, 2, 2)
+    geo = tka.flash_geometry(n1, h, t, dh, torch.float64)
+    assert geo.group == 0          # T = 5: the long-T kernel
+    assert args[5:] == (6, h, t, dh, 7, n1, 1, 0.5, 2, 2, 0, geo.rows,
+                        geo.key_tile, geo.dpl)
 
     x = torch.tensor(_stack(54, (n1, 3, 5, 8))).transpose(1, 2)
     out = tops.jet_rms_norm(x, torch.ones(8, dtype=torch.float64), eps=1e-5)
@@ -298,7 +301,10 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     big = torch.zeros((10, 1, 1, 2, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="0..8"):
         tops.jet_flash_attention(big, big, big, torch.zeros((4, 3)), 0.5)
-    assert tka.flash_smem_bytes(5, 2, 16, torch.float64) == 4 * 3 * 5 * 16 * 8
+    # the served shape runs the short-T kernel, 16 rows a block: shared
+    # memory holds the 160 output rows of its projection, 2 heads x 16 dims
+    # at an odd pitch of 33 words
+    assert tka.flash_smem_bytes(5, 2, 2, 16, torch.float64) == 160 * 33 * 8
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,166 @@
+"""What the kernels' Python side decides, checked without a card: the
+ctypes signatures against the CUDA launchers' C declarations, what the
+dense-path wrappers hand their launchers (the launch stubbed, CPU tensors
+forced down the CUDA branch), and the flash kernel's tiling
+(``jet_attention.flash_geometry``) at its limits."""
+
+import importlib
+import re
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import jet_attention as tka
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import tanh_jet as tk2
+
+# the package re-exports a function named `jet_dense`, which shadows the
+# submodule as an attribute
+tk1 = importlib.import_module("repro_torch.kernels.jet_dense")
+
+_LAUNCHER = re.compile(r'extern "C" int (\w+_launch)\(([^)]*)\)')
+
+
+def _launchers() -> dict:
+    """{name: number of parameters} of every launcher in csrc/*.cu."""
+    found = {}
+    for src in sorted(cuda_lib.CSRC.glob("*.cu")):
+        for name, params in _LAUNCHER.findall(src.read_text()):
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    return found
+
+
+def test_every_launcher_has_a_ctypes_signature():
+    assert set(_launchers()) == set(cuda_lib._SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(cuda_lib._SIGNATURES))
+def test_ctypes_signature_matches_the_c_declaration(name):
+    """A ctypes argument list shorter or longer than the C function's shows
+    only on the card, as garbage arguments; here it is a count."""
+    assert len(cuda_lib._SIGNATURES[name]) == _launchers()[name]
+
+
+@pytest.fixture
+def stubbed(monkeypatch):
+    """CPU tensors forced down the CUDA branch, the checks recording what
+    they saw, and the launch recording its arguments."""
+    seen, calls = {}, []
+
+    def check(t, name, ndim, dtype=None):
+        assert t.ndim == ndim and (dtype is None or t.dtype == dtype)
+        seen[name] = (tuple(t.shape), t.is_contiguous())
+
+    monkeypatch.setattr(tops, "_on_cpu", lambda t: False)
+    for mod in (tk1, tk2):
+        monkeypatch.setattr(mod, "check_cuda_tensor", check)
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda name, device, *args: calls.append((name, args)))
+    tops.reset_launch_counts()
+    return seen, calls
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float64, 1), (torch.float32, 0)])
+def test_dense_wrappers_hand_the_launchers_folded_stacks(stubbed, dtype, code):
+    """jet_dense / act_jet reach their launchers with the batch axes folded
+    into one, contiguous stacks, the shapes, order and codes the C side
+    switches on, and one counted launch each."""
+    seen, calls = stubbed
+    n1, lead, din, dout = 5, (3, 4), 6, 7
+    x = torch.zeros((n1,) + lead + (din,), dtype=dtype).transpose(1, 2)
+    w, b = torch.zeros((din, dout), dtype=dtype), torch.zeros(dout, dtype=dtype)
+    out = tops.jet_dense(x, w, b, "sigmoid")
+    assert out.shape == (n1, 4, 3, dout)
+    assert seen["coeffs"] == ((n1, 12, din), True)
+    assert seen["w"] == ((din, dout), True) and seen["b"] == ((dout,), True)
+    name, args = calls[-1]
+    assert name == "jet_dense_launch"
+    assert args[4:] == (12, din, dout, n1, 2, code)
+
+    out = tops.jet_dense(x, w, b, None)
+    assert calls[-1][1][4:] == (12, din, dout, n1, 0, code)
+
+    y = torch.zeros((n1, 2, 9), dtype=dtype)
+    assert tops.act_jet(y, "sin").shape == y.shape
+    name, args = calls[-1]
+    assert name == "act_jet_launch" and args[2:] == (18, n1, 3, code)
+    assert tops.launch_counts() == {"jet_dense": 2, "act_jet": 1,
+                                    "jet_rms_norm": 0, "jet_flash_attention": 0,
+                                    "jet_attention_scores": 0}
+
+
+# ---------------------------------------------------------------------------
+# flash_geometry: which kernel, which tiles, how much shared memory
+# ---------------------------------------------------------------------------
+
+def _short_words(n1, heads, t, dh, rows):
+    """The output jets of the block's (row, query) items: rows of an odd
+    pitch, their count padded to a multiple of 8 (the projection's m8n8k4
+    tiles)."""
+    hd = heads * dh
+    return -(-rows * t * n1 // 8) * 8 * (hd | 1)
+
+
+def _long_words(n1, heads, dh, warps, tile):
+    return 2 * n1 * tile * (dh + 1) + warps * (heads + 1) * n1 * dh
+
+
+def test_flash_geometry_served_shape_packs_rows_of_the_short_kernel():
+    geo = tka.flash_geometry(5, 2, 2, 16, torch.float64)
+    assert geo == tka.FlashGeometry(group=4, rows=16, key_tile=0, dpl=4,
+                                    smem=_short_words(5, 2, 2, 16, 16) * 8)
+    # every (row, query) has its own group of 4 lanes in a 128-thread block
+    assert geo.rows * 2 * geo.group == tka._SHORT_THREADS
+
+
+@pytest.mark.parametrize("dh,group", [(1, 1), (8, 2), (16, 4), (20, 8), (33, 16),
+                                      (64, 16), (96, 32), (128, 32)])
+def test_flash_geometry_lanes_cover_the_head_dims(dh, group):
+    geo = tka.flash_geometry(3, 2, 1, dh, torch.float32)
+    assert (geo.group, geo.dpl) == (group, 4)
+    assert geo.group * geo.dpl >= dh
+    assert geo.rows * 1 * geo.group <= tka._SHORT_THREADS
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 4])
+def test_flash_geometry_short_t_fits_every_query_in_the_block(t):
+    geo = tka.flash_geometry(9, 3, t, 16, torch.float64)
+    assert geo.group == 4 and geo.rows == 32 // t
+    assert geo.smem == _short_words(9, 3, t, 16, geo.rows) * 8 <= tka._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("t", [5, 70, 1024])
+def test_flash_geometry_long_t_takes_the_tiled_kernel(t):
+    geo = tka.flash_geometry(3, 2, t, 8, torch.float32)
+    assert geo == tka.FlashGeometry(group=0, rows=8, key_tile=32, dpl=1,
+                                    smem=_long_words(3, 2, 8, 8, 32) * 4)
+
+
+def test_flash_geometry_shrinks_tile_then_warps_to_fit():
+    # Dh 128, order 8, f64: a 32-key tile of K and V alone is 594 KB
+    geo = tka.flash_geometry(9, 2, 70, 128, torch.float64)
+    assert geo.group == 0 and geo.dpl == 4
+    assert geo.smem == _long_words(9, 2, 128, geo.rows, geo.key_tile) * 8
+    assert geo.smem <= tka._SMEM_LIMIT
+    assert geo.key_tile == 8 and geo.rows == 2
+    # short T falls back to the long kernel once even one row is too big
+    big = tka.flash_geometry(9, 40, 2, 128, torch.float64)
+    assert big.group == 0
+
+
+def test_flash_geometry_edge_of_what_the_wrapper_admits(monkeypatch):
+    """The largest head count that fits at Dh 128, order 8, f64 is
+    admitted; one more is refused by the wrapper, naming the limit."""
+    fits = [h for h in range(1, 64)
+            if tka.flash_smem_bytes(9, h, 70, 128, torch.float64) <= tka._SMEM_LIMIT]
+    edge = max(fits)
+    assert fits == list(range(1, edge + 1))
+    over = tka.flash_geometry(9, edge + 1, 70, 128, torch.float64)
+    assert over.smem > tka._SMEM_LIMIT and over.rows == 1 and over.key_tile == 1
+    monkeypatch.setattr(tka, "check_cuda_tensor", lambda *a: None)
+    q = torch.zeros((9, 1, edge + 1, 70, 128), dtype=torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        tka.jet_flash_attention_cuda(q, q, q, torch.zeros((edge + 1, 128, 4),
+                                                          dtype=torch.float64), 0.1)

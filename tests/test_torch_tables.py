@@ -1,12 +1,15 @@
 """The port's static tables against the JAX package's: integer partitions,
 Faa di Bruno terms, derivative polynomials, the kernels' coefficient rows,
-the Taylor stacks and primals, and the packed buffer the CUDA kernels read.
+the Taylor stacks and primals, and the generated header the CUDA kernels
+compile (csrc/fdb_tables.cuh).
 
 Tables are exact integers or their float images, so they must be EQUAL;
 the Taylor stacks and primals are floating point and agree at f64 to
 1e-12 relative (the two libraries' tanh/sin differ in the last ulp)."""
 
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -63,27 +66,51 @@ def test_flop_estimate_equal():
         assert tbell.flop_estimate(n, 16, 32) == jbell.flop_estimate(n, 16, 32)
 
 
+def _header() -> str:
+    return (Path(tbell.__file__).parent / "csrc" / tbell.HEADER_NAME).read_text()
+
+
+def _function_bodies(text: str, prefix: str) -> dict:
+    """{index: body} of the header's functions ``<prefix><index>(...)``."""
+    pat = re.compile(r"T " + prefix + r"(\d+)\([^)]*\) \{\n(.*?)\n\}", re.S)
+    return {int(m.group(1)): m.group(2) for m in pat.finditer(text)}
+
+
+def _literals(expr: str) -> list:
+    return [float(c) for c in re.findall(r"T\(([-0-9.e+]+)\)", expr)]
+
+
 def test_packed_device_tables_decode_to_fdb_terms():
-    """The buffer the CUDA kernels read (csrc/act_jet.cuh::Tables) decodes
-    back to fdb_terms and the poly rows exactly, for every order <= 8."""
-    ints, vals, n_terms = tanh_jet._host_tables()
-    n1 = tanh_jet.MAX_ORDER + 1
-    starts, terms = ints[:n1], ints[n1:].reshape(-1, 2)
-    assert starts[0] == 0 and starts[-1] == n_terms == len(terms)
-    coef, poly = vals[:n_terms], vals[n_terms:].reshape(2, n1, n1 + 1)
+    """The tables the CUDA kernels read, now straight-line code in
+    csrc/fdb_tables.cuh, decode back to fdb_terms and the Horner rows
+    exactly, for every order <= 8."""
+    text = _header()
+    orders = _function_bodies(text, "fdb_order_")
+    assert sorted(orders) == list(range(1, tanh_jet.MAX_ORDER + 1))
     for k, order_terms in enumerate(tbell.fdb_terms(tanh_jet.MAX_ORDER), 1):
-        lo, hi = starts[k - 1], starts[k]
         decoded = []
-        for t in range(lo, hi):
-            m, packed = int(terms[t, 0]), int(terms[t, 1])
-            powers = tuple((j, (packed >> (4 * (j - 1))) & 0xF)
-                           for j in range(1, n1) if (packed >> (4 * (j - 1))) & 0xF)
-            decoded.append((float(coef[t]), m, powers))
+        for line in orders[k].splitlines()[:-1]:          # the last is `return acc;`
+            expr = line.split("=", 1)[1].strip().rstrip(";")
+            m = int(re.search(r"f\[(\d+)\]", expr).group(1))
+            coef = _literals(expr)
+            js = [int(j) for j in re.findall(r"z\[(\d+)\]", expr)]
+            powers = tuple((j, js.count(j)) for j in sorted(set(js)))
+            decoded.append((coef[0] if coef else 1.0, m, powers))
         assert tuple(decoded) == order_terms
-    for block, rows in enumerate((tbell.tanh_poly_rows(8), tbell.sigmoid_poly_rows(8))):
+    for name, rows in (("tanh", tbell.tanh_poly_rows(8)),
+                       ("sigmoid", tbell.sigmoid_poly_rows(8))):
+        bodies = _function_bodies(text, f"{name}_row_")
+        assert sorted(bodies) == list(range(9))
         for m, row in enumerate(rows):
-            np.testing.assert_array_equal(poly[block, m, :len(row)], row)
-            assert not poly[block, m, len(row):].any()
+            assert tuple(_literals(bodies[m])[::-1]) == row
+
+
+def test_kernel_header_is_generated_from_the_tables():
+    """csrc/fdb_tables.cuh is exactly what bell_tables.cuda_header writes
+    (regenerate with ``python -m repro_torch.kernels.bell_tables``), and
+    covers the kernels' template limit."""
+    assert _header() == tbell.cuda_header()
+    assert tbell.HEADER_ORDER == tanh_jet.MAX_ORDER
 
 
 @pytest.mark.parametrize("name", sorted(tact.TAYLOR_STACKS))
