@@ -8,7 +8,8 @@ Phases, each failing loudly with a non-zero exit:
 1. the card's name and power limit (``nvidia-smi``), then the build of the
    hand-written kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
    and from its ``-Xptxas -v`` log the registers and spills of every
-   instantiation (printed for K1, K2 and K4 at f64, N1 = 5 and 9);
+   instantiation (printed for K1, K2 and K4 at f64, N1 = 5 and 9, and for
+   K5 at N1 = 3 and 9);
 2. every kernel against its plain PyTorch version on the card, orders 1-8,
    f32 and f64 (tolerances at TOL_F64 / TOL_F32 below): K2 (``act_jet``) for
    tanh/sigmoid/sin at ragged and serving shapes; K1 (``jet_dense``) for
@@ -26,7 +27,10 @@ Phases, each failing loudly with a non-zero exit:
    2c. K5 (``jet_attention_scores``) at the reference's test shapes (B, T, D)
    (5, 3, 4), (19, 2, 8), (3, 1, 1), the memory comparison's (4, 64, 8) and
    (4, 256, 8) and a ragged (2, 70, 16), plus the softmax's row-sum
-   invariant (rows sum to 1 at order 0, to 0 above);
+   invariant (rows sum to 1 at order 0, to 0 above); then its edges,
+   orders 0, 4 and 8, T in 1, 2, 3, 31, 33, 70 x D in 1, 16, 64, f32 and
+   f64, whose geometries run the whole-row and the ring staging and a key split of 1 and of several warps, and the largest head
+   dim the wrapper admits at f64 order 8 (one more is refused);
    2d. K5's path: the rows of the reference's
    ``benchmarks/memory_scaling.py::_attention_rows`` through the public ops
    (order 2, B 2, H 2, Dh 8, Dm 16, f32, T in 64/256/1024), launch counts
@@ -55,7 +59,8 @@ Phases, each failing loudly with a non-zero exit:
    function alone), the bound from bytes and operations, and per request
    kind each server's p50/p99 for ``ntp/cuda`` and eager ``ntp`` beside the
    engine call's device time; K5 at (4, 256, 8) and (4, 1024, 8), orders 2
-   and 8, beside its plain version and softmax(scale q_0 k_0^T); K1 also
+   and 8 (f64), and at the memory rows' (4, 1024, 8) order 2 (f32), beside
+   its plain version and softmax(scale q_0 k_0^T); K1 also
    at the trunk's (5, 16384, 32), K4 at the memory comparison's row
    (order 2, T 1024, f32); and a ``torch.profiler`` trace of the trunk's
    ``cross((0,0,1,1))`` engine call at 512 rows over CUDA-graph replays,
@@ -78,7 +83,8 @@ Phases, each failing loudly with a non-zero exit:
 8. only with ``--against DIR`` (another checkout, e.g. the parent commit
    unpacked with ``git archive``): that checkout's K1, K2 and K4 against
    this tree's in turns (other, this, this, other) at the served shapes,
-   and the phase-4 trace run with its K1 and K4 as well ("before");
+   K4 and K5 at the memory row, K5 at the phase-4 f64 shapes, and the
+   phase-4 trace run with its K1 and K4 as well ("before");
 9. a JSON line describing each of the five kernels, the ``nvidia-smi``
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -161,10 +167,20 @@ SCORES_SHAPES = ((5, 3, 4), (19, 2, 8), (3, 1, 1), (4, 64, 8), (4, 256, 8),
 # benchmarks/memory_scaling.py::_attention_rows at order 2, float32
 MEMORY_T = (64, 256, 1024)
 MEMORY = dict(order=2, bsz=2, heads=2, dh=8, dm=16)
+# K5's edges (phase 2c, orders EDGE_ORDERS, f32 and f64, their own
+# generator): T (batch rows) short, ragged around one 8-key tile and a
+# 32-key stage, and ragged multi-stage; head dims 1, 16 (two 4-dim chunks
+# a key, past a 16-byte copy) and 64.  Between them they take the whole-row
+# and the ring staging, a key split of 1 and of several warps (asserted);
+# plus the largest head dim the wrapper admits at f64 order 8.
+SCORES_EDGE_T = {1: 5, 2: 5, 3: 5, 31: 3, 33: 3, 70: 2}
+SCORES_EDGE_D = (1, 16, 64)
 # K5 timed at the memory comparison's (B*H, T, Dh), f64; the kernels line
-# reports the last shape at the first order
+# reports the last shape at the first order.  Also the memory rows' own
+# launch, f32 (order 2, (4, 1024, 8)).
 SCORES_TIMED = ((4, 256, 8), (4, 1024, 8))
 SCORES_TIMED_ORDERS = (2, 8)
+SCORES_MEMORY_ROW = ((4, 1024, 8), 2)
 # K1 shapes timed beside the served ones: every (n1, rows, din, dout, act)
 # the training phases handed it, at most this many, the most launched first
 TRAINING_SHAPES_TIMED = 8
@@ -270,14 +286,14 @@ def kernel_resources(build_log: str) -> list[dict]:
     for entry in build_log.split("Compiling entry function '")[1:]:
         mangled = entry.split("'", 1)[0]
         name = next((k for k in KERNEL_SYMBOLS if k + "I" in mangled), None)
-        m = name and re.search(re.escape(name) + r"I([df])((?:Li-?\d+E)*)E", mangled)
+        m = name and re.search(re.escape(name) + r"I([df])((?:L[ib]-?\d+E)*)E", mangled)
         if not m:
             continue
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         smem = re.search(r"(\d+) bytes smem", entry)
         out.append({"kernel": name, "dtype": "f64" if m.group(1) == "d" else "f32",
-                    "template": [int(v) for v in re.findall(r"Li(-?\d+)E", m.group(2))],
+                    "template": [int(v) for v in re.findall(r"L[ib](-?\d+)E", m.group(2))],
                     "registers": int(regs.group(1)) if regs else None,
                     "spill_store_bytes": int(spill.group(1)) if spill else None,
                     "spill_load_bytes": int(spill.group(2)) if spill else None,
@@ -287,16 +303,20 @@ def kernel_resources(build_log: str) -> list[dict]:
 
 def print_resources(resources: list[dict]) -> None:
     """The f64 N1 = 5 and 9 instantiations of K1, K2 and K4 (the served and
-    training orders), plus the worst spill of any instantiation."""
+    training orders), K5's at N1 = 3 and 9 (the timed orders; f64 scores
+    on the tensor cores, f32 on FMAs), plus the worst spill of any
+    instantiation."""
     for r in resources:
         n1 = r["template"][0] if r["template"] else None
-        if r["dtype"] != "f64" or n1 not in (5, 9) or r["kernel"] in (
-                "jet_rms_norm_kernel", "jet_attention_scores_kernel"):
+        if r["kernel"] == "jet_attention_scores_kernel":
+            if n1 not in (3, 9):
+                continue
+        elif r["dtype"] != "f64" or n1 not in (5, 9) or r["kernel"] == "jet_rms_norm_kernel":
             continue
         rest = r["template"][1:]
         if r["kernel"] in ("jet_dense_kernel", "act_jet_kernel"):
             rest = [ACT_NAMES.get(rest[0], rest[0])] + rest[1:]
-        print(f"    {r['kernel']:34s} f64 N1={n1} {str(rest):16s} registers "
+        print(f"    {r['kernel']:34s} {r['dtype']} N1={n1} {str(rest):16s} registers "
               f"{r['registers']}, spill {r['spill_store_bytes']}/{r['spill_load_bytes']} "
               f"bytes")
     worst = max(resources, key=lambda r: r["spill_store_bytes"] or 0, default=None)
@@ -541,6 +561,19 @@ def row_sum_dev(p) -> float:
     return float((sums.abs() / mass).max())
 
 
+def holds_row_sums(got, want, dt, n: int, what: str) -> float:
+    """K5's row-sum invariant (row_sum_dev) at the kernel gates: f64
+    TOL_F64; f32 TOL_F32 through order F32_EXACT_ORDERS, above that within
+    F32_DRIFT times the plain version's own deviation."""
+    import torch
+    rs, rs_plain = row_sum_dev(got), row_sum_dev(want)
+    allowed = (TOL_F64 if dt == torch.float64 else TOL_F32 if n <= F32_EXACT_ORDERS
+               else F32_DRIFT * max(rs_plain, TOL_F32))
+    require(rs <= allowed, f"{what}: rows sum off by {rs:.3e} of their mass (plain "
+                           f"{rs_plain:.3e}; allowed {allowed:.1e})")
+    return rs
+
+
 def check_scores_kernel(gen, report: dict, worst: dict) -> None:
     """Phase 2c: K5 against its plain version (TOL_* gates) and the row-sum
     invariant (f64: TOL_F64; f32: TOL_F32 through order F32_EXACT_ORDERS,
@@ -569,12 +602,7 @@ def check_scores_kernel(gen, report: dict, worst: dict) -> None:
                 e_max = max(e_max, holds(got, want, plain, (q, k), dt, n, what))
                 worst["jet_attention_scores"] = max(
                     worst["jet_attention_scores"], float((got - want).abs().max()))
-                rs, rs_plain = row_sum_dev(got), row_sum_dev(want)
-                allowed = tol if (dt == torch.float64 or n <= F32_EXACT_ORDERS) \
-                    else F32_DRIFT * max(rs_plain, TOL_F32)
-                require(rs <= allowed, f"{what}: rows sum off by {rs:.3e} of their "
-                                       f"mass (plain {rs_plain:.3e}; allowed {allowed:.1e})")
-                rs_max = max(rs_max, rs)
+                rs_max = max(rs_max, holds_row_sums(got, want, dt, n, what))
             rows.append(("jet_attention_scores", str(dt), (bsz, t, d), "1-8", e_max,
                          rs_max, tol))
     for r in rows:
@@ -583,6 +611,74 @@ def check_scores_kernel(gen, report: dict, worst: dict) -> None:
     report["kernel_checks"] += [dict(zip(("kernel", "dtype", "shape", "orders",
                                           "max_rel_err", "row_sum_dev", "tol"), r))
                                 for r in rows]
+
+
+def check_scores_edges(gen, report: dict, worst: dict) -> None:
+    """Phase 2c, K5's edges: (B, T, D) at SCORES_EDGE_T x SCORES_EDGE_D,
+    orders EDGE_ORDERS, f32 and f64, against the plain version and the row-sum invariant at the TOL_* gates;
+    the geometries they ran must include the whole-row and the ring staging
+    and a key split of 1 and of more.  Plus, at f64 order 8, the largest
+    head dim the wrapper admits (T 70), and one more, which it refuses."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.jet_attention import (_SMEM_LIMIT, jet_attention_scores_cuda,
+                                                   scores_geometry)
+
+    rows, seen = [], set()
+    shapes = [(bsz, t, d) for t, bsz in SCORES_EDGE_T.items() for d in SCORES_EDGE_D]
+    for dt in (torch.float32, torch.float64):
+        tol = TOL_F32 if dt == torch.float32 else TOL_F64
+        cases = [(shape, EDGE_ORDERS) for shape in shapes]
+        if dt == torch.float64:
+            d_max = max(d for d in range(1, 512)
+                        if scores_geometry(9, 70, d, dt, 1).smem <= _SMEM_LIMIT)
+            cases.append(((1, 70, d_max), (8,)))
+            over = torch.zeros((9, 1, 70, d_max + 1), dtype=dt, device=DEVICE)
+            try:
+                jet_attention_scores_cuda(over, over, 0.1)
+                refused = False
+            except ValueError:
+                refused = True
+            require(refused, f"jet_attention_scores admitted head dim {d_max + 1} at "
+                             f"order 8 f64, past the largest that fits ({d_max})")
+        for (bsz, t, d), orders in cases:
+            scale = d ** -0.5
+
+            def plain(q, k):
+                return ref.jet_attention_scores_ref(q, k, scale)
+
+            e_max, rs_max, geos_run = 0.0, 0.0, set()
+            for n in orders:
+                q, k = (0.6 * torch.randn((n + 1, bsz, t, d), generator=gen,
+                                          device=DEVICE, dtype=dt) for _ in range(2))
+                want = plain(q, k)
+                geo = scores_geometry(n + 1, t, d, dt, bsz)
+                seen.add((geo.whole, geo.split > 1))
+                geos_run.add(tuple(geo[:4]))
+                got = jet_attention_scores_cuda(q, k, scale)
+                torch.cuda.synchronize()
+                what = (f"jet_attention_scores edge {dt} order {n} ({bsz}, {t}, {d}) "
+                        f"{tuple(geo[:4])}")
+                e_max = max(e_max, holds(got, want, plain, (q, k), dt, n, what))
+                worst["jet_attention_scores"] = max(
+                    worst["jet_attention_scores"], float((got - want).abs().max()))
+                rs_max = max(rs_max, holds_row_sums(got, want, dt, n, what))
+            rows.append(("jet_attention_scores", str(dt), (bsz, t, d), orders, e_max, rs_max,
+                         tol, sorted(geos_run)))
+    for whole in (True, False):
+        require(any(w == whole for w, _ in seen),
+                f"the K5 edges ran no {'whole-row' if whole else 'ring'} staging")
+    for split in (True, False):
+        require(any(sp == split for _, sp in seen),
+                f"the K5 edges ran no key split {'of several warps' if split else 'of 1'}")
+    for r in rows:
+        staging = "/".join(sorted({"ring" if g[3] > 1 else "whole row" for g in r[7]}))
+        splits = sorted({g[1] for g in r[7]})
+        print(f"  edge {r[0]:20s} {r[1]:13s} {str(r[2]):13s} orders {str(r[3]):9s} max rel "
+              f"err {r[4]:.2e}, row sums {r[5]:.2e} (tol {r[6]:.0e}); {staging}, split "
+              f"{splits}")
+    report["edge_checks"] += [dict(zip(("kernel", "dtype", "shape", "orders", "max_rel_err",
+                                        "row_sum_dev", "tol", "geometries"), r)) for r in rows]
 
 
 def holds_f32_sum(got, plain, args, what: str) -> float:
@@ -1225,52 +1321,54 @@ def time_trunk_server(net, params, gen, report: dict) -> dict:
     return out
 
 
-def scores_key(shape, order: int) -> str:
-    return f"{tuple(shape)} order {order}"
+def scores_key(shape, order: int, dtype: str = "torch.float64") -> str:
+    return f"{tuple(shape)} order {order}" + ("" if dtype == "torch.float64" else f" {dtype}")
 
 
 def time_scores_kernel(gen, report: dict) -> dict:
     """K5 at the memory comparison's (B*H, T, Dh) = (4, 256, 8) and
-    (4, 1024, 8), f64, orders 2 and 8: device time, host dispatch, the plain
+    (4, 1024, 8), f64, orders 2 and 8, and at the memory rows' own launch
+    (f32, order 2, (4, 1024, 8)): device time, host dispatch, the plain
     version (graph replay: it enqueues too many kernels for the spin), the
     order-0 library computation softmax(scale q_0 k_0^T) and the bound."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.jet_attention import jet_attention_scores_cuda
 
-    dt = torch.float64
-    item = torch.empty((), dtype=dt).element_size()
     out = {}
-    for bsz, t, d in SCORES_TIMED:
+    cases = [(torch.float64, shape, order) for shape in SCORES_TIMED
+             for order in SCORES_TIMED_ORDERS]
+    cases.append((torch.float32,) + SCORES_MEMORY_ROW)
+    for dt, (bsz, t, d), order in cases:
+        item = torch.empty((), dtype=dt).element_size()
         scale = d ** -0.5
-        for order in SCORES_TIMED_ORDERS:
-            n1 = order + 1
-            q, k = (0.6 * torch.randn((n1, bsz, t, d), generator=gen, device=DEVICE,
-                                      dtype=dt) for _ in range(2))
-            ms, host = device_time_ms(lambda: jet_attention_scores_cuda(q, k, scale),
-                                      20, what="jet_attention_scores")
-            plain = graph_time_ms(lambda: ref.jet_attention_scores_ref(q, k, scale),
-                                  reps=5)
-            lib, _ = device_time_ms(
-                lambda: torch.softmax(scale * q[0] @ k[0].transpose(-1, -2), dim=-1),
-                20, what="order-0 softmax")
-            nbytes = (2 * q.numel() + n1 * bsz * t * t) * item
-            # per (query, key) pair: the Cauchy terms of the score convolution
-            # (N1 (N1+1)/2 products of D-dot-products, 2 flops each) and the
-            # exp and division recurrences
-            flops = bsz * t * t * (n1 * (n1 + 1) * d + 2 * n1 * n1)
-            bound = bound_ms(nbytes, flops, str(dt))
-            err = float((jet_attention_scores_cuda(q, k, scale)
-                         - ref.jet_attention_scores_ref(q, k, scale)).abs().max())
-            key = scores_key((bsz, t, d), order)
-            out[key] = {"shape": [n1, bsz, t, d], "dtype": str(dt), "ms": ms,
-                        "host_ms": host, "plain_ms": plain, "library_order0_ms": lib,
-                        "bound_ms": bound[0], "bound_by": bound[1], "bytes": nbytes,
-                        "flops": flops, "max_abs_err": err}
-            print(f"  jet_attention_scores {key} f64: {ms * 1e3:.2f} us (plain "
-                  f"{plain * 1e3:.2f} us, order-0 softmax(q0 k0^T) {lib * 1e3:.2f} us, "
-                  f"bound {bound[0] * 1e3:.2f} us by {bound[1]}; host dispatch "
-                  f"{host * 1e3:.2f} us)")
+        n1 = order + 1
+        q, k = (0.6 * torch.randn((n1, bsz, t, d), generator=gen, device=DEVICE,
+                                  dtype=dt) for _ in range(2))
+        ms, host = device_time_ms(lambda: jet_attention_scores_cuda(q, k, scale),
+                                  20, what="jet_attention_scores")
+        plain = graph_time_ms(lambda: ref.jet_attention_scores_ref(q, k, scale), reps=5)
+        lib, _ = device_time_ms(
+            lambda: torch.softmax(scale * q[0] @ k[0].transpose(-1, -2), dim=-1),
+            20, what="order-0 softmax")
+        nbytes = (2 * q.numel() + n1 * bsz * t * t) * item
+        # per (query, key) pair: the Cauchy terms of the score convolution
+        # (N1 (N1+1)/2 products of D-dot-products, 2 flops each) and the
+        # exp and division recurrences
+        flops = bsz * t * t * (n1 * (n1 + 1) * d + 2 * n1 * n1)
+        bound = bound_ms(nbytes, flops, str(dt))
+        got = jet_attention_scores_cuda(q, k, scale)
+        want = ref.jet_attention_scores_ref(q, k, scale)
+        err = float((got - want).abs().max())
+        key = scores_key((bsz, t, d), order, str(dt))
+        out[key] = {"shape": [n1, bsz, t, d], "dtype": str(dt), "ms": ms,
+                    "host_ms": host, "plain_ms": plain, "library_order0_ms": lib,
+                    "bound_ms": bound[0], "bound_by": bound[1], "bytes": nbytes,
+                    "flops": flops, "max_abs_err": err}
+        print(f"  jet_attention_scores {key}{' f64' if dt == torch.float64 else ''}: "
+              f"{ms * 1e3:.2f} us (plain {plain * 1e3:.2f} us, order-0 softmax(q0 k0^T) "
+              f"{lib * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us by {bound[1]}; host "
+              f"dispatch {host * 1e3:.2f} us)")
     report["scores_kernel_times"] = out
     return out
 
@@ -1366,11 +1464,15 @@ def load_other_kernels(root: Path) -> dict:
 
 
 def compare_turns(other: dict, gen, report: dict) -> dict:
-    """The other checkout's K1, K2 and K4 against this tree's on the same
-    inputs at the served shapes, device time in turns other, this, this,
-    other (``device_time_ms``, 100 calls each); outputs held to TOL_F64."""
+    """The other checkout's K1, K2, K4 and K5 against this tree's on the
+    same inputs, device time in turns other, this, this, other
+    (``device_time_ms``, 100 calls each, 20 for the long ones): K1, K2 and
+    K4 at the served shapes, K4 and K5 at the memory row (f32), K5 at
+    SCORES_TIMED x SCORES_TIMED_ORDERS (f64).  Outputs held to each other
+    at TOL_F64 (f64) or 4 TOL_F32 (the f32 sums over 1024 keys)."""
     import torch
-    from repro_torch.kernels.jet_attention import jet_flash_attention_cuda
+    from repro_torch.kernels.jet_attention import (jet_attention_scores_cuda,
+                                                   jet_flash_attention_cuda)
     from repro_torch.kernels.jet_dense import jet_dense_cuda
     from repro_torch.kernels.tanh_jet import act_jet_cuda
 
@@ -1401,13 +1503,25 @@ def compare_turns(other: dict, gen, report: dict) -> dict:
                   lambda: other["jet_attention"].jet_flash_attention_cuda(
                       qm, km, vm, wm, 8 ** -0.5),
                   lambda: jet_flash_attention_cuda(qm, km, vm, wm, 8 ** -0.5)))
+    scores = [(torch.float64, shape, order) for shape in SCORES_TIMED
+              for order in SCORES_TIMED_ORDERS]
+    scores.append((torch.float32,) + SCORES_MEMORY_ROW)
+    for dt, (bsz, t, d), order in scores:
+        qs, ks = (0.6 * torch.randn((order + 1, bsz, t, d), generator=gen, device=DEVICE,
+                                    dtype=dt) for _ in range(2))
+        label = "memory row " if dt == torch.float32 else ""
+        cases.append((f"jet_attention_scores {label}{(order + 1, bsz, t, d)} "
+                      f"{'f32' if dt == torch.float32 else 'f64'}",
+                      lambda qs=qs, ks=ks, d=d: other["jet_attention"].jet_attention_scores_cuda(
+                          qs, ks, d ** -0.5),
+                      lambda qs=qs, ks=ks, d=d: jet_attention_scores_cuda(qs, ks, d ** -0.5)))
     for what, old, new in cases:
         e = rel_err(new(), old(), 1)
         torch.cuda.synchronize()
         tol = TOL_F64 if "f32" not in what else 4 * TOL_F32
         require(e <= tol, f"{what}: this tree vs the other checkout {e:.3e}")
-        turns = [device_time_ms(fn, 100 if "memory" not in what else 20, what=what)[0]
-                 for fn in (old, new, new, old)]
+        reps = 20 if "memory" in what or "scores" in what else 100
+        turns = [device_time_ms(fn, reps, what=what)[0] for fn in (old, new, new, old)]
         out[what] = {"turns_ms": turns, "order": ["other", "this", "this", "other"],
                      "rel_err": e}
         print(f"  {what}: other {turns[0] * 1e3:.2f} / this {turns[1] * 1e3:.2f} / this "
@@ -1790,7 +1904,7 @@ def main(argv=None) -> int:
                     help="seed of the weights, inputs and queries")
     ap.add_argument("--against", type=Path, default=None, metavar="DIR",
                     help="another checkout of the repository (e.g. the parent commit "
-                         "unpacked with git archive): time its K1, K2 and K4 in turns "
+                         "unpacked with git archive): time its K1, K2, K4 and K5 in turns "
                          "with this tree's and trace the trunk's cross call with its "
                          "kernels too (phase 8)")
     args = ap.parse_args(argv)
@@ -1855,6 +1969,9 @@ def main(argv=None) -> int:
                       worst)
     phase("2c", "K5 jet_attention_scores against its plain version")
     check_scores_kernel(gen, report, worst)
+    # like phase 2's edges, from their own generator
+    check_scores_edges(torch.Generator(device=DEVICE).manual_seed(args.seed + 2), report,
+                       worst)
     phase("2d", "K5's path: the memory rows of memory_scaling._attention_rows "
                 "(order 2, B 2, H 2, Dh 8, Dm 16, f32) through the public ops")
     memory_launches = memory_rows(gen, report)
@@ -1890,7 +2007,8 @@ def main(argv=None) -> int:
     phase("7", "K1 jet_dense at the shapes the training phases launched it")
     training_times = time_training_shapes(shapes.counts, gen, report)
     if other is not None:
-        phase("8", f"K1, K2 and K4 of {args.against} (other) against this tree's, in turns")
+        phase("8", f"K1, K2, K4 and K5 of {args.against} (other) against this tree's, "
+                   f"in turns")
         compare_turns(other, gen, report)
     phase("", "")
 

@@ -1,5 +1,5 @@
 // cp.async helpers shared by the kernels that stage tiles in shared memory
-// (jet_dense.cu, jet_flash_attention.cu).
+// (jet_dense.cu, jet_flash_attention.cu, jet_attention_scores.cu).
 #pragma once
 
 #include <cstdint>

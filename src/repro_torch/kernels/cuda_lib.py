@@ -46,8 +46,10 @@ _SIGNATURES = {
     # window, group, rows, key_tile, dpl, stream
     "jet_flash_attention_launch": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                                    _I, _I, _D, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, out, bsz, t, d, n1, dtype, scale, stream
-    "jet_attention_scores_launch": (_P, _P, _P, _I64, _I, _I, _I, _I, _D, _P),
+    # q, k, out, bsz, t, d, n1, dtype, scale, groups, split, tiles, ring,
+    # stream
+    "jet_attention_scores_launch": (_P, _P, _P, _I64, _I, _I, _I, _I, _D, _I,
+                                    _I, _I, _I, _P),
 }
 
 

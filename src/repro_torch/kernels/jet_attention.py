@@ -13,11 +13,12 @@ and ::jet_attention_scores_pallas.
   online softmax over the coefficient axis, no score jet in device memory;
   :func:`flash_geometry` picks its kernel (short or long T) and tiles.
 * :func:`jet_attention_scores_cuda`: Q/K stacks (n+1, B, T, D) -> the
-  softmaxed score jet (n+1, B, T, T), one warp per query, key tiles shared
-  by the block's queries of one batch row; no
-  module dispatches it (the trunk runs K4), it backs
-  ``ops.jet_attention_scores`` and the materializing side of the
-  flash-vs-scores memory comparison.
+  softmaxed score jet (n+1, B, T, T), a warp on 8 queries x 8 keys at a
+  time, two passes over the keys (online-max totals, then the
+  probabilities), key stages shared by the block's query groups of one
+  batch row; :func:`scores_geometry` picks its tiling.  No module
+  dispatches it (the trunk runs K4), it backs ``ops.jet_attention_scores``
+  and the materializing side of the flash-vs-scores memory comparison.
 
 Their plain versions are :func:`repro_torch.kernels.ref.jet_rms_norm_ref`,
 :func:`~repro_torch.kernels.ref.jet_flash_attention_ref` and
@@ -42,9 +43,12 @@ _SHORT_THREADS = 128          # csrc/jet_flash_attention.cu: kShortThreads
 _OS_ROW_TILE = 8              # csrc/jet_flash_attention.cu: kOsRowTile
 _LONG_WARPS = 8               # queries per block of jet_flash_attention_long_kernel, at most
 _LONG_TILE = 32               # keys per shared-memory tile, at most (one a lane)
-_SCORES_WARPS = 8             # csrc/jet_attention_scores.cu: kWarps
-_SCORES_TILE = 32             # csrc/jet_attention_scores.cu: kTile
+_SCORES_MAX_WARPS = 16        # csrc/jet_attention_scores.cu: kMaxWarps (128 registers a thread)
+_SCORES_MAX_GROUPS = 4        # query groups a block: more left SMs idle at (4, 1024)
+_SCORES_MAX_SPLIT = 8         # warps a query's keys are split between (16 lost at (4, 256))
+_SCORES_BLOCKS_WANTED = 128   # ~ one block on each of the 132 SMs
 _SMEM_LIMIT = 232448          # shared memory a block can use on Hopper
+_SM_SMEM = 233472             # shared memory of one SM; each block reserves 1 KB of it
 
 RMS_NORM_LAUNCHES = LaunchCounter("jet_rms_norm")
 FLASH_LAUNCHES = LaunchCounter("jet_flash_attention")
@@ -190,17 +194,90 @@ def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def scores_smem_bytes(n1: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one K5 block: the key tile (rows padded to
-    head_dim + 1) and each warp's query jet."""
+class ScoresGeometry(NamedTuple):
+    """K5's tiling for one launch (csrc/jet_attention_scores.cu).
+
+    A block takes ``groups`` groups of 8 queries of one batch row, each
+    group's keys split between ``split`` warps; a stage of keys gives each
+    warp ``tiles`` tiles of 8 keys, and the block keeps ``ring`` stages in
+    shared memory (``ring == 1``: the whole row in one stage, copied once
+    for both passes; else 2).  ``smem`` the block's dynamic shared memory
+    in bytes.  The score contraction runs on the tensor cores in f64
+    (mma.sync m16n8k4), on FMAs in f32."""
+    groups: int
+    split: int
+    tiles: int
+    ring: int
+    smem: int
+
+    @property
+    def whole(self) -> bool:
+        return self.ring == 1
+
+
+def scores_smem_bytes(n1: int, d: int, groups: int, split: int, tiles: int,
+                      ring: int, item: int) -> int:
+    """Shared memory of one K5 block in bytes (csrc/jet_attention_scores.cu::
+    smem_bytes), elements of ``item`` bytes: the scaled queries, the key
+    ring and the merge slots."""
+    nch = -(-d // 4)
+    return item * (groups * n1 * nch * 32 + ring * n1 * nch * split * tiles * 32
+                   + groups * split * 8 * (n1 + 1))
+
+
+def scores_max_warps(n1: int, dtype: torch.dtype) -> int:
+    """Warps a K5 block may have (csrc/jet_attention_scores.cu::max_threads):
+    8 for the f64 kernels at N1 >= 8, which take up to 255 registers a
+    thread, else 16 (128 registers)."""
+    return 8 if dtype == torch.float64 and n1 >= 8 else _SCORES_MAX_WARPS
+
+
+def scores_geometry(n1: int, t: int, d: int, dtype: torch.dtype,
+                    bsz: int) -> ScoresGeometry:
+    """The tiling the K5 launcher runs for (n1, bsz, t, d) stacks.
+
+    A block takes as many query groups (up to 4, powers of two) as leave
+    the grid ~128 blocks: its groups share each key stage it copies, and
+    copying keys from L2 is what a stage waits on.  Its other warps split
+    the keys (powers of two, up to 8 and :func:`scores_max_warps`, each
+    slice keeping at least two 8-key tiles).  Then the first of these that
+    lets an SM hold as many blocks as its registers do (16 warps an SM):
+    the whole row in one stage, a ring of two stages of 4, 2, 1 tiles a
+    warp; then the same with half the groups, then half the split.  If none
+    does, the first that fits one block's limit; past that the returned
+    ``smem`` exceeds the limit and the wrapper refuses."""
     item = torch.empty((), dtype=dtype).element_size()
-    return n1 * (_SCORES_TILE * (head_dim + 1) + _SCORES_WARPS * head_dim) * item
+    max_warps = scores_max_warps(n1, dtype)
+    qtiles = -(-t // 8)
+    groups = 1
+    while (groups < _SCORES_MAX_GROUPS
+           and bsz * -(-qtiles // (2 * groups)) >= _SCORES_BLOCKS_WANTED):
+        groups *= 2
+    split = 1
+    while split < min(_SCORES_MAX_SPLIT, max_warps // groups) and qtiles >= 4 * split:
+        split *= 2
+    candidates = []
+    while True:
+        for tiles, ring in ((-(-qtiles // split), 1), (4, 2), (2, 2), (1, 2)):
+            smem = scores_smem_bytes(n1, d, groups, split, tiles, ring, item)
+            candidates.append(ScoresGeometry(groups, split, tiles, ring, smem))
+        if groups > 1:
+            groups //= 2
+        elif split > 1:
+            split //= 2
+        else:
+            break
+    for geo in candidates:
+        per_sm = max(1, max_warps // (geo.groups * geo.split))
+        if per_sm * (geo.smem + 1024) <= _SM_SMEM:
+            return geo
+    return next((geo for geo in candidates if geo.smem <= _SMEM_LIMIT), candidates[-1])
 
 
 def jet_attention_scores_cuda(q: torch.Tensor, k: torch.Tensor,
                               scale: float) -> torch.Tensor:
     """K5 on the card: q/k (n+1, B, T, D) -> the softmaxed score jet
-    (n+1, B, T, T)."""
+    (n+1, B, T, T), tiled by :func:`scores_geometry`."""
     check_cuda_tensor(q, "q", 4)
     check_cuda_tensor(k, "k", 4, q.dtype)
     if k.shape != q.shape:
@@ -209,14 +286,18 @@ def jet_attention_scores_cuda(q: torch.Tensor, k: torch.Tensor,
     _same_device(q, k)
     n1, bsz, t, d = q.shape
     check_order(n1)
-    smem = scores_smem_bytes(n1, d, q.dtype)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"the score kernel needs {smem} bytes of shared "
+    geo = scores_geometry(n1, t, d, q.dtype, bsz)
+    if geo.smem > _SMEM_LIMIT:
+        raise ValueError(f"the score kernel needs {geo.smem} bytes of shared "
                          f"memory for head dim {d} at order {n1 - 1}; a block "
                          f"has {_SMEM_LIMIT}")
+    if geo.groups * geo.split > scores_max_warps(n1, q.dtype):
+        raise ValueError(f"a score kernel block takes at most "
+                         f"{scores_max_warps(n1, q.dtype)} warps at order {n1 - 1}")
     out = torch.empty((n1, bsz, t, t), dtype=q.dtype, device=q.device)
     cuda_lib.launch("jet_attention_scores_launch", q.device, q.data_ptr(),
                     k.data_ptr(), out.data_ptr(), bsz, t, d, n1,
-                    DTYPE_CODES[q.dtype], float(scale))
+                    DTYPE_CODES[q.dtype], float(scale), geo.groups, geo.split,
+                    geo.tiles, geo.ring)
     SCORES_LAUNCHES.add()
     return out

@@ -1,8 +1,8 @@
 """What the kernels' Python side decides, checked without a card: the
-ctypes signatures against the CUDA launchers' C declarations, what the
-dense-path wrappers hand their launchers (the launch stubbed, CPU tensors
-forced down the CUDA branch), and the flash kernel's tiling
-(``jet_attention.flash_geometry``) at its limits."""
+ctypes signatures (argument counts and types) against the CUDA launchers'
+C declarations, what the dense-path wrappers hand their launchers (the
+launch stubbed, CPU tensors forced down the CUDA branch), and the flash
+kernel's tiling (``jet_attention.flash_geometry``) at its limits."""
 
 import importlib
 import re
@@ -41,6 +41,36 @@ def test_ctypes_signature_matches_the_c_declaration(name):
     """A ctypes argument list shorter or longer than the C function's shows
     only on the card, as garbage arguments; here it is a count."""
     assert len(cuda_lib._SIGNATURES[name]) == _launchers()[name]
+
+
+_CTYPES = {"const void*": cuda_lib._P, "void*": cuda_lib._P, "int64_t": cuda_lib._I64,
+           "int": cuda_lib._I, "double": cuda_lib._D}
+
+
+def _launcher_params() -> dict:
+    """{name: [(C type, parameter name), ...]} of every launcher."""
+    found = {}
+    for src in sorted(cuda_lib.CSRC.glob("*.cu")):
+        for name, params in _LAUNCHER.findall(src.read_text()):
+            found[name] = [(" ".join(p.split()[:-1]), p.split()[-1])
+                           for p in params.split(",") if p.strip()]
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(cuda_lib._SIGNATURES))
+def test_ctypes_types_match_the_c_declaration(name):
+    """Each argument's ctypes type is the C parameter's: a pointer passed as
+    a 32-bit int, or an int64 as an int, is cut on the card."""
+    types = tuple(_CTYPES[ctype] for ctype, _ in _launcher_params()[name])
+    assert types == cuda_lib._SIGNATURES[name]
+
+
+def test_scores_launcher_takes_the_geometry_after_the_scale():
+    """The K5 wrapper hands (groups, split, tiles, ring) after the
+    scale (tests/test_torch_scores.py checks the values it hands)."""
+    names = [pname for _, pname in _launcher_params()["jet_attention_scores_launch"]]
+    assert names == ["q", "k", "out", "bsz", "t", "d", "n1", "dtype", "scale", "groups",
+                     "split", "tiles", "ring", "stream"]
 
 
 @pytest.fixture

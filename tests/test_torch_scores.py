@@ -4,7 +4,11 @@ plain version (``ref.jet_attention_scores_ref``) and the public op
 oracle, its Pallas kernel in interpret mode and the jet algebra
 (softmax of the scaled Cauchy einsum); batch-axis folding, the backward
 against ``jax.vjp``, the row-sum invariant, the launch counter and
-registry entry, and what the dispatch hands the CUDA launcher.
+registry entry, and what the dispatch hands the CUDA launcher.  Without a
+card: the kernel's tiling (``jet_attention.scores_geometry``) at its
+limits, and a plain-torch emulation of the kernel's arithmetic (online-max
+totals over key tiles, the merge of the lanes and key slices, the p
+recurrence over the e-jet) against the plain version.
 
 Inputs are made with numpy from a seed.  Tolerances: float64 1e-12 and
 float32 1e-5, relative to each coefficient's max |ref|.
@@ -167,7 +171,9 @@ def test_dispatch_hands_the_launcher_contiguous_folded_stacks(monkeypatch):
     assert seen["q"] == ((n1, 6, t, d), True) and seen["k"] == ((n1, 6, t, d), True)
     name, args = calls[-1]
     assert name == "jet_attention_scores_launch"
-    assert args[3:] == (6, t, d, n1, 1, 0.25)
+    assert args[3:9] == (6, t, d, n1, 1, 0.25)
+    geo = tka.scores_geometry(n1, t, d, torch.float64, 6)
+    assert args[9:] == (geo.groups, geo.split, geo.tiles, geo.ring)
     assert tops.launch_counts()["jet_attention_scores"] == 1
 
 
@@ -179,5 +185,241 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     big = torch.zeros((10, 1, 3, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="0..8"):
         tops.jet_attention_scores(big, big, 0.5)
-    # the key tile (32 rows padded to D + 1) and 8 query jets, 9 coefficients
-    assert tka.scores_smem_bytes(9, 16, torch.float64) == 9 * (32 * 17 + 8 * 16) * 8
+    # the queries, two stages of one 8-key tile, the merge slots: 9
+    # coefficients, 4 chunks of 4 dims
+    assert tka.scores_smem_bytes(9, 16, 1, 1, 1, 2, 8) == (9 * 4 * 32 * 3 + 8 * 10) * 8
+
+
+# ---------------------------------------------------------------------------
+# the kernel's tiling (jet_attention.scores_geometry), checked without a card
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448          # shared memory a block can use on Hopper
+GEO_SHAPES = [(4, 1024, 8), (4, 256, 8), (4, 64, 8), (5, 3, 4), (19, 2, 8), (3, 1, 1),
+              (2, 70, 16), (3, 31, 1), (3, 33, 64), (1, 70, 128), (1, 4096, 8), (64, 2, 8)]
+GEO_IDS = ["x".join(map(str, s)) for s in GEO_SHAPES]
+
+
+def _bytes(n1, d, groups, split, tiles, ring, item):
+    """The block's shared memory, written out: one 8 x 4 fragment per
+    coefficient and 4-dim chunk for each query group and for each 8-key
+    tile of each stage, and (max, N1 totals) per query of each warp."""
+    frag = n1 * -(-d // 4) * 32
+    return item * (groups * frag + ring * split * tiles * frag + groups * split * 8 * (n1 + 1))
+
+
+def _visits(t, geo):
+    """How often the kernel's indexing visits each (query, key) of one batch
+    row (csrc/jet_attention_scores.cu: blocks of `groups` query groups,
+    warp = group * split + slice, tile slice * tiles + nt of each stage)."""
+    qblocks = -(-(-(-t // 8)) // geo.groups)
+    ktb = geo.split * geo.tiles * 8
+    nstages = -(-t // ktb)
+    seen = np.zeros((t, t), dtype=np.int64)
+    for blk in range(qblocks):
+        for warp in range(geo.groups * geo.split):
+            g, ks = divmod(warp, geo.split)
+            q0 = (blk * geo.groups + g) * 8
+            if q0 >= t:
+                continue
+            for st in range(nstages):
+                for nt in range(geo.tiles):
+                    key0 = st * ktb + (ks * geo.tiles + nt) * 8
+                    if key0 >= t:
+                        break
+                    seen[q0:q0 + 8, key0:key0 + 8] += 1
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n1", [1, 3, 5, 9])
+@pytest.mark.parametrize("shape", GEO_SHAPES, ids=GEO_IDS)
+def test_scores_geometry_fits_a_block(shape, n1, dtype):
+    """Every choice fits the 232,448 bytes of a block, at the size the
+    kernel's formula gives, with no more warps than its launch bound, and
+    stages the whole row in one stage only where one stage holds it."""
+    b, t, d = shape
+    geo = tka.scores_geometry(n1, t, d, dtype, b)
+    item = 8 if dtype == torch.float64 else 4
+    assert geo.smem == _bytes(n1, d, *geo[:4], item) <= SMEM_LIMIT
+    assert geo.groups * geo.split <= (8 if dtype == torch.float64 and n1 >= 8 else 16)
+    assert geo.ring in (1, 2)
+    assert geo.whole == (geo.ring == 1)
+    if geo.whole:
+        assert geo.split * geo.tiles * 8 >= t
+
+
+@pytest.mark.parametrize("n1,dtype", [(3, torch.float64), (9, torch.float64),
+                                      (3, torch.float32)], ids=["f64-3", "f64-9", "f32-3"])
+@pytest.mark.parametrize("shape", GEO_SHAPES[:-2], ids=GEO_IDS[:-2])
+def test_scores_geometry_covers_every_key_once(shape, n1, dtype):
+    """The blocks, warps, stages and tiles of the chosen geometry visit
+    every (query, key) pair of a row exactly once."""
+    b, t, d = shape
+    geo = tka.scores_geometry(n1, t, d, dtype, b)
+    np.testing.assert_array_equal(_visits(t, geo), 1)
+
+
+@pytest.mark.parametrize("groups,split,tiles,ring", [(1, 1, 1, 2), (2, 4, 2, 2), (4, 2, 4, 2),
+                                                    (1, 8, 1, 1), (3, 2, 5, 1), (1, 16, 2, 2)])
+@pytest.mark.parametrize("t", [1, 7, 8, 9, 70, 257])
+def test_kernel_indexing_covers_every_key_once_for_any_geometry(t, groups, split, tiles,
+                                                                 ring):
+    geo = tka.ScoresGeometry(groups, split, max(tiles, -(-t // (8 * split)) if ring == 1
+                                                else tiles), ring, 0)
+    np.testing.assert_array_equal(_visits(t, geo), 1)
+
+
+def test_scores_geometry_at_the_timed_shapes():
+    """(4, 1024, 8): 4 query groups a block share each key stage (128
+    blocks); at order 2 the row's keys fit one stage, at order 8 (f64, 8
+    warps a block) a ring of two; (4, 256, 8): one group, keys split over 8
+    warps, the whole row."""
+    f64 = torch.float64
+    assert tuple(tka.scores_geometry(3, 1024, 8, f64, 4))[:4] == (4, 4, 32, 1)
+    assert tuple(tka.scores_geometry(9, 1024, 8, f64, 4))[:4] == (4, 2, 4, 2)
+    assert tuple(tka.scores_geometry(3, 256, 8, f64, 4))[:4] == (1, 8, 4, 1)
+    assert tuple(tka.scores_geometry(9, 256, 8, f64, 4))[:4] == (1, 8, 4, 1)
+    assert tuple(tka.scores_geometry(3, 1024, 8, torch.float32, 4))[:4] == (4, 4, 32, 1)
+
+
+def test_scores_smem_bytes_is_the_kernels_formula():
+    """scores_smem_bytes against csrc/jet_attention_scores.cu::smem_bytes,
+    evaluated from its source, and against the layout written out here."""
+    import re
+    src = (cuda_lib.CSRC / "jet_attention_scores.cu").read_text()
+    m = re.search(r"int64_t smem_bytes\(int n1, int nch, int groups, int split, int tiles, "
+                  r"int ring, int item\) \{\s*return (.*?);\s*\}", src, re.S)
+    assert m, "smem_bytes not found"
+    expr = " ".join(m.group(1).replace("static_cast<int64_t>", "").split())
+    for n1, d, groups, split, tiles, ring, item in [
+            (1, 1, 1, 1, 1, 1, 4), (9, 8, 4, 2, 4, 2, 8), (3, 70, 2, 8, 3, 2, 4),
+            (5, 13, 1, 16, 2, 2, 8), (3, 8, 4, 4, 32, 1, 8), (2, 5, 1, 2, 7, 1, 4)]:
+        env = dict(n1=n1, nch=-(-d // 4), groups=groups, split=split, tiles=tiles,
+                   ring=ring, item=item)
+        got = tka.scores_smem_bytes(n1, d, groups, split, tiles, ring, item)
+        assert got == eval(expr, env) == _bytes(n1, d, groups, split, tiles, ring, item)
+    assert re.search(r"constexpr int kMaxWarps = (\d+);", src).group(1) == str(
+        tka._SCORES_MAX_WARPS)
+    # the launcher takes rings of 1 and 2 stages, what scores_geometry picks
+    assert re.search(r"constexpr int kMaxRing = (\d+);", src).group(1) == "2"
+
+
+def test_wrapper_refuses_what_no_geometry_fits(monkeypatch):
+    """At order 8, f64, T = 70 every head dim up to the largest that fits is
+    admitted; one more is refused, naming the limit."""
+    monkeypatch.setattr(tka, "check_cuda_tensor", lambda *a: None)
+    fits = [d for d in range(1, 400)
+            if tka.scores_geometry(9, 70, d, torch.float64, 1).smem <= SMEM_LIMIT]
+    d_max = max(fits)
+    assert fits == list(range(1, d_max + 1)) and d_max >= 64
+    big = torch.zeros((9, 1, 70, d_max + 1), dtype=torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        tka.jet_attention_scores_cuda(big, big, 0.1)
+
+
+def test_wrapper_refuses_a_geometry_the_kernel_does_not_take(monkeypatch):
+    """A geometry with more warps than the f64 N1 = 9 kernel's 256-thread
+    launch bound is refused before the launch, naming the limit."""
+    monkeypatch.setattr(tka, "check_cuda_tensor", lambda *a: None)
+    monkeypatch.setattr(cuda_lib, "launch", lambda *a: pytest.fail("launched"))
+    q = torch.zeros((9, 1, 64, 8), dtype=torch.float64)
+    geo = tka.scores_geometry(9, 64, 8, torch.float64, 1)
+    monkeypatch.setattr(tka, "scores_geometry",
+                        lambda *a: geo._replace(groups=4, split=4))
+    with pytest.raises(ValueError, match="at most 8 warps"):
+        tka.jet_attention_scores_cuda(q, q, 0.1)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's arithmetic, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+_LOWEST = -1.7976931348623157e308
+
+
+def _exp_jet(s, shift):
+    """e-jet of exp(s - shift) by the power-series recurrence, as the kernel
+    runs it (m s_m, then the sum times 1/m)."""
+    e = [torch.exp(s[0] - shift)]
+    for m in range(1, len(s)):
+        e.append(sum(j * s[j] * e[m - j] for j in range(1, m + 1)) * (1.0 / m))
+    return e
+
+
+def _merge(run_a, tot_a, run_b, tot_b):
+    mx = torch.maximum(run_a, run_b)
+    a, b = torch.exp(run_a - mx), torch.exp(run_b - mx)
+    return mx, [ta * a + tb * b for ta, tb in zip(tot_a, tot_b)]
+
+
+def _kernel_emulation(q, k, scale, split, tiles):
+    """K5's arithmetic for one geometry: per (query, key slice, lane) an
+    online max and e-jet totals over the lane's two keys of each 8-key tile
+    (tiles walked stage by stage), the lanes merged in the butterfly order
+    (xor 1, then 2), the slices merged with the common max, then the e-jet
+    with the final max and p over it in place: p_0 = e_0 / tot_0,
+    p_m = (e_m - sum_j tot_j p_{m-j}) / tot_0."""
+    n1, b, t, d = q.shape
+    qs = q * scale
+    s = [sum(torch.einsum("bqd,bkd->bqk", qs[i], k[m - i]) for i in range(m + 1))
+         for m in range(n1)]
+    ktb = split * tiles * 8
+    shape = (b, t, split, 4)
+    run = torch.full(shape, _LOWEST, dtype=q.dtype)
+    tot = [torch.zeros(shape, dtype=q.dtype) for _ in range(n1)]
+    lanes = torch.arange(4)
+    for st in range(-(-t // ktb)):
+        for nt in range(tiles):
+            key0 = st * ktb + (torch.arange(split) * tiles + nt) * 8           # (split,)
+            keys = key0[:, None, None] + 2 * lanes[None, :, None] + torch.arange(2)
+            valid = keys < t                                                   # (split, 4, 2)
+            kk = keys.clamp(max=t - 1)
+            sk = [sm[:, :, kk] for sm in s]                                    # (b, t, split, 4, 2)
+            s0 = torch.where(valid, sk[0], torch.full_like(sk[0], _LOWEST))
+            tm = s0.amax(-1)
+            up = tm > run
+            alpha = torch.where(up, torch.exp(run - tm), torch.ones_like(run))
+            tot = [tm_ * alpha for tm_ in tot]
+            run = torch.where(up, tm, run)
+            e = _exp_jet(sk, run[..., None])
+            tot = [tm_ + torch.where(valid, em, torch.zeros_like(em)).sum(-1)
+                   for tm_, em in zip(tot, e)]
+    for off in (1, 2):
+        other = lanes ^ off
+        run, tot = _merge(run, tot, run[..., other], [tm_[..., other] for tm_ in tot])
+    run, tot = run[..., 0], [tm_[..., 0] for tm_ in tot]                       # (b, t, split)
+    mx = run.amax(-1)
+    a = torch.exp(run - mx[..., None])
+    tot = [(a * tm_).sum(-1) for tm_ in tot]
+    inv0 = 1.0 / tot[0]
+    e = _exp_jet(s, mx[..., None])
+    p = [e[0] * inv0[..., None]]
+    for m in range(1, n1):
+        r = e[m] - sum(tot[j][..., None] * p[m - j] for j in range(1, m + 1))
+        p.append(r * inv0[..., None])
+    return torch.stack(p)
+
+
+@pytest.mark.parametrize("split,tiles", [(1, 1), (2, 1), (4, 2), (8, 4), (3, 5)])
+@pytest.mark.parametrize("t", [1, 2, 9, 33, 70])
+@pytest.mark.parametrize("order", [2, 8])
+def test_kernel_arithmetic_matches_the_plain_version(order, t, split, tiles):
+    """The emulated tiling and merges reproduce the plain version to 1e-12
+    (f64) for several tile widths and key splits, ragged T included."""
+    q, k = _qk(order * 31 + t + split, order, (2, t, 5))
+    qt, kt = torch.tensor(q), torch.tensor(k)
+    got = _kernel_emulation(qt, kt, 0.45, split, tiles)
+    _close(got, tref.jet_attention_scores_ref(qt, kt, 0.45), 1e-12)
+
+
+def test_kernel_arithmetic_is_exact_on_one_key():
+    """At T = 1 the totals are the key's own e-jet, so p = (1, 0, ..., 0)
+    exactly, as in the plain version (whose orders above 0 the gate holds
+    against a maximum of 0)."""
+    q, k = _qk(5, 8, (3, 1, 4))
+    got = _kernel_emulation(torch.tensor(q), torch.tensor(k), 0.5, 1, 1)
+    want = tref.jet_attention_scores_ref(torch.tensor(q), torch.tensor(k), 0.5)
+    assert torch.equal(got[0], torch.ones_like(got[0]))
+    assert torch.equal(got[1:], torch.zeros_like(got[1:]))
+    assert torch.equal(want[1:], torch.zeros_like(want[1:]))
