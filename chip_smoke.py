@@ -8,8 +8,8 @@ Phases, each failing loudly with a non-zero exit:
 1. the card's name and power limit (``nvidia-smi``), then the build of the
    hand-written kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
    and from its ``-Xptxas -v`` log the registers and spills of every
-   instantiation (printed for K1, K2 and K4 at f64, N1 = 5 and 9, and for
-   K5 at N1 = 3 and 9);
+   instantiation (printed for K1, K2 and K4 at f64, N1 = 5 and 9, for K5
+   at N1 = 3 and 9, and for every run-time-order kernel);
 2. every kernel against its plain PyTorch version on the card, orders 1-8,
    f32 and f64 (tolerances at TOL_F64 / TOL_F32 below): K2 (``act_jet``) for
    tanh/sigmoid/sin at ragged and serving shapes; K1 (``jet_dense``) for
@@ -37,6 +37,15 @@ Phases, each failing loudly with a non-zero exit:
    zeroed before and read after: the peak of ``max_memory_allocated``
    above the inputs must grow with T^2 for K5 and no faster than T for K4;
    plus the score op's backward;
+   2e. the run-time-order kernels (csrc/jet_runtime.cu): K1-K5 at orders
+   9, 10, 12 and 16, f64 (within TOL_SCALED of a conditioning scale, the
+   same computation with the absolute value of every term: ``abs_sum``)
+   and f32, at the served shapes and a ragged one each; on bfloat16 at
+   the served shapes, orders 1, 4 and 10, within BF16_ULPS of the float32
+   plain version; the largest order each wrapper admits at its served
+   shape and the refusal, naming the bytes, one order past it (K4 at head
+   dims 160 and 256 is in phase 2's edges, with the largest head dim
+   admitted at f64 order 8 and the refusal of the next);
 3. the served main paths, each with the launch counters zeroed just before
    it and read just after:
    a. a ``DerivativeServer`` on the ``pinn-pde`` DenseMLP (d_in 2, width 32,
@@ -50,8 +59,15 @@ Phases, each failing loudly with a non-zero exit:
       depth 3, 2 heads, mlp_ratio 2, tanh, no mask, float64, random weights
       from ``--seed``) under ``ntp/cuda``, answering the same requests; 16
       K1, 7 K3 and 3 K4 launches per engine call and no K2;
+   c, d. servers on the ``pinn-pde`` ResidualMLP and FourierFeatureMLP
+      (d_in 2, width 32, depth 3, d_out 1, tanh; 16 features, scale 1.0),
+      ``grid(4)`` and ``cross((0,0,1,1))``, 5 and 4 K1 launches per call;
+   e. the DenseMLP at ``grid(10)`` (N1 = 11, the run-time-order K1);
    every table is held against the eager ``ntp`` engine on the card and
-   against nested autodiff (the trunk's at the 5- and 37-row sizes only);
+   against nested autodiff (the trunk's and 3c-d's at the 5- and 37-row
+   sizes only; not 3e's order 10); the trunk's grid tables relative to a
+   conditioning scale (``readout_scale``), its cross tables relative to
+   the polarization terms;
 4. times from CUDA events after warm-up at the 512-row serving shapes: each
    kernel's device time (the host's enqueue kept off the clock, see
    ``device_time_ms``) and host dispatch time, its plain version, the
@@ -66,8 +82,9 @@ Phases, each failing loudly with a non-zero exit:
    ``cross((0,0,1,1))`` engine call at 512 rows over CUDA-graph replays,
    device time split by kernel;
 5. Burgers training (``pinn.trainer.train``) on pinn-mlp (3 x 24 tanh,
-   f64) at 512 domain + 128 origin points, k = 1 and k = 3 (a u-jet of
-   order 8: the top of the kernels' template), Adam then L-BFGS under
+   f64) at 512 domain + 128 origin points, k = 1, 3 (a u-jet of order 8:
+   the top of the templates) and 4 (order 10: the run-time-order K1),
+   Adam then L-BFGS under
    ``ntp/cuda`` and eager ``ntp`` from the same init and draws, counters
    zeroed before and read after each run: losses and lambda agree at every
    logged step (TOL_TRAIN), 9 K1 launches per loss evaluation, lambda moves
@@ -75,11 +92,14 @@ Phases, each failing loudly with a non-zero exit:
    device-busy split into the kernels and the eager rest) and per L-BFGS
    iteration for ``ntp/cuda``, ``ntp`` and a few ``autodiff`` steps;
 6. operator training (``train_operator``): Navier-Stokes on the pinn-pde
-   DenseMLP (16 K1 per step) and heat on the pinn-pde Transformer trunk
-   (16 K1, 7 K3, 3 K4 per step), n_domain 1024, under ``ntp/cuda`` and
-   eager ``ntp``: losses agree, launches asserted, time per step;
+   DenseMLP (16 K1 per step), ResidualMLP (20) and FourierFeatureMLP (16),
+   and heat on the pinn-pde Transformer trunk (16 K1, 7 K3, 3 K4 per
+   step), n_domain 1024, under ``ntp/cuda`` and eager ``ntp``: losses
+   agree, launches asserted, time per step;
 7. K1 at the shapes the training phases launched it most (recorded while
-   they ran), beside its plain version and bound;
+   they ran), beside its plain version and bound; 7b. the run-time-order
+   kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
+   16 and on bfloat16 at the served shapes;
 8. only with ``--against DIR`` (another checkout, e.g. the parent commit
    unpacked with ``git archive``): that checkout's K1, K2 and K4 against
    this tree's in turns (other, this, this, other) at the served shapes,
@@ -115,7 +135,8 @@ SRC = ROOT / "src"
 # float32 outside the tensor cores 67 TFLOP/s; float64 is bounded by the
 # same 67 TFLOP/s (the FP64 tensor-core rate, the card's f64 peak).
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"torch.float32": 67e12, "torch.float64": 67e12}
+PEAK_FLOPS = {"torch.float32": 67e12, "torch.float64": 67e12,
+              "torch.bfloat16": 67e12}   # bf16 is computed in float32 on FMAs
 
 DEVICE = "cuda"
 
@@ -132,6 +153,18 @@ F32_EXACT_ORDERS = 4
 F32_DRIFT = 4.0
 TOL_SERVED = 1e-12     # served ntp/cuda vs eager ntp, relative per table slice
 TOL_AUTODIFF = 1e-9    # vs nested autodiff: that tower's own rounding
+# Above the templates' orders (N1 >= 10) the plain versions' own rounding
+# grows with the terms they sum (one ulp of s moves the sigmoid's F_8 by
+# ~4.5e-12), so a float64 kernel is held to its plain version within
+# TOL_SCALED times a conditioning scale: per order plane, the largest
+# magnitude of the same computation with the absolute value of every term
+# (abs_sum below; polarization_scale is the same construction for the
+# cross tables).  float32 keeps its drift rule (holds), bfloat16 is held to
+# the float32 plain version on the same inputs within BF16_ULPS units of
+# bfloat16 rounding (8 significant bits) of each plane's largest value.
+TOL_SCALED = 1e-12
+BF16_ULPS = 2
+HIGH_ORDERS = (9, 10, 12, 16)
 # The trunk's cross tables are held relative to the size of the terms the
 # polarization identity sums (see polarization_scale), not to the table's
 # own max: with the init's zero embedding bias, RMSNorm of a token x_t * w
@@ -145,6 +178,16 @@ TRUNK_PER_CALL = {"jet_dense": 16, "act_jet": 0, "jet_rms_norm": 7,
                   "jet_flash_attention": 3}
 TRUNK_AUTODIFF_SIZES = (5, 37)
 FLASH_MASKS = (None, "causal", ("local", 2))
+# the pinn-pde residual and Fourier-feature networks (reference defaults:
+# 16 features, scale 1.0), served with grid(4) and cross((0,0,1,1)); K1
+# launches per engine call: the input layer, one per block and the readout
+# (residual), the trunk MLP's layers (fourier)
+PDE_NETS = {"residual": (dict(d_in=2, width=32, depth=3, d_out=1), 5),
+            "fourier": (dict(d_in=2, width=32, depth=3, d_out=1, n_features=16,
+                             feature_scale=1.0), 4)}
+PDE_REQUESTS = (("grid", 4), ("cross", (0, 0, 1, 1)))
+PDE_AUTODIFF_SIZES = (5, 37)
+DENSE_GRID_ORDER = 10   # the DenseMLP served past the templates (N1 = 11)
 
 # Edge shapes of phase 2 for the tiled kernels, orders 0, 4 and 8 (N1 1, 5,
 # 9), f32 and f64.  K1 (rows, din, dout): rows that are no multiple of a
@@ -157,7 +200,7 @@ DENSE_EDGE_SHAPES = ((1, 2, 32), (77, 1, 32), (1000, 32, 1), (1000, 2, 24),
                      (1000, 128, 128), (4301, 32, 45))
 EDGE_ORDERS = (0, 4, 8)
 FLASH_EDGE_T = {1: 37, 2: 37, 3: 37, 70: 3, 1024: 1}       # T: batch rows
-FLASH_EDGE_DH = ((1, 20), (16, 32), (128, 48))             # (Dh, Dm)
+FLASH_EDGE_DH = ((1, 20), (16, 32), (128, 48), (160, 40), (256, 24))   # (Dh, Dm)
 FLASH_EDGE_MASKS = (None, "causal", ("local", 1), ("local", 5))
 
 # K5 (jet_attention_scores): the reference's test shapes (ragged T, T = 1,
@@ -186,14 +229,26 @@ SCORES_MEMORY_ROW = ((4, 1024, 8), 2)
 TRAINING_SHAPES_TIMED = 8
 
 # Training phases.  Burgers: pinn-mlp (3 x 24 tanh, d_in = d_out = 1, f64)
-# at the paper's 512 domain + 128 origin points.  Operators: pinn-pde.
-BURGERS_KS = (1, 3)
-BURGERS_ADAM, BURGERS_LBFGS = 30, 5
+# at the paper's 512 domain + 128 origin points; k = 4 (u-jet order 10,
+# N1 = 11: the run-time-order K1) with fewer steps, for the time limit, and
+# no autodiff timing (its nested tower at order 10 takes minutes a step).
+# Operators: pinn-pde.
+BURGERS_KS = (1, 3, 4)
+BURGERS_STEPS = {1: (30, 5), 3: (30, 5), 4: (10, 2)}      # k: (Adam, L-BFGS)
+AUTODIFF_TIMED_KS = (1, 3)
+# k = 4's steps launch ~14000 kernels each (the eager backward at order
+# 10), and tracing them took minutes of the time limit (chip run 23): its
+# times are wall and CUDA-event times, with no device-busy split
+PROFILED_KS = (1, 3)
 OPERATOR_ADAM = 20
 OPERATOR_RUNS = (
     ("navier-stokes", "dense", {}),
     ("heat", "transformer", {"n_heads": 2, "mlp_ratio": 2}),
+    ("navier-stokes", "residual", {}),
+    ("navier-stokes", "fourier", {}),
 )
+# K1 timed at the Burgers k = 4 layer shapes (N1, rows, din, dout)
+BURGERS_K4_SHAPES = ((11, 512, 24, 24), (11, 128, 24, 24))
 # ntp/cuda vs eager ntp training from the same init and draws, relative per
 # logged loss (and lambda): both run the reference's Adam, which rounds the
 # float64 parameters through float32 each step, so one float32 rounding
@@ -271,7 +326,10 @@ def nvidia_smi_line() -> str:
 
 KERNEL_SYMBOLS = ("jet_dense_kernel", "act_jet_kernel", "jet_rms_norm_kernel",
                   "jet_flash_attention_short_kernel", "jet_flash_attention_long_kernel",
-                  "jet_attention_scores_kernel")
+                  "jet_attention_scores_kernel", "jet_dense_rt_kernel", "act_jet_rt_kernel",
+                  "jet_rms_norm_rt_kernel", "jet_flash_attention_rt_kernel",
+                  "jet_attention_scores_rt_kernel")
+DTYPE_MANGLED = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}
 ACT_NAMES = {0: "none", 1: "tanh", 2: "sigmoid", 3: "sin"}
 
 
@@ -286,13 +344,14 @@ def kernel_resources(build_log: str) -> list[dict]:
     for entry in build_log.split("Compiling entry function '")[1:]:
         mangled = entry.split("'", 1)[0]
         name = next((k for k in KERNEL_SYMBOLS if k + "I" in mangled), None)
-        m = name and re.search(re.escape(name) + r"I([df])((?:L[ib]-?\d+E)*)E", mangled)
+        m = name and re.search(re.escape(name) + r"I(d|f|13__nv_bfloat16)((?:L[ib]-?\d+E)*)E",
+                               mangled)
         if not m:
             continue
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         smem = re.search(r"(\d+) bytes smem", entry)
-        out.append({"kernel": name, "dtype": "f64" if m.group(1) == "d" else "f32",
+        out.append({"kernel": name, "dtype": DTYPE_MANGLED[m.group(1)],
                     "template": [int(v) for v in re.findall(r"L[ib](-?\d+)E", m.group(2))],
                     "registers": int(regs.group(1)) if regs else None,
                     "spill_store_bytes": int(spill.group(1)) if spill else None,
@@ -308,6 +367,10 @@ def print_resources(resources: list[dict]) -> None:
     instantiation."""
     for r in resources:
         n1 = r["template"][0] if r["template"] else None
+        if r["kernel"].endswith("_rt_kernel"):
+            print(f"    {r['kernel']:34s} {r['dtype']} any N1 registers {r['registers']}, "
+                  f"spill {r['spill_store_bytes']}/{r['spill_load_bytes']} bytes")
+            continue
         if r["kernel"] == "jet_attention_scores_kernel":
             if n1 not in (3, 9):
                 continue
@@ -345,6 +408,157 @@ def holds(got, want, plain, args, dt, n: int, what: str) -> float:
                 f"{what}: f32 error vs f64 {e_kernel:.3e}, the plain version's "
                 f"{e_plain:.3e}; allowed {F32_DRIFT:g}x")
     return e
+
+
+# ---------------------------------------------------------------------------
+# conditioning scales: the same computation with the absolute value of
+# every term
+# ---------------------------------------------------------------------------
+
+_ABS_SUM = {}
+
+
+def _abs_sum_class():
+    """A tensor subclass that carries, beside its value, ``mag``: the same
+    computation with every term replaced by its absolute value.  Sums and
+    differences add magnitudes, products multiply them, a quotient divides
+    the numerator's by |denominator|, contractions (einsum, matmul, sum,
+    mean) contract magnitudes, and a function's value enters as its own
+    |value| (tanh, exp, sqrt, ...: its arguments are where its terms
+    were); constants and plain tensors enter as |value|.  Any other
+    floating-point op raises, so nothing passes unscaled."""
+    if "cls" in _ABS_SUM:
+        return _ABS_SUM["cls"]
+    import torch
+
+    linear = {"add", "__add__", "__radd__", "__iadd__", "sub", "__sub__", "__rsub__",
+              "__isub__", "rsub"}
+    products = {"mul", "__mul__", "__rmul__", "__imul__"}
+    quotients = {"div", "__truediv__", "true_divide", "__itruediv__"}
+    functions = {"exp", "tanh", "sin", "cos", "sqrt", "rsqrt", "log", "sigmoid", "pow",
+                 "__pow__", "reciprocal", "full_like", "zeros_like", "ones_like",
+                 "new_zeros", "new_ones", "new_full"}
+    signs = {"neg", "__neg__", "abs", "positive"}
+    same = {"reshape", "view", "movedim", "permute", "transpose", "expand", "repeat",
+            "repeat_interleave", "contiguous", "clone", "squeeze", "unsqueeze", "flatten",
+            "narrow", "select", "__getitem__", "index_select", "stack", "cat", "concat",
+            "chunk", "split", "unbind", "broadcast_to", "to", "detach", "double", "float",
+            "sum", "mean", "einsum", "matmul", "__matmul__", "mm", "bmm", "tensordot",
+            "amax", "where", "expand_as", "reshape_as", "view_as", "__get__"}
+
+    class AbsSum(torch.Tensor):
+        @staticmethod
+        def __new__(cls, value, mag=None):
+            out = torch.Tensor._make_subclass(cls, value)
+            out.mag = value.abs() if mag is None else mag
+            return out
+
+        @classmethod
+        def __torch_function__(cls, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = getattr(func, "__name__", "")
+
+            def val(a):
+                if isinstance(a, AbsSum):
+                    return a.as_subclass(torch.Tensor)
+                if isinstance(a, (list, tuple)):
+                    return type(a)(val(x) for x in a)
+                return a
+
+            def mag(a):
+                if isinstance(a, AbsSum):
+                    return a.mag
+                if isinstance(a, torch.Tensor):
+                    return a.abs() if a.is_floating_point() else a
+                if isinstance(a, (list, tuple)):
+                    return type(a)(mag(x) for x in a)
+                if isinstance(a, (int, float)) and not isinstance(a, bool):
+                    return abs(a)
+                return a
+
+            def floating(t):
+                return isinstance(t, torch.Tensor) and t.is_floating_point()
+
+            with torch._C.DisableTorchFunctionSubclass():
+                if name == "__setitem__":
+                    this, idx, v = args
+                    val(this)[idx] = val(v)
+                    this.mag[idx] = mag(v)
+                    return None
+                out = func(*val(args), **val(kwargs))
+                if not (floating(out) or (isinstance(out, (tuple, list)) and out
+                                          and all(floating(t) for t in out))):
+                    return out
+                if name in linear:
+                    m = mag(args[0]) + mag(args[1])
+                elif name in products:
+                    m = mag(args[0]) * mag(args[1])
+                elif name in quotients:
+                    m = mag(args[0]) / mag(val(args[1]))
+                elif name in ("__rtruediv__", "__rdiv__"):
+                    m = mag(args[1]) / mag(val(args[0]))
+                elif name in signs:
+                    m = mag(args[0])
+                elif name in functions:
+                    m = out.abs()
+                elif name in same:
+                    m = func(*mag(args), **mag(kwargs))
+                else:
+                    raise SmokeFailure(f"abs_sum: no rule for {name}")
+            if isinstance(out, (tuple, list)):
+                return type(out)(AbsSum(o, mo) for o, mo in zip(out, m))
+            return AbsSum(out, m)
+
+    _ABS_SUM["cls"] = AbsSum
+    return AbsSum
+
+
+def abs_sum(fn, *args):
+    """``fn(*args)`` computed with the absolute value of every term (see
+    ``_abs_sum_class``), its floating-point tensor arguments taken as exact
+    inputs: the magnitude that the rounding of any order of evaluation of
+    ``fn`` is relative to."""
+    import torch
+    cls = _abs_sum_class()
+    with torch.no_grad():
+        out = fn(*(cls(a) if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                   for a in args))
+    return out.mag
+
+
+def scaled_err(got, want, scale, keep: int = 1) -> float:
+    """max |got - want| over each slice of the leading ``keep`` axes,
+    relative to the largest ``scale`` in that slice; worst slice."""
+    import torch
+    d = (got.double() - want.double()).abs()
+    lead = tuple(want.shape[:keep])
+    num = d.reshape(lead + (-1,)).amax(-1)
+    den = scale.double().reshape(lead + (-1,)).amax(-1).clamp_min(1e-300)
+    return float((num / den).max()) if num.numel() else 0.0
+
+
+def holds_high(got, plain, args, dt, n: int, what: str) -> float:
+    """A kernel above the templates' orders against its plain version:
+    float64 within TOL_SCALED of the abs-sum conditioning scale, float32
+    by ``holds``.  Returns the gated error."""
+    import torch
+    want = plain(*args)
+    if dt != torch.float64:
+        return holds(got, want, plain, args, dt, n, what)
+    e = scaled_err(got, want, abs_sum(plain, *args))
+    require(e <= TOL_SCALED, f"{what}: error {e:.3e} of the conditioning scale > "
+                             f"{TOL_SCALED:.0e}")
+    return e
+
+
+def bf16_ulps(got, want32) -> float:
+    """max |got - want32| per order plane in units of bfloat16 rounding
+    (2^(e - 7) for a plane whose largest |value| is in [2^e, 2^(e+1)))."""
+    import torch
+    d = (got.float() - want32.float()).abs().reshape(want32.shape[0], -1).amax(-1)
+    top = want32.float().abs().reshape(want32.shape[0], -1).amax(-1).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return float((d / ulp).max())
 
 
 def check_kernels(gen, report: dict) -> dict:
@@ -511,10 +725,27 @@ def check_edge_shapes(gen, report: dict, worst: dict) -> None:
         shapes = [(bsz, 2, t, dh, dm, mask) for t, bsz in FLASH_EDGE_T.items()
                   for dh, dm in FLASH_EDGE_DH for mask in FLASH_EDGE_MASKS]
         orders = {shape: EDGE_ORDERS for shape in shapes}
-        if dt == torch.float64:      # the head count at the shared-memory edge
+        if dt == torch.float64:      # the head count and head dim at the shared-memory edge
             edge = max(h for h in range(1, 64)
                        if flash_smem_bytes(9, h, 70, 128, dt) <= _SMEM_LIMIT)
             orders[(1, edge, 70, 128, 4, None)] = (8,)
+            dh_max = 128
+            while flash_smem_bytes(9, 1, 70, dh_max + 1, dt, 4) <= _SMEM_LIMIT:
+                dh_max += 1
+            orders[(1, 1, 70, dh_max, 4, None)] = (8,)
+            over = torch.zeros((9, 1, 1, 70, dh_max + 1), dtype=dt, device=DEVICE)
+            try:
+                jet_flash_attention_cuda(over, over, over, torch.zeros(
+                    (1, dh_max + 1, 4), dtype=dt, device=DEVICE), 0.1)
+                msg = None
+            except ValueError as exc:
+                msg = str(exc)
+            require(msg is not None and "bytes of shared memory" in msg,
+                    f"jet_flash_attention admitted head dim {dh_max + 1} at order 8 f64, "
+                    f"past the largest that fits ({dh_max})")
+            print(f"  edge jet_flash_attention: largest head dim admitted at f64 order 8 "
+                  f"(T 70, Dm 4): {dh_max}; {dh_max + 1} refused: {msg}")
+            report["flash_head_dim_edge"] = {"largest": dh_max, "refusal": msg}
         for (bsz, heads, t, dh, dm, mask), ns in orders.items():
             kind, window = normalize_attention_mask(mask)
             dense = attention_mask(mask, t, DEVICE)
@@ -548,6 +779,190 @@ def check_edge_shapes(gen, report: dict, worst: dict) -> None:
               f"{r[4]:.2e} (tol {r[5]:.0e})")
     report["edge_checks"] = [dict(zip(("kernel", "dtype", "variant", "shape",
                                        "max_rel_err", "tol"), r)) for r in rows]
+
+
+def _kernel_cases(gen, n: int, dt, served_only: bool = False) -> list:
+    """(name, label, kernel call, plain version, args) for K1-K5 at order
+    ``n``: K2 and K1 at the served DenseMLP layer (n+1, 8192, 32) and the
+    Burgers net's (n+1, 512, 24) -> 24, K3 at the trunk's (n+1, 16384, 32),
+    K4 at the served (n+1, 8192, 2, 2, 16) x (2, 16, 32) and a ragged
+    multi-tile (n+1, 3, 4, 70, 8) x (4, 8, 20) causal, K5 at the memory
+    comparison's (n+1, 4, 256, 8) and a ragged (n+1, 2, 70, 16);
+    ``served_only`` keeps the first shape of each."""
+    import torch
+    from repro_torch.core.modules import attention_mask
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.jet_attention import (jet_attention_scores_cuda,
+                                                   jet_flash_attention_cuda,
+                                                   jet_rms_norm_cuda)
+    from repro_torch.kernels.jet_dense import jet_dense_cuda
+    from repro_torch.kernels.tanh_jet import act_jet_cuda
+
+    def rnd(*shape, scale=0.5):
+        return (scale * torch.randn(shape, generator=gen, device=DEVICE,
+                                    dtype=torch.float64)).to(dt)
+
+    cases = []
+    for rows, din, dout in ((8192, 32, 32), (512, 24, 24))[:1 if served_only else 2]:
+        x, w, b = rnd(n + 1, rows, din), rnd(din, dout, scale=din ** -0.5), rnd(dout, scale=0.1)
+        cases.append(("act_jet", f"({n + 1}, {rows}, {din}) tanh",
+                      lambda x=x: act_jet_cuda(x, "tanh"),
+                      lambda c: ref.act_jet_ref(c, "tanh"), (x,)))
+        cases.append(("jet_dense", f"({n + 1}, {rows}, {din})x({din}, {dout}) tanh",
+                      lambda x=x, w=w, b=b: jet_dense_cuda(x, w, b, "tanh"),
+                      lambda c, ww, bb: ref.jet_dense_ref(c, ww, bb, "tanh"), (x, w, b)))
+    x, g = rnd(n + 1, 16384, 32), 1 + rnd(32, scale=0.2)
+    cases.append(("jet_rms_norm", f"({n + 1}, 16384, 32)",
+                  lambda x=x, g=g: jet_rms_norm_cuda(x, g, 1e-6),
+                  lambda c, gg: ref.jet_rms_norm_ref(c, gg, 1e-6), (x, g)))
+    for bsz, heads, t, dh, dm, mask in ((8192, 2, 2, 16, 32, None),
+                                        (3, 4, 70, 8, 20, "causal"))[:1 if served_only else 2]:
+        q, k, v = (rnd(n + 1, bsz, heads, t, dh) for _ in range(3))
+        wo = rnd(heads, dh, dm, scale=(heads * dh) ** -0.5)
+        dense, scale = attention_mask(mask, t, DEVICE), dh ** -0.5
+        cases.append(("jet_flash_attention",
+                      f"({n + 1}, {bsz}, {heads}, {t}, {dh})x({heads}, {dh}, {dm}) {mask or 'none'}",
+                      lambda q=q, k=k, v=v, wo=wo, mask=mask, scale=scale:
+                      jet_flash_attention_cuda(q, k, v, wo, scale, mask or "none"),
+                      lambda a, bb, c, d, dense=dense, scale=scale:
+                      ref.jet_flash_attention_ref(a, bb, c, d, scale, dense), (q, k, v, wo)))
+    for bsz, t, d in ((4, 256, 8), (2, 70, 16))[:1 if served_only else 2]:
+        q, k = rnd(n + 1, bsz, t, d, scale=0.6), rnd(n + 1, bsz, t, d, scale=0.6)
+        cases.append(("jet_attention_scores", f"({n + 1}, {bsz}, {t}, {d})",
+                      lambda q=q, k=k, d=d: jet_attention_scores_cuda(q, k, d ** -0.5),
+                      lambda a, bb, d=d: ref.jet_attention_scores_ref(a, bb, d ** -0.5),
+                      (q, k)))
+    return cases
+
+
+def check_high_orders(gen, report: dict, worst: dict) -> None:
+    """Phase 2, K1-K5 past the templates (csrc/jet_runtime.cu): orders
+    HIGH_ORDERS at f64 (the TOL_SCALED gate) and f32 (``holds``) at the
+    shapes of ``_kernel_cases``; then bfloat16 at the served shapes,
+    orders 1, 4 and 10, held to the f32 plain version within BF16_ULPS."""
+    import torch
+    rows = []
+    for dt in (torch.float64, torch.float32):
+        for n in HIGH_ORDERS:
+            for name, label, call, plain, args in _kernel_cases(gen, n, dt):
+                got = call()
+                torch.cuda.synchronize()
+                e = holds_high(got, plain, args, dt, n, f"{name} {label} {dt} order {n}")
+                worst[name] = max(worst[name], float((got - plain(*args)).abs().max()))
+                rows.append((name, str(dt), n, label, e))
+    for n in (1, 4, 10):
+        for name, label, call, plain, args in _kernel_cases(gen, n, torch.bfloat16,
+                                                            served_only=True):
+            got = call()
+            torch.cuda.synchronize()
+            require(got.dtype == torch.bfloat16, f"{name} bf16 returned {got.dtype}")
+            e = bf16_ulps(got, plain(*(a.float() for a in args)))
+            require(e <= BF16_ULPS, f"{name} {label} bf16 order {n}: {e:.2f} bf16 ulps of "
+                                    f"the plane max > {BF16_ULPS}")
+            rows.append((name, "torch.bfloat16", n, label, e))
+    for r in rows:
+        unit = "bf16 ulps" if r[1] == "torch.bfloat16" else (
+            "of the scale" if r[1] == "torch.float64" else "rel")
+        print(f"  high/bf16 {r[0]:20s} {r[1]:14s} order {r[2]:2d} {r[3]:44s} err {r[4]:.2e} "
+              f"{unit}")
+    report["high_order_checks"] = [dict(zip(("kernel", "dtype", "order", "shape", "err"), r))
+                                   for r in rows]
+
+
+def check_admitted_orders(gen, report: dict) -> None:
+    """Phase 2, the largest order each wrapper admits at its served shape
+    (float64), and the refusal one order past it, whose message names the
+    bytes.  K3-K5 run at that order on a few rows: outputs finite, and
+    their first 17 planes equal (TOL_SCALED of the scale) the same kernel's
+    order-16 output on the same inputs' first 17 planes, which is exact
+    math (order m of a jet reads inputs of orders <= m).  K1/K2 are not
+    launched there: their epilogue reads the Faa di Bruno table of that
+    order, whose term count grows as the partition numbers (p(453) ~ 1e20)."""
+    import re as _re
+
+    import torch
+    from repro_torch.kernels import jet_attention as ka
+    from repro_torch.kernels import tanh_jet as k2
+    from repro_torch.kernels.jet_attention import (jet_attention_scores_cuda,
+                                                   jet_flash_attention_cuda,
+                                                   jet_rms_norm_cuda)
+    from repro_torch.kernels.jet_dense import jet_dense_cuda
+    from repro_torch.kernels.tanh_jet import act_jet_cuda
+
+    dt, out = torch.float64, {}
+
+    def largest(fits) -> int:
+        n1 = 17
+        while fits(n1 + 1):
+            n1 += 1
+        return n1
+
+    def refused(call, n1) -> str:
+        try:
+            call(n1)
+        except ValueError as exc:
+            msg = str(exc)
+            require(_re.search(r"needs \d+ bytes of shared memory", msg) is not None,
+                    f"refusal names no bytes: {msg}")
+            return msg
+        raise SmokeFailure(f"order {n1 - 1} was admitted, past the largest that fits")
+
+    def rnd(*shape, scale=0.5):
+        return scale * torch.randn(shape, generator=gen, device=DEVICE, dtype=dt)
+
+    def stack(n1, *shape, scale=0.5):
+        """Coefficient planes decaying as 10^-j, so that the jets of the
+        rsqrt and exp recurrences stay finite at every order."""
+        decay = torch.full((n1,), 0.1, dtype=dt, device=DEVICE).cumprod(0) * 10
+        return rnd(n1, *shape, scale=scale) * decay.reshape((n1,) + (1,) * len(shape))
+
+    limits = {
+        "act_jet": largest(lambda n1: k2.runtime_threads(n1, dt)[1] <= k2.SMEM_LIMIT),
+        "jet_rms_norm": largest(lambda n1: ka.runtime_warps(
+            ka.rms_norm_runtime_words(n1), dt)[1] <= ka._SMEM_LIMIT),
+        "jet_flash_attention": largest(lambda n1: ka.flash_smem_bytes(
+            n1, 2, 2, 16, dt, 32) <= ka._SMEM_LIMIT),
+        "jet_attention_scores": largest(lambda n1: ka.runtime_warps(
+            ka.scores_runtime_words(n1, 8), dt)[1] <= ka._SMEM_LIMIT)}
+    limits["jet_dense"] = limits["act_jet"]
+    calls = {
+        "act_jet": lambda n1: act_jet_cuda(torch.zeros((n1, 1, 32), dtype=dt,
+                                                       device=DEVICE), "tanh"),
+        "jet_dense": lambda n1: jet_dense_cuda(
+            torch.zeros((n1, 1, 32), dtype=dt, device=DEVICE),
+            torch.zeros((32, 32), dtype=dt, device=DEVICE),
+            torch.zeros((32,), dtype=dt, device=DEVICE), "tanh")}
+    inputs = {
+        "jet_rms_norm": lambda n1: (stack(n1, 2, 32), 1 + rnd(32, scale=0.2)),
+        "jet_flash_attention": lambda n1: (*(stack(n1, 2, 2, 2, 16) for _ in range(3)),
+                                           rnd(2, 16, 32, scale=32 ** -0.5)),
+        "jet_attention_scores": lambda n1: (stack(n1, 1, 16, 8, scale=0.6),
+                                            stack(n1, 1, 16, 8, scale=0.6))}
+    kernels = {"jet_rms_norm": lambda x, g: jet_rms_norm_cuda(x, g, 1e-6),
+               "jet_flash_attention": lambda q, k, v, wo: jet_flash_attention_cuda(
+                   q, k, v, wo, 0.25),
+               "jet_attention_scores": lambda q, k: jet_attention_scores_cuda(q, k, 8 ** -0.5)}
+    for name, fn in kernels.items():
+        calls[name] = lambda n1, name=name, fn=fn: fn(*inputs[name](n1))
+    for name, n1 in limits.items():
+        msg = refused(calls[name], n1 + 1)
+        entry = {"largest_order": n1 - 1, "refusal": msg}
+        if name in kernels:
+            args = inputs[name](n1)
+            top = kernels[name](*args)
+            low = kernels[name](*(a[:17] if a.shape[0] == n1 else a for a in args))
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(top).all()), f"{name} at order {n1 - 1}: non-finite")
+            e = scaled_err(top[:17], low, low.abs())
+            require(e <= TOL_SCALED, f"{name} at order {n1 - 1}: its first 17 planes "
+                                     f"differ from the order-16 launch by {e:.3e}")
+            entry["first_17_planes_vs_order_16"] = e
+        out[name] = entry
+        print(f"  {name:20s} largest order admitted at the served shape, f64: {n1 - 1}"
+              + (f" (ran; first 17 planes vs order 16: {entry['first_17_planes_vs_order_16']:.1e})"
+                 if name in kernels else " (not launched: see PERF.md)")
+              + f"; order {n1} refused: {msg}")
+    report["admitted_orders"] = out
 
 
 def row_sum_dev(p) -> float:
@@ -946,6 +1361,34 @@ def polarization_scale(engine, net, params, x, axes) -> float:
     return float(terms.max()) / (2 ** m * math.factorial(m))
 
 
+def readout_scale(net, params, x, order: int):
+    """The conditioning scale of the trunk's ``grid(order)`` table, built as
+    ``polarization_scale`` is: the size of the terms the last combination
+    sums.  Per axis, the eager jet is pushed to the input of the readout
+    (the token pool, then the Dense head), which sums its terms; those run
+    through ``abs_sum``, each taken as exact, and scale by m!.  Same shape
+    as the table, (d_in, order+1, N, d_out)."""
+    import torch
+    from repro_torch.core import jet as J
+    from repro_torch.core.modules import Sequential
+
+    mods, ps = net._graph().modules, net._graph_params(params)
+    readout = Sequential(tuple(mods[-2:]))
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    facts = torch.tensor([float(math.factorial(m)) for m in range(order + 1)],
+                         dtype=x.dtype, device=x.device)
+    out = []
+    with torch.no_grad():
+        for a in range(x.shape[-1]):
+            jet = J.seed(x, eye[a].expand_as(x), order)
+            for m, p in zip(mods[:-2], ps[:-2]):
+                jet = m.jet_apply(p, jet, impl="torch")
+            mag = abs_sum(lambda c: readout.jet_apply(tuple(ps[-2:]), J.Jet(c)).coeffs,
+                          jet.coeffs)
+            out.append(mag * facts.reshape((-1,) + (1,) * (mag.ndim - 1)))
+    return torch.stack(out)
+
+
 def serve_trunk(net, params, gen, report: dict) -> dict:
     """Phase 3b: the Transformer trunk served under ntp/cuda."""
     import torch
@@ -970,7 +1413,7 @@ def serve_trunk(net, params, gen, report: dict) -> dict:
                 f"want {n} ({TRUNK_PER_CALL[name]} per engine call)")
 
     worst = {"served_vs_eager": 0.0, "served_vs_autodiff": 0.0,
-             "cross_vs_eager_of_table_max": 0.0}
+             "grid_vs_eager_of_table_max": 0.0, "cross_vs_eager_of_table_max": 0.0}
     by_request = {f"{kind}{req}": {"vs_eager": 0.0, "vs_autodiff": 0.0}
                   for kind, req in REQUESTS}
     for kind, req, n in jobs:
@@ -983,7 +1426,10 @@ def serve_trunk(net, params, gen, report: dict) -> dict:
                 f"served trunk {kind} {req} N={n}: shape {tuple(served.shape)} "
                 f"want {tuple(direct.shape)}, or non-finite values")
         if kind == "grid":
-            e = rel_err(served, direct, 2)
+            gscale = readout_scale(net, params, x, req)
+            e = scaled_err(served, direct, gscale, keep=2)
+            worst["grid_vs_eager_of_table_max"] = max(
+                worst["grid_vs_eager_of_table_max"], rel_err(served, direct, 2))
         else:
             scale = polarization_scale(eager, net, params, x, req)
             e = float((served - direct).abs().max()) / scale
@@ -1001,17 +1447,79 @@ def serve_trunk(net, params, gen, report: dict) -> dict:
             mine["vs_autodiff"] = max(mine["vs_autodiff"], e)
             require(e <= TOL_AUTODIFF,
                     f"served trunk {kind} {req} N={n} vs autodiff: {e:.3e}")
-    print(f"  served trunk tables: {len(jobs)}; worst rel err vs eager ntp "
-          f"{worst['served_vs_eager']:.2e} (tol {TOL_SERVED:.0e}; cross tables "
-          f"relative to the polarization terms, {worst['cross_vs_eager_of_table_max']:.2e} "
-          f"of the table's own max), vs autodiff at N in {TRUNK_AUTODIFF_SIZES} "
-          f"{worst['served_vs_autodiff']:.2e} (tol {TOL_AUTODIFF:.0e})")
+    print(f"  served trunk tables: {len(jobs)}; worst err vs eager ntp "
+          f"{worst['served_vs_eager']:.2e} (tol {TOL_SERVED:.0e}; grid tables relative "
+          f"to the readout's terms, {worst['grid_vs_eager_of_table_max']:.2e} of the "
+          f"table's own max; cross tables relative to the polarization terms, "
+          f"{worst['cross_vs_eager_of_table_max']:.2e} of the table's own max), vs autodiff "
+          f"at N in {TRUNK_AUTODIFF_SIZES} {worst['served_vs_autodiff']:.2e} (tol "
+          f"{TOL_AUTODIFF:.0e})")
     for key, w in by_request.items():
         print(f"    {key}: vs eager {w['vs_eager']:.2e}, vs autodiff "
               f"{w['vs_autodiff']:.2e}")
     report["served_trunk"] = {"launches": launches, "batches": batches,
                               "worst_rel_err": worst, "by_request": by_request,
                               "metrics": metrics}
+    return launches
+
+
+def serve_network(label: str, net, params, requests, per_call: int, autodiff_sizes,
+                  gen, report: dict) -> dict:
+    """Phase 3c-e: ``net`` served under ntp/cuda, ``requests`` at SIZES
+    rows, launch counters zeroed just before and read just after: only K1,
+    ``per_call`` launches per engine call.  Every table against eager
+    ``ntp`` (grid: TOL_SERVED per table slice; cross: relative to the
+    polarization terms) and, at ``autodiff_sizes`` rows, against nested
+    autodiff (TOL_AUTODIFF)."""
+    import torch
+    from repro_torch.core.engines import DerivativeEngine
+    from repro_torch.serving import DerivativeServer
+
+    eager, autodiff = (DerivativeEngine.from_spec(s) for s in ("ntp", "autodiff"))
+    xs = {n: torch.rand((n, net.d_in), generator=gen, device=DEVICE,
+                        dtype=torch.float64) * 2 - 1 for n in SIZES}
+    jobs = [(kind, req, n) for kind, req in requests for n in SIZES]
+    results, launches, metrics = serve_concurrently(
+        {label: DerivativeServer(net, params, "ntp/cuda")}, xs, jobs)
+    batches = metrics[label]["batches"]
+    want = per_call * batches
+    print(f"  launches in the served {label} run: {launches}; engine calls (batches): "
+          f"{batches}; expected jet_dense {want}")
+    require(launches["jet_dense"] == want and sum(launches.values()) == want,
+            f"{label}: launches {launches}, want jet_dense {want} ({per_call} per engine "
+            f"call) and nothing else")
+    worst = {"served_vs_eager": 0.0, "served_vs_autodiff": 0.0}
+    for kind, req, n in jobs:
+        x, served = xs[n], results[(label, kind, req, n)]
+        fn = eager.grid if kind == "grid" else eager.cross
+        with torch.no_grad():
+            direct = fn(net, params, x, req)
+        require(served.shape == direct.shape and bool(torch.isfinite(served).all()),
+                f"served {label} {kind} {req} N={n}: shape {tuple(served.shape)} want "
+                f"{tuple(direct.shape)}, or non-finite values")
+        if kind == "grid":
+            e = rel_err(served, direct, 2)
+        else:
+            scale = polarization_scale(eager, net, params, x, req)
+            e = float((served - direct).abs().max()) / scale
+        worst["served_vs_eager"] = max(worst["served_vs_eager"], e)
+        require(e <= TOL_SERVED, f"served {label} {kind} {req} N={n} vs eager: {e:.3e}")
+        if n in autodiff_sizes:
+            ad = (autodiff.grid if kind == "grid" else autodiff.cross)(
+                net, params, x, req).detach()
+            e = rel_err(served, ad, 2) if kind == "grid" else \
+                float((served - ad).abs().max()) / scale
+            worst["served_vs_autodiff"] = max(worst["served_vs_autodiff"], e)
+            require(e <= TOL_AUTODIFF, f"served {label} {kind} {req} N={n} vs autodiff: "
+                                       f"{e:.3e}")
+    print(f"  served {label} tables: {len(jobs)}; worst err vs eager ntp "
+          f"{worst['served_vs_eager']:.2e} (tol {TOL_SERVED:.0e}; cross relative to the "
+          f"polarization terms)" + (f", vs autodiff at N in {autodiff_sizes} "
+                                   f"{worst['served_vs_autodiff']:.2e} (tol "
+                                   f"{TOL_AUTODIFF:.0e})" if autodiff_sizes else
+                                   ", vs autodiff: not run (order 10 towers)"))
+    report[f"served_{label}"] = {"launches": launches, "batches": batches,
+                                 "worst_rel_err": worst, "metrics": metrics[label]}
     return launches
 
 
@@ -1024,10 +1532,48 @@ def bound_ms(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
+def kernel_cost(name: str, args, n1: int, act: str | None = "tanh") -> tuple[int, int]:
+    """(bytes, operations) of one launch of kernel ``name`` on ``args``:
+    each input read once, the output written once.  Operations: K1 the
+    stacked GEMM, the bias and (with ``act``) the epilogue; K2 the
+    epilogue (``flop_estimate``); K3 the mean-square convolution, rsqrt
+    recurrence and normalizing product; K4 per (query, key) pair the score
+    convolution's N1 (N1+1)/2 D-dot-products and the exp and division
+    recurrences, the value contraction and the projection (no mask: every
+    query keeps all keys); K5 the score convolution and recurrences."""
+    from repro_torch.kernels.bell_tables import flop_estimate
+    item = args[0].element_size()
+    if name == "act_jet":
+        (x,) = args
+        return 2 * x.numel() * item, flop_estimate(n1 - 1, x.shape[1], x.shape[2])
+    if name == "jet_dense":
+        x, w, b = args
+        rows, din, dout = x.shape[1], w.shape[0], w.shape[1]
+        return ((x.numel() + w.numel() + b.numel() + n1 * rows * dout) * item,
+                2 * n1 * rows * din * dout + rows * dout
+                + (flop_estimate(n1 - 1, rows, dout) if act else 0))
+    if name == "jet_rms_norm":
+        x, g = args
+        rows, width = x.shape[1], x.shape[2]
+        return ((2 * x.numel() + g.numel()) * item,
+                rows * width * (2 * n1 * (n1 + 1) + n1) + rows * n1 * n1)
+    if name == "jet_flash_attention":
+        q, k, v, wo = args
+        rows, heads, t, dh = q.shape[1:]
+        dm = wo.shape[-1]
+        pairs = rows * heads * t * t
+        return ((3 * q.numel() + wo.numel() + n1 * rows * t * dm) * item,
+                pairs * (2 * n1 * (n1 + 1) * dh + 2 * n1 * n1)
+                + rows * heads * t * n1 * n1 * dh + rows * t * n1 * 2 * heads * dh * dm)
+    q, k = args
+    bsz, t, d = q.shape[1:]
+    return ((2 * q.numel() + n1 * bsz * t * t) * item,
+            bsz * t * t * (n1 * (n1 + 1) * d + 2 * n1 * n1))
+
+
 def time_kernels(net, params, gen, report: dict) -> dict:
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bell_tables import flop_estimate
     from repro_torch.kernels.jet_dense import jet_dense_cuda
     from repro_torch.kernels.tanh_jet import act_jet_cuda
 
@@ -1040,7 +1586,6 @@ def time_kernels(net, params, gen, report: dict) -> dict:
         x = 0.5 * torch.randn((n1, rows, width), generator=gen, device=DEVICE,
                               dtype=torch.float64)
         w, b = params.w_hidden[0], params.b_hidden[0]
-        item = x.element_size()
         k1, k1_host = device_time_ms(lambda: jet_dense_cuda(x, w, b, "tanh"), 100)
         k1_plain, _ = device_time_ms(lambda: ref.jet_dense_ref(x, w, b, "tanh"), 3)
         xf = x.reshape(n1 * rows, width)
@@ -1051,11 +1596,8 @@ def time_kernels(net, params, gen, report: dict) -> dict:
         copy, _ = device_time_ms(lambda: x.clone(), 100)
         k2, k2_host = device_time_ms(lambda: act_jet_cuda(x, "tanh"), 100)
         k2_plain, _ = device_time_ms(lambda: ref.act_jet_ref(x, "tanh"), 3)
-        k1_bytes = (x.numel() + w.numel() + b.numel() + n1 * rows * width) * item
-        k1_flops = 2 * n1 * rows * width * width + rows * width \
-            + flop_estimate(n1 - 1, rows, width)
-        k2_bytes = 2 * x.numel() * item
-        k2_flops = flop_estimate(n1 - 1, rows, width)
+        k1_bytes, k1_flops = kernel_cost("jet_dense", (x, w, b), n1)
+        k2_bytes, k2_flops = kernel_cost("act_jet", (x,), n1)
         k1_bound = bound_ms(k1_bytes, k1_flops, str(x.dtype))
         k2_bound = bound_ms(k2_bytes, k2_flops, str(x.dtype))
         err1 = float((jet_dense_cuda(x, w, b, "tanh")
@@ -1190,7 +1732,6 @@ def time_trunk_kernels(gen, report: dict) -> dict:
 
     n1, rows, width, heads = 5, 16 * 512, TRUNK["width"], TRUNK["n_heads"]
     dh, t, dt = width // heads, TRUNK["d_in"], torch.float64
-    item = torch.empty((), dtype=dt).element_size()
     out = {}
 
     x = 0.5 * torch.randn((n1, rows * t, width), generator=gen, device=DEVICE,
@@ -1201,8 +1742,7 @@ def time_trunk_kernels(gen, report: dict) -> dict:
     plain = graph_time_ms(lambda: ref.jet_rms_norm_ref(x, g, 1e-6))
     lib, _ = device_time_ms(lambda: F.rms_norm(x[0], (width,), g, 1e-6), 100,
                             what="F.rms_norm")
-    nbytes = (2 * x.numel() + g.numel()) * item
-    flops = rows * t * width * (2 * n1 * (n1 + 1) + n1) + rows * t * n1 * n1
+    nbytes, flops = kernel_cost("jet_rms_norm", (x, g), n1)
     bound = bound_ms(nbytes, flops, str(dt))
     err = float((jet_rms_norm_cuda(x, g, 1e-6) - ref.jet_rms_norm_ref(x, g, 1e-6))
                 .abs().max())
@@ -1228,12 +1768,7 @@ def time_trunk_kernels(gen, report: dict) -> dict:
         what="jet_flash_attention")
     plain = graph_time_ms(lambda: ref.jet_flash_attention_ref(q, k, v, wo, scale))
     lib = event_time_ms(library_order0)
-    nbytes = (3 * q.numel() + wo.numel() + n1 * rows * t * width) * item
-    # no mask: every query keeps all T keys
-    pairs = rows * heads * t * t
-    flops = (pairs * (2 * n1 * (n1 + 1) * dh + 2 * n1 * n1)
-             + rows * heads * t * n1 * n1 * dh
-             + rows * t * n1 * 2 * heads * dh * width)
+    nbytes, flops = kernel_cost("jet_flash_attention", (q, k, v, wo), n1)
     bound = bound_ms(nbytes, flops, str(dt))
     err = float((jet_flash_attention_cuda(q, k, v, wo, scale)
                  - ref.jet_flash_attention_ref(q, k, v, wo, scale)).abs().max())
@@ -1255,10 +1790,7 @@ def time_trunk_kernels(gen, report: dict) -> dict:
     ms, host = device_time_ms(lambda: jet_flash_attention_cuda(qm, km, vm, wm, sm), 20,
                               what="jet_flash_attention memory row")
     plain = graph_time_ms(lambda: ref.jet_flash_attention_ref(qm, km, vm, wm, sm), reps=5)
-    nbytes = (3 * qm.numel() + wm.numel() + n1m * bm * tm * dmm) * 4
-    pairs = bm * hm * tm * tm
-    flops = (pairs * (2 * n1m * (n1m + 1) * dhm + 2 * n1m * n1m)
-             + bm * hm * tm * n1m * n1m * dhm + bm * tm * n1m * 2 * hm * dhm * dmm)
+    nbytes, flops = kernel_cost("jet_flash_attention", (qm, km, vm, wm), n1m)
     bound = bound_ms(nbytes, flops, "torch.float32")
     out["jet_flash_attention_memory_row"] = {
         "shape": list(qm.shape), "wo": list(wm.shape), "dtype": "torch.float32",
@@ -1340,7 +1872,6 @@ def time_scores_kernel(gen, report: dict) -> dict:
              for order in SCORES_TIMED_ORDERS]
     cases.append((torch.float32,) + SCORES_MEMORY_ROW)
     for dt, (bsz, t, d), order in cases:
-        item = torch.empty((), dtype=dt).element_size()
         scale = d ** -0.5
         n1 = order + 1
         q, k = (0.6 * torch.randn((n1, bsz, t, d), generator=gen, device=DEVICE,
@@ -1351,11 +1882,7 @@ def time_scores_kernel(gen, report: dict) -> dict:
         lib, _ = device_time_ms(
             lambda: torch.softmax(scale * q[0] @ k[0].transpose(-1, -2), dim=-1),
             20, what="order-0 softmax")
-        nbytes = (2 * q.numel() + n1 * bsz * t * t) * item
-        # per (query, key) pair: the Cauchy terms of the score convolution
-        # (N1 (N1+1)/2 products of D-dot-products, 2 flops each) and the
-        # exp and division recurrences
-        flops = bsz * t * t * (n1 * (n1 + 1) * d + 2 * n1 * n1)
+        nbytes, flops = kernel_cost("jet_attention_scores", (q, k), n1)
         bound = bound_ms(nbytes, flops, str(dt))
         got = jet_attention_scores_cuda(q, k, scale)
         want = ref.jet_attention_scores_ref(q, k, scale)
@@ -1560,7 +2087,6 @@ def time_training_shapes(counts: dict, gen, report: dict) -> dict:
     launched most, beside its plain version and its bound."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bell_tables import flop_estimate
     from repro_torch.kernels.jet_dense import jet_dense_cuda
 
     out = {}
@@ -1575,10 +2101,7 @@ def time_training_shapes(counts: dict, gen, report: dict) -> dict:
         # graph replay: at order 8 the plain version enqueues more kernels
         # than the launch queue holds
         plain = graph_time_ms(lambda: ref.jet_dense_ref(x, w, b, act), reps=5)
-        item = x.element_size()
-        nbytes = (x.numel() + w.numel() + b.numel() + n1 * rows * dout) * item
-        flops = 2 * n1 * rows * din * dout + rows * dout \
-            + (flop_estimate(n1 - 1, rows, dout) if act else 0)
+        nbytes, flops = kernel_cost("jet_dense", (x, w, b), n1, act)
         bound = bound_ms(nbytes, flops, str(dt))
         key = f"({n1}, {rows}, {din})x({din}, {dout}) {act} {dtype}"
         out[key] = {"launches_in_training": launches, "ms": ms, "host_ms": host,
@@ -1588,6 +2111,60 @@ def time_training_shapes(counts: dict, gen, report: dict) -> dict:
               f"{bound[0] * 1e3:.2f} us by {bound[1]}; host dispatch {host * 1e3:.2f} us); "
               f"{launches} launches in phases 5-6")
     report["training_shape_times"] = out
+    return out
+
+
+def time_new_instantiations(gen, report: dict) -> dict:
+    """Phase 7b: the run-time-order kernels (csrc/jet_runtime.cu), device
+    time by CUDA events with the host off the clock and L2 warm
+    (``device_time_ms``), beside the plain version (graph replay) and the
+    bound: K1 at the Burgers k = 4 layer shapes (f64, tanh); K1-K5 at
+    orders 10 and 16 at the served shapes of ``_kernel_cases`` (K5 at
+    (n+1, 4, 1024, 8) as phase 4 times it); each kernel on bfloat16 at its
+    served order-4 shape (K5 at the memory rows' order 2)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.jet_attention import jet_attention_scores_cuda
+    from repro_torch.kernels.jet_dense import jet_dense_cuda
+
+    cases = []
+    for n1, rows, din, dout in BURGERS_K4_SHAPES:
+        x = 0.5 * torch.randn((n1, rows, din), generator=gen, device=DEVICE,
+                              dtype=torch.float64)
+        w = torch.randn((din, dout), generator=gen, device=DEVICE,
+                        dtype=torch.float64) / din ** 0.5
+        b = 0.1 * torch.randn((dout,), generator=gen, device=DEVICE, dtype=torch.float64)
+        cases.append(("jet_dense", f"burgers k=4 ({n1}, {rows}, {din})x({din}, {dout}) tanh "
+                                   f"torch.float64",
+                      lambda x=x, w=w, b=b: jet_dense_cuda(x, w, b, "tanh"),
+                      lambda c, ww, bb: ref.jet_dense_ref(c, ww, bb, "tanh"), (x, w, b)))
+    for dt, orders in ((torch.float64, (10, 16)), (torch.bfloat16, (4,))):
+        for n in orders:
+            for name, label, call, plain, args in _kernel_cases(gen, n, dt, served_only=True):
+                if name != "jet_attention_scores":
+                    cases.append((name, f"{label} {dt}", call, plain, args))
+            n5 = n if dt == torch.float64 else SCORES_MEMORY_ROW[1]
+            bsz, t, d = SCORES_TIMED[-1]
+            q, k = ((0.6 * torch.randn((n5 + 1, bsz, t, d), generator=gen, device=DEVICE,
+                                       dtype=torch.float64)).to(dt) for _ in range(2))
+            cases.append(("jet_attention_scores", f"({n5 + 1}, {bsz}, {t}, {d}) {dt}",
+                          lambda q=q, k=k, d=d: jet_attention_scores_cuda(q, k, d ** -0.5),
+                          lambda a, bb, d=d: ref.jet_attention_scores_ref(a, bb, d ** -0.5),
+                          (q, k)))
+    out = {}
+    for name, label, call, plain, args in cases:
+        n1 = args[0].shape[0]
+        ms, host = device_time_ms(call, 20, what=f"{name} {label}")
+        plain_ms = graph_time_ms(lambda: plain(*args), reps=3)
+        nbytes, flops = kernel_cost(name, args, n1)
+        dtype = str(args[0].dtype)
+        bound = bound_ms(nbytes, flops, dtype)
+        out.setdefault(name, {})[label] = {
+            "ms": ms, "host_ms": host, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "bytes": nbytes, "flops": flops}
+        print(f"  {name} {label}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound "
+              f"{bound[0] * 1e3:.2f} us by {bound[1]}; host dispatch {host * 1e3:.2f} us)")
+    report["runtime_kernel_times"] = out
     return out
 
 
@@ -1660,10 +2237,11 @@ def time_steps(step, reps: int, profiled: bool = True) -> dict:
     return out
 
 
-def step_times(loss_fn, ps, batch, spec: str, lr: float) -> dict:
+def step_times(loss_fn, ps, batch, spec: str, lr: float, profiled: bool = True) -> dict:
     """Times of one Adam step of ``loss_fn`` from ``ps`` and of its forward
     alone (the loss under autograd, no backward): the rest of a step is the
-    eager backward and the update."""
+    eager backward and the update.  ``profiled`` adds the device-busy
+    split (never for autodiff: its traces run to millions of events)."""
     import torch
     from repro_torch.optim import adam_init
     from repro_torch.pinn.trainer import adam_step
@@ -1680,7 +2258,7 @@ def step_times(loss_fn, ps, batch, spec: str, lr: float) -> dict:
         return loss_fn(unflatten(ps, ls), *batch)
 
     reps = TIMED_STEPS[spec]
-    profiled = spec != "autodiff"      # its traces run to millions of events
+    profiled = profiled and spec != "autodiff"
     out = {"adam_step": time_steps(step, reps, profiled),
            "forward": time_steps(forward, reps, profiled)}
     torch.cuda.synchronize()
@@ -1699,12 +2277,13 @@ def _losses_agree(got, want, what: str) -> float:
 
 
 def train_burgers(seed: int, report: dict) -> dict:
-    """Phase 5: Burgers profiles k = 1 and 3 on pinn-mlp (3 x 24 tanh, f64)
-    at 512 domain + 128 origin points, BURGERS_ADAM Adam steps and
-    BURGERS_LBFGS L-BFGS iterations under ntp/cuda and eager ntp from the
-    same init and draws; launch counts zeroed just before each ntp/cuda run
-    and read just after.  Then times per Adam step and per L-BFGS iteration
-    for ntp/cuda, ntp and (a few steps) autodiff."""
+    """Phase 5: Burgers profiles k in BURGERS_KS on pinn-mlp (3 x 24 tanh,
+    f64) at 512 domain + 128 origin points, BURGERS_STEPS Adam steps and
+    L-BFGS iterations under ntp/cuda and eager ntp from the same init and
+    draws; launch counts zeroed just before each ntp/cuda run and read just
+    after, returned by path (k = 4, order 10, apart).  Then times per Adam
+    step and per L-BFGS iteration for ntp/cuda, ntp and (a few steps, k in
+    AUTODIFF_TIMED_KS) autodiff."""
     import dataclasses
 
     import torch
@@ -1716,10 +2295,12 @@ def train_burgers(seed: int, report: dict) -> dict:
     from repro_torch.pinn.trainer import (PINNRunConfig, burgers_loss_fn, train,
                                           value_and_grad)
 
-    out, total = {}, {name: 0 for name in KERNEL_NAMES}
+    out = {}
+    total = {path: {name: 0 for name in KERNEL_NAMES}
+             for path in ("burgers_training", "burgers_k4")}
     for k in BURGERS_KS:
-        cfg = PINNRunConfig(k=k, adam_steps=BURGERS_ADAM, lbfgs_steps=BURGERS_LBFGS,
-                            log_every=1, seed=seed)
+        cfg = PINNRunConfig(k=k, adam_steps=BURGERS_STEPS[k][0],
+                            lbfgs_steps=BURGERS_STEPS[k][1], log_every=1, seed=seed)
         runs = {}
         for spec in ("ntp/cuda", "ntp"):
             ops.reset_launch_counts()
@@ -1746,7 +2327,7 @@ def train_burgers(seed: int, report: dict) -> dict:
             require(toward, f"burgers k=1: lambda {lam0} -> {res.lam} did not move "
                             f"toward {res.target_lam}")
         for name in KERNEL_NAMES:
-            total[name] += launches[name]
+            total["burgers_k4" if k == 4 else "burgers_training"][name] += launches[name]
         lbfgs_iters = len(res.loss_history) - cfg.adam_steps - 1
 
         # times, from the same init and points as the run
@@ -1759,24 +2340,26 @@ def train_burgers(seed: int, report: dict) -> dict:
                 uniform_grid(-cfg.origin_radius, cfg.origin_radius, cfg.n_origin,
                              torch.float64, DEVICE))
         times = {}
-        for spec in ("ntp/cuda", "ntp", "autodiff"):
+        for spec in ("ntp/cuda", "ntp") + (("autodiff",) if k in AUTODIFF_TIMED_KS else ()):
             loss_fn = burgers_loss_fn(dataclasses.replace(cfg, engine=spec))
-            times[spec] = step_times(loss_fn, ps, batch, spec, cfg.adam_lr)
+            times[spec] = step_times(loss_fn, ps, batch, spec, cfg.adam_lr,
+                                     k in PROFILED_KS)
             if spec != "autodiff":
                 def vg(p, loss_fn=loss_fn):
                     (loss, _), grads = value_and_grad(loss_fn, p, *grid)
                     return loss, grads
                 n_it = 3          # iterations per timed call: per-iteration numbers below
-                li = time_steps(lambda: lbfgs(vg, ps, steps=n_it), 1)
+                li = time_steps(lambda: lbfgs(vg, ps, steps=n_it), 1, k in PROFILED_KS)
                 li["wall_ms"] /= n_it
                 li["event_ms"] /= n_it
-                if li["profile"]:
+                if li.get("profile"):
                     li["profile"]["busy_ms"] /= n_it
                     li["profile"]["kernels_per_call"] /= n_it
                     li["profile"]["by_kernel_ms"] = {
                         name: v / n_it for name, v in li["profile"]["by_kernel_ms"].items()}
                 times[spec]["lbfgs_iteration"] = li
-        ratio = times["autodiff"]["adam_step"]["wall_ms"] / times["ntp/cuda"]["adam_step"]["wall_ms"]
+        ratio = (times["autodiff"]["adam_step"]["wall_ms"]
+                 / times["ntp/cuda"]["adam_step"]["wall_ms"]) if "autodiff" in times else None
         out[f"k={k}"] = {
             "order": res.order, "lambda": res.lam, "lambda0": lam0,
             "target_lambda": res.target_lam, "lambda_moved_toward_target": toward,
@@ -1808,14 +2391,16 @@ def train_burgers(seed: int, report: dict) -> dict:
                 li = tm["lbfgs_iteration"]
                 line += f"; L-BFGS iteration wall {li['wall_ms']:.2f} ms, events {li['event_ms']:.2f} ms"
             print(line)
-        print(f"    autodiff / ntp/cuda per Adam step (wall): {ratio:.1f}x")
+        print("    autodiff / ntp/cuda per Adam step (wall): "
+              + (f"{ratio:.1f}x" if ratio else "not measured (order-10 towers)"))
     report["burgers_training"] = out
     return total
 
 
 def train_operators(seed: int, report: dict) -> dict:
     """Phase 6: OPERATOR_ADAM Adam steps of navier-stokes on the pinn-pde
-    DenseMLP and of heat on the pinn-pde Transformer trunk (n_domain 1024),
+    DenseMLP, ResidualMLP and FourierFeatureMLP and of heat on the pinn-pde
+    Transformer trunk (n_domain 1024),
     under ntp/cuda and eager ntp from the same init and draws; launch counts
     zeroed just before each ntp/cuda run and read just after."""
     import dataclasses
@@ -1828,6 +2413,7 @@ def train_operators(seed: int, report: dict) -> dict:
                                           operator_loss_fn, train_operator)
 
     per_call = {"dense": {"jet_dense": 4},
+                **{kind: {"jet_dense": n} for kind, (_, n) in PDE_NETS.items()},
                 "transformer": {name: n for name, n in TRUNK_PER_CALL.items() if n}}
     out, total = {}, {name: 0 for name in KERNEL_NAMES}
     for op_name, network, net_kwargs in OPERATOR_RUNS:
@@ -1922,7 +2508,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.core.network import DenseMLP, Transformer
+    from repro_torch.core.network import DenseMLP, Transformer, make_network
     from repro_torch.kernels import cuda_lib
 
     report: dict = {"seed": args.seed}
@@ -1975,6 +2561,12 @@ def main(argv=None) -> int:
     phase("2d", "K5's path: the memory rows of memory_scaling._attention_rows "
                 "(order 2, B 2, H 2, Dh 8, Dm 16, f32) through the public ops")
     memory_launches = memory_rows(gen, report)
+    phase("2e", f"K1-K5 past the templates (orders {HIGH_ORDERS}, f64 and f32), on bfloat16, "
+                f"and the largest order each admits")
+    # from their own generator, like the edges: the later phases keep their inputs
+    check_high_orders(torch.Generator(device=DEVICE).manual_seed(args.seed + 3), report,
+                      worst)
+    check_admitted_orders(torch.Generator(device=DEVICE).manual_seed(args.seed + 3), report)
 
     net = DenseMLP(d_in=2, width=32, depth=3, d_out=1, activation="tanh")
     params = net.init(torch.Generator().manual_seed(args.seed), dtype=torch.float64)
@@ -1986,6 +2578,20 @@ def main(argv=None) -> int:
     phase("3b", "served main path: pinn-pde Transformer(2, 32, 3, 1, 2 heads, "
                 "mlp_ratio 2, tanh) f64, ntp/cuda")
     trunk_launches = serve_trunk(trunk, trunk_params, gen, report)
+    new_paths, gen3 = {}, torch.Generator(device=DEVICE).manual_seed(args.seed + 4)
+    for label, (kwargs, per_call) in PDE_NETS.items():
+        pde_net = make_network(label, activation="tanh", **kwargs)
+        phase(f"3{'c' if label == 'residual' else 'd'}",
+              f"served: pinn-pde {type(pde_net).__name__}({kwargs}) f64, ntp/cuda")
+        pde_params = pde_net.init(torch.Generator().manual_seed(args.seed),
+                                  dtype=torch.float64)
+        new_paths[f"{label}_mlp"] = serve_network(label, pde_net, pde_params, PDE_REQUESTS,
+                                                  per_call, PDE_AUTODIFF_SIZES, gen3, report)
+    phase("3e", f"served: pinn-pde DenseMLP grid({DENSE_GRID_ORDER}) f64, ntp/cuda (N1 = "
+                f"{DENSE_GRID_ORDER + 1}: the run-time-order K1)")
+    new_paths["dense_grid10"] = serve_network("dense_grid10", net, params,
+                                              (("grid", DENSE_GRID_ORDER),), 4, (), gen3,
+                                              report)
 
     phase("4", "times (CUDA events, warm L2, back-to-back device work)")
     times = time_kernels(net, params, gen, report)
@@ -1997,8 +2603,7 @@ def main(argv=None) -> int:
     trace_trunk_cross(trunk, trunk_params, gen, report, other)
 
     phase("5", f"Burgers training, pinn-mlp (3 x 24 tanh) f64, 512 + 128 points, "
-               f"k in {BURGERS_KS}: {BURGERS_ADAM} Adam + {BURGERS_LBFGS} L-BFGS, "
-               f"ntp/cuda vs ntp")
+               f"k: (Adam, L-BFGS) {BURGERS_STEPS}, ntp/cuda vs ntp")
     with ShapeRecorder() as shapes:
         burgers_launches = train_burgers(args.seed, report)
         phase("6", f"operator training, pinn-pde, n_domain 1024: {OPERATOR_ADAM} Adam "
@@ -2006,6 +2611,10 @@ def main(argv=None) -> int:
         operator_launches = train_operators(args.seed, report)
     phase("7", "K1 jet_dense at the shapes the training phases launched it")
     training_times = time_training_shapes(shapes.counts, gen, report)
+    phase("7b", "the run-time-order kernels: K1 at the Burgers k = 4 shapes, K1-K5 at "
+                "orders 10 and 16 and on bfloat16")
+    runtime_times = time_new_instantiations(
+        torch.Generator(device=DEVICE).manual_seed(args.seed + 5), report)
     if other is not None:
         phase("8", f"K1, K2, K4 and K5 of {args.against} (other) against this tree's, "
                    f"in turns")
@@ -2013,8 +2622,8 @@ def main(argv=None) -> int:
     phase("", "")
 
     paths = {"dense_mlp": launches, "transformer": trunk_launches,
-             "scores_memory": memory_launches, "burgers_training": burgers_launches,
-             "operator_training": operator_launches}
+             "scores_memory": memory_launches, **burgers_launches,
+             "operator_training": operator_launches, **new_paths}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -2087,6 +2696,10 @@ def main(argv=None) -> int:
         "other_shapes": {key: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_order0_ms")}
                          for key, v in scores_times.items()}})
+    for k in kernels:      # the run-time-order kernel of each (phase 7b)
+        k["runtime_shapes"] = {label: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                          "bound_by")}
+                               for label, v in runtime_times.get(k["name"], {}).items()}
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -8,8 +8,9 @@ Wider than the paper's 3x24 Burgers net because the 2-D manufactured
 solutions carry more structure.  The training-side knobs live on
 ``repro_torch.pinn.OperatorRunConfig``: ``engine`` takes a derivative-engine
 spec ("ntp", "ntp/cuda", "autodiff") and ``network`` a registered
-architecture built on the jet-module layer ("dense", "mlp", "transformer"
--- see ``repro_torch.core.network``); transformer extras ride
+architecture built on the jet-module layer ("dense", "mlp", "residual",
+"fourier", "transformer" -- see ``repro_torch.core.network``); transformer
+extras ride
 ``net_kwargs`` (``{"n_heads": 2, "mlp_ratio": 2, "mask": None}``; ``mask``
 accepts ``None``/"none", ``"causal"``, or ``("local", W)`` and flows to
 ``SelfAttention`` -- every variant runs through the same single-launch

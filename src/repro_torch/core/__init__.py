@@ -5,11 +5,13 @@ from . import jet, modules
 from .activations import TAYLOR_STACKS, tanh_taylor_stack
 from .engines import AutodiffEngine, DerivativeEngine, EngineSpec, NTPEngine
 from .jet import Jet
-from .modules import (Activation, CoordinateEmbedding, Dense, MLPBlock,
-                      Module, Residual, RMSNorm, SelfAttention, Sequential,
-                      TokenPool, make_module, module_names, register_module)
-from .network import (DenseMLP, MLP, Network, Transformer, make_network,
-                      network_names, register_network)
+from .modules import (Activation, CoordinateEmbedding, Dense, FourierFeatures,
+                      MLPBlock, Module, Residual, RMSNorm, SelfAttention,
+                      Sequential, TokenPool, make_module, module_names,
+                      register_module)
+from .network import (DenseMLP, FourierFeatureMLP, MLP, Network, ResidualMLP,
+                      Transformer, make_network, network_names,
+                      register_network)
 from .ntp import (MLPParams, cross, init_mlp, mlp_apply, ntp_derivatives,
                   ntp_forward, ntp_grid, ntp_jet)
 from .partitions import (bell_number, faa_di_bruno_table, partition_count,
@@ -18,10 +20,11 @@ from .partitions import (bell_number, faa_di_bruno_table, partition_count,
 __all__ = [
     "jet", "Jet", "modules", "TAYLOR_STACKS", "tanh_taylor_stack",
     "AutodiffEngine", "DerivativeEngine", "EngineSpec", "NTPEngine",
-    "Activation", "CoordinateEmbedding", "Dense", "MLPBlock", "Module",
-    "Residual", "RMSNorm", "SelfAttention", "Sequential", "TokenPool",
+    "Activation", "CoordinateEmbedding", "Dense", "FourierFeatures", "MLPBlock",
+    "Module", "Residual", "RMSNorm", "SelfAttention", "Sequential", "TokenPool",
     "make_module", "module_names", "register_module",
-    "DenseMLP", "MLP", "Network", "Transformer", "make_network",
+    "DenseMLP", "FourierFeatureMLP", "MLP", "Network", "ResidualMLP",
+    "Transformer", "make_network",
     "network_names", "register_network",
     "MLPParams", "cross", "init_mlp", "mlp_apply", "ntp_derivatives",
     "ntp_forward", "ntp_grid", "ntp_jet",

@@ -12,10 +12,9 @@ constants:
   contraction (core/partitions.py) with closed-form outer coefficients
   (core/activations.py).
 
-This is the part of the reference algebra that the dense path, the
-activations and the transformer trunk reach (softmax, rms_norm and the
-power-series recurrences under them); ``log`` and ``layer_norm`` are not
-ported yet.
+It is the reference algebra (``repro.core.jet``) op for op: the dense
+path, the activations, the transformer trunk (softmax, rms_norm and the
+power-series recurrences under them), ``log`` and ``layer_norm``.
 """
 
 from __future__ import annotations
@@ -264,6 +263,19 @@ def exp(a: Jet) -> Jet:
     return Jet(torch.stack(rows))
 
 
+def log(a: Jet) -> Jet:
+    """l_0 = log a_0;  l_k = (a_k - (1/k) sum_{j=1..k-1} j l_j a_{k-j}) / a_0."""
+    n = a.order
+    inv0 = 1.0 / a.coeffs[0]
+    rows = [torch.log(a.coeffs[0])]
+    for k in range(1, n + 1):
+        acc = a.coeffs[k]
+        for j in range(1, k):
+            acc = acc - (j / k) * rows[j] * a.coeffs[k - j]
+        rows.append(acc * inv0)
+    return Jet(torch.stack(rows))
+
+
 def div(a: JetLike, b: JetLike) -> Jet:
     """c_k = (a_k - sum_{j=1..k} b_j c_{k-j}) / b_0."""
     a, b = _promote(a, b)
@@ -410,3 +422,13 @@ def rms_norm(x: Jet, gamma: torch.Tensor, eps: float = 1e-6,
     ms = reduce_mean(mul(x, x), axis=axis, keepdims=True)
     inv = rsqrt(add(ms, eps))
     return scale(mul(x, inv), (offset + gamma))
+
+
+def layer_norm(x: Jet, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5,
+               axis: int = -1) -> Jet:
+    mu = reduce_mean(x, axis=axis, keepdims=True)
+    xc = sub(x, mu)
+    var = reduce_mean(mul(xc, xc), axis=axis, keepdims=True)
+    y = mul(xc, rsqrt(add(var, eps)))
+    y = scale(y, gamma)
+    return add(y, const(beta, x.order, like=x))

@@ -6,7 +6,8 @@ A :class:`Module` is the smallest jet-traceable unit -- ``init`` / ``apply``
 
 * **leaves** own parameters and the jet rules for one operation --
   :class:`Dense` (with the fused ``jet_dense`` kernel path),
-  :class:`Activation`, and the transformer trunk's :class:`RMSNorm`,
+  :class:`Activation`, :class:`FourierFeatures`, and the transformer
+  trunk's :class:`RMSNorm`,
   :class:`SelfAttention`, :class:`MLPBlock`, :class:`CoordinateEmbedding`
   and :class:`TokenPool`;
 * **combinators** own structure only -- :class:`Sequential` (params are a
@@ -190,6 +191,46 @@ class Activation(Module):
             from repro_torch.kernels import ops as kops
             return J.Jet(kops.act_jet(jet.coeffs, self.name))
         return J.activation(jet, self.name)
+
+
+@dataclass(frozen=True)
+class FourierFeatures(Module):
+    """``gamma(x) = [sin(2pi B x), cos(2pi B x)]`` with fixed Gaussian ``B``
+    (Tancik et al. 2020).  Params are the bare ``B`` tensor, excluded from
+    gradients (``detach``, the reference's stop_gradient); the jet is exact
+    (``sin`` through Faa di Bruno, ``cos z = sin(z + pi/2)`` reusing the same
+    table).  The embedding stays jet algebra under either impl, as in the
+    reference."""
+
+    d_in: int
+    n_features: int
+    scale: float = 1.0
+
+    @property
+    def d_out(self) -> int:
+        return 2 * self.n_features
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None) -> Params:
+        device = resolve_device(device)
+        b = torch.randn((self.d_in, self.n_features), generator=generator,
+                        dtype=dtype)
+        return (self.scale * b).to(device)
+
+    def _freqs(self, B: torch.Tensor) -> torch.Tensor:
+        return 2.0 * math.pi * B.detach()
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        z = x @ self._freqs(params)
+        return torch.cat([torch.sin(z), torch.cos(z)], dim=-1)
+
+    def jet_apply(self, params: Params, jet: J.Jet, *,
+                  impl: str = "torch") -> J.Jet:
+        _check_impl(impl)
+        z = J.linear(jet, self._freqs(params))
+        s = J.compose(z, "sin")
+        c = J.compose(J.add(z, 0.5 * math.pi), "sin")  # cos z = sin(z + pi/2)
+        return J.jmap(lambda a, b: torch.cat([a, b], dim=-1), s, c)
 
 
 @dataclass(frozen=True)
@@ -450,6 +491,7 @@ def make_module(name: str, **kwargs) -> Module:
 for _name, _factory in (
     ("dense", Dense),
     ("activation", Activation),
+    ("fourier_features", FourierFeatures),
     ("rms_norm", RMSNorm),
     ("self_attention", SelfAttention),
     ("mlp_block", MLPBlock),

@@ -16,11 +16,11 @@ public parameter tree onto that graph.
 =================  ==========================================================
 DenseMLP           uniform-width MLP over :class:`repro_torch.core.ntp.MLPParams`
 MLP                variable per-layer widths
+ResidualMLP        skip-connected MLP (params ``{"w_in", "b_in", "blocks",
+                   "w_out", "b_out"}``)
+FourierFeatureMLP  random Fourier-feature embedding + MLP (``{"B", "mlp"}``)
 Transformer        pre-norm self-attention trunk over coordinate tokens
 =================  ==========================================================
-
-The residual and Fourier-feature networks come with a later slice of the
-port.
 """
 
 from __future__ import annotations
@@ -30,10 +30,12 @@ from typing import Any, Callable, Dict, Protocol, Tuple, runtime_checkable
 
 import torch
 
+from repro_torch.device import resolve_device
+
 from . import jet as J
-from .modules import (CoordinateEmbedding, Dense, MLPBlock, Module, Residual,
-                      RMSNorm, SelfAttention, Sequential, TokenPool)
-from .ntp import MLPParams, init_mlp, mlp_apply
+from .modules import (CoordinateEmbedding, Dense, FourierFeatures, MLPBlock, Module,
+                      Residual, RMSNorm, SelfAttention, Sequential, TokenPool)
+from .ntp import MLPParams, init_mlp, mlp_apply, xavier_uniform
 
 Params = Any  # parameter tree; its structure is owned by the network
 
@@ -154,6 +156,88 @@ class MLP(_Composed):
 
 
 # ---------------------------------------------------------------------------
+# ResidualMLP: skip connections (jet addition is exact)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ResidualMLP(_Composed):
+    """``h_0 = act(W_in x + b_in)``; ``h_j = h_{j-1} + act(W_j h_{j-1} + b_j)``
+    for ``depth`` blocks; linear readout.  The graph is Dense ->
+    Residual(Dense) x depth -> Dense; residual adds are coefficient-wise on
+    the jet, so the derivative cost matches the plain MLP layer for layer.
+    Under ``impl="cuda"`` every Dense runs the fused kernel; the adds stay
+    jet algebra."""
+
+    d_in: int
+    width: int
+    depth: int
+    d_out: int
+    activation: str = "tanh"
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None) -> Params:
+        def zeros(n):
+            return torch.zeros((n,), dtype=dtype, device=resolve_device(device))
+        return {
+            "w_in": xavier_uniform(generator, self.d_in, self.width, dtype, device),
+            "b_in": zeros(self.width),
+            "blocks": tuple(
+                (xavier_uniform(generator, self.width, self.width, dtype, device),
+                 zeros(self.width)) for _ in range(self.depth)),
+            "w_out": xavier_uniform(generator, self.width, self.d_out, dtype, device),
+            "b_out": zeros(self.d_out),
+        }
+
+    def _graph(self) -> Module:
+        blocks = tuple(Residual(Dense(self.width, self.width, self.activation))
+                       for _ in range(self.depth))
+        return Sequential((Dense(self.d_in, self.width, self.activation),
+                           *blocks, Dense(self.width, self.d_out, None)))
+
+    def _graph_params(self, p: Params) -> Params:
+        return ((p["w_in"], p["b_in"]), *p["blocks"], (p["w_out"], p["b_out"]))
+
+
+# ---------------------------------------------------------------------------
+# FourierFeatureMLP: random-feature embedding against spectral bias
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FourierFeatureMLP(_Composed):
+    """``gamma(x) = [sin(2pi B x), cos(2pi B x)]`` with fixed Gaussian
+    ``B ~ N(0, scale^2)`` of shape (d_in, n_features), then an MLP trunk on
+    the 2 n_features embedding (Tancik et al. 2020).  The graph is
+    FourierFeatures -> Dense stack; B is excluded from gradients and the
+    embedding jet is exact."""
+
+    d_in: int
+    width: int
+    depth: int
+    d_out: int
+    n_features: int = 16
+    feature_scale: float = 1.0
+    activation: str = "tanh"
+
+    def _trunk(self) -> MLP:
+        widths = (2 * self.n_features,) + (self.width,) * self.depth + (self.d_out,)
+        return MLP(widths, self.activation)
+
+    def _embed(self) -> FourierFeatures:
+        return FourierFeatures(self.d_in, self.n_features, self.feature_scale)
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None) -> Params:
+        return {"B": self._embed().init(generator, dtype, device),
+                "mlp": self._trunk().init(generator, dtype, device)}
+
+    def _graph(self) -> Module:
+        return Sequential((self._embed(), *self._trunk()._graph().modules))
+
+    def _graph_params(self, p: Params) -> Params:
+        return (p["B"], *p["mlp"])
+
+
+# ---------------------------------------------------------------------------
 # Transformer: pre-norm self-attention trunk over coordinate tokens
 # ---------------------------------------------------------------------------
 
@@ -242,4 +326,6 @@ def make_network(kind: str, *, d_in: int, d_out: int, width: int, depth: int,
 register_network("dense", DenseMLP)
 register_network("mlp", lambda *, d_in, d_out, width, depth, activation="tanh",
                  **kw: MLP((d_in,) + (width,) * depth + (d_out,), activation))
+register_network("residual", ResidualMLP)
+register_network("fourier", FourierFeatureMLP)
 register_network("transformer", Transformer)

@@ -2,10 +2,12 @@
 
 Everything here is plain Python computed once: the Faa di Bruno partition
 terms (Taylor normalization) and the tanh/sigmoid derivative polynomial
-rows.  The plain versions (ref.py) read them directly; the CUDA kernels
-read them as straight-line code, csrc/fdb_tables.cuh, which
-:func:`cuda_header` generates (``python -m repro_torch.kernels.bell_tables``
-rewrites the committed file).
+rows.  The plain versions (ref.py) read them directly.  The CUDA kernels
+read them two ways: the templated kernels (orders 0..HEADER_ORDER) as
+straight-line code, csrc/fdb_tables.cuh, which :func:`cuda_header`
+generates (``python -m repro_torch.kernels.bell_tables`` rewrites the
+committed file); the run-time-order kernels (csrc/jet_runtime.cu) as data,
+the arrays :func:`runtime_table` packs, for any order.
 """
 
 from __future__ import annotations
@@ -61,10 +63,73 @@ def flop_estimate(n: int, batch: int, width: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# csrc/jet_runtime.cu: the same tables as data, any order
+# ---------------------------------------------------------------------------
+
+# Header of runtime_table's int array: the order, then where each section
+# starts (csrc/jet_runtime.cu reads the same positions).
+RT_ORDER, RT_RECORDS, RT_COEFS, RT_TANH, RT_SIGMOID, RT_INV_FACT = range(6)
+RT_HEADER = 6
+
+
+@lru_cache(maxsize=None)
+def runtime_table(n: int) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
+    """The epilogue's tables for orders 1..n as two flat arrays ``(ints,
+    reals)``, for the run-time-order kernels.
+
+    ``ints[:RT_HEADER]`` is the order and the start of each section.
+    ``ints[ints[RT_RECORDS] + k - 1]`` (k = 1..n+1) is where the records of
+    output order k start in ``ints`` (k = n + 1: where the last ends); a
+    record is one Faa di Bruno term ``(m, count, j_1, .., j_count)``, the
+    factors z_j in the order ref.py multiplies them.  ``ints[ints[RT_COEFS]
+    + k - 1]`` is the index in ``reals`` of order k's first term
+    coefficient.  ``ints[ints[RT_TANH] + m]`` (m = 0..n+1) bound Horner row
+    m of tanh in ``reals`` (low -> high), likewise ``RT_SIGMOID``;
+    ``reals[ints[RT_INV_FACT] + m]`` is 1 / m!, the sin stack's factor."""
+    terms = fdb_terms(n)
+    ints = [n] + [0] * (RT_HEADER - 1)
+    reals: list = []
+    records, coef_start = [], []
+    for order_terms in terms:
+        coef_start.append(len(reals))
+        for coef, m, powers in order_terms:
+            reals.append(coef)
+            factors = [j for j, e in powers for _ in range(e)]
+            records.append((m, len(factors), *factors))
+    coef_start.append(len(reals))
+    row_starts = {}
+    for name, rows in (("tanh", tanh_poly_rows(n)), ("sigmoid", sigmoid_poly_rows(n))):
+        row_starts[name] = []
+        for row in rows:
+            row_starts[name].append(len(reals))
+            reals.extend(row)
+        row_starts[name].append(len(reals))
+    inv_fact = len(reals)
+    reals.extend(1.0 / math.factorial(m) for m in range(n + 1))
+
+    ints[RT_COEFS] = len(ints)
+    ints += coef_start
+    ints[RT_TANH] = len(ints)
+    ints += row_starts["tanh"]
+    ints[RT_SIGMOID] = len(ints)
+    ints += row_starts["sigmoid"]
+    ints[RT_RECORDS] = len(ints)
+    ints += [0] * (n + 1)
+    for k in range(n):
+        ints[ints[RT_RECORDS] + k] = len(ints)
+        first = sum(len(t) for t in terms[:k])
+        for rec in records[first:first + len(terms[k])]:
+            ints += rec
+    ints[ints[RT_RECORDS] + n] = len(ints)
+    ints[RT_INV_FACT] = inv_fact
+    return tuple(ints), tuple(float(r) for r in reals)
+
+
+# ---------------------------------------------------------------------------
 # csrc/fdb_tables.cuh: the same tables as straight-line CUDA code
 # ---------------------------------------------------------------------------
 
-HEADER_ORDER = 8              # the kernels' template limit (N1 <= 9)
+HEADER_ORDER = 8              # the templated kernels' orders (N1 <= 9); above, jet_runtime.cu
 HEADER_NAME = "fdb_tables.cuh"
 
 

@@ -77,6 +77,7 @@ __device__ __forceinline__ void act_jet_epilogue(T (&z)[N1]) {
 
 }  // namespace jetk
 
-// Expands F(n1) for every supported coefficient count (1 .. fdb::kMaxOrder
-// + 1), for the launchers' switch over the template parameter N1.
+// Expands F(n1) for every templated coefficient count (1 .. fdb::kMaxOrder
+// + 1), for the launchers' switch over the template parameter N1; other
+// counts (and bfloat16) run the run-time-order kernels of jet_runtime.cu.
 #define JETK_FOR_EACH_N1(F) F(1) F(2) F(3) F(4) F(5) F(6) F(7) F(8) F(9)

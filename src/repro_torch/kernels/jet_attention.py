@@ -23,7 +23,12 @@ and ::jet_attention_scores_pallas.
 Their plain versions are :func:`repro_torch.kernels.ref.jet_rms_norm_ref`,
 :func:`~repro_torch.kernels.ref.jet_flash_attention_ref` and
 :func:`~repro_torch.kernels.ref.jet_attention_scores_ref`.  The kernels
-take contiguous float32/float64 tensors and orders 0..8.
+take contiguous float32, float64 and bfloat16 tensors of any order: the
+templated kernels above run float32/float64 up to N1 = ``TEMPLATE_N1``
+(K4 also up to head dim ``_TEMPLATE_HEAD_DIM``); everything else runs the
+run-time-order kernels of csrc/jet_runtime.cu, a warp per row (K3) or per
+query (K4, K5) with its jets in shared memory.  A wrapper refuses only a
+launch whose block does not fit in shared memory, naming the bytes.
 """
 
 from __future__ import annotations
@@ -34,10 +39,11 @@ import torch
 
 from . import cuda_lib
 from .cuda_lib import LaunchCounter
-from .tanh_jet import DTYPE_CODES, check_cuda_tensor, check_order
+from .tanh_jet import (DTYPE_CODES, SMEM_LIMIT, check_cuda_tensor, check_depth,
+                       check_fits, compute_itemsize, runtime_path)
 
 MASK_CODES = {"none": 0, "causal": 1, "local": 2}
-MAX_HEAD_DIM = 128            # csrc/jet_flash_attention.cu: 32 lanes x 4 dims
+_TEMPLATE_HEAD_DIM = 128      # csrc/jet_flash_attention.cu: 32 lanes x 4 dims; above, jet_runtime.cu
 SHORT_T_MAX = 4               # T up to this runs jet_flash_attention_short_kernel
 _SHORT_THREADS = 128          # csrc/jet_flash_attention.cu: kShortThreads
 _OS_ROW_TILE = 8              # csrc/jet_flash_attention.cu: kOsRowTile
@@ -47,7 +53,8 @@ _SCORES_MAX_WARPS = 16        # csrc/jet_attention_scores.cu: kMaxWarps (128 reg
 _SCORES_MAX_GROUPS = 4        # query groups a block: more left SMs idle at (4, 1024)
 _SCORES_MAX_SPLIT = 8         # warps a query's keys are split between (16 lost at (4, 256))
 _SCORES_BLOCKS_WANTED = 128   # ~ one block on each of the 132 SMs
-_SMEM_LIMIT = 232448          # shared memory a block can use on Hopper
+_SMEM_LIMIT = SMEM_LIMIT      # shared memory a block can use on Hopper
+_RT_WARPS = 8                 # csrc/jet_runtime.cu: warps of a K3/K4/K5 block, at most
 _SM_SMEM = 233472             # shared memory of one SM; each block reserves 1 KB of it
 
 RMS_NORM_LAUNCHES = LaunchCounter("jet_rms_norm")
@@ -61,6 +68,21 @@ def _same_device(*ts: torch.Tensor) -> None:
                          f"{[str(t.device) for t in ts]}")
 
 
+def runtime_warps(words_per_warp: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(warps, shared bytes) of a K3/K4/K5 run-time-order block whose warps
+    each keep ``words_per_warp`` words: up to 8 warps, fewer where they do
+    not fit; one warp that does not fit leaves ``smem`` over the limit."""
+    per_warp = words_per_warp * compute_itemsize(dtype)
+    warps = max(1, min(_RT_WARPS, _SMEM_LIMIT // per_warp))
+    return warps, warps * per_warp
+
+
+def rms_norm_runtime_words(n1: int) -> int:
+    """Words a K3 run-time-order warp keeps: the row's mean-square jet and
+    its rsqrt jet (csrc/jet_runtime.cu)."""
+    return 2 * n1
+
+
 def jet_rms_norm_cuda(coeffs: torch.Tensor, gamma: torch.Tensor,
                       eps: float = 1e-6) -> torch.Tensor:
     """K3 on the card: (n+1, B, W) + (W,) -> (n+1, B, W)."""
@@ -68,13 +90,20 @@ def jet_rms_norm_cuda(coeffs: torch.Tensor, gamma: torch.Tensor,
     check_cuda_tensor(gamma, "gamma", 1, coeffs.dtype)
     _same_device(coeffs, gamma)
     n1, bsz, width = coeffs.shape
-    check_order(n1)
+    check_depth(n1)
     if gamma.shape[0] != width:
         raise ValueError(f"gamma shape {tuple(gamma.shape)} != ({width},)")
     out = torch.empty_like(coeffs)
-    cuda_lib.launch("jet_rms_norm_launch", coeffs.device, coeffs.data_ptr(),
-                    gamma.data_ptr(), out.data_ptr(), bsz, width, n1,
-                    DTYPE_CODES[coeffs.dtype], float(eps))
+    if runtime_path(n1, coeffs.dtype):
+        warps, smem = runtime_warps(rms_norm_runtime_words(n1), coeffs.dtype)
+        check_fits("jet_rms_norm", smem, f"order {n1 - 1} ({warps} warps)")
+        cuda_lib.launch("jet_rms_norm_rt_launch", coeffs.device, coeffs.data_ptr(),
+                        gamma.data_ptr(), out.data_ptr(), bsz, width, n1,
+                        DTYPE_CODES[coeffs.dtype], float(eps), warps)
+    else:
+        cuda_lib.launch("jet_rms_norm_launch", coeffs.device, coeffs.data_ptr(),
+                        gamma.data_ptr(), out.data_ptr(), bsz, width, n1,
+                        DTYPE_CODES[coeffs.dtype], float(eps))
     RMS_NORM_LAUNCHES.add()
     return out
 
@@ -86,12 +115,18 @@ class FlashGeometry(NamedTuple):
     the head dims, ``rows`` batch rows per block.  ``group == 0``: the
     long-T kernel, ``rows`` queries (warps) per block, key tiles of
     ``key_tile``.  ``dpl`` head dims per lane; ``smem`` the block's dynamic
-    shared memory in bytes."""
+    shared memory in bytes.  ``dpl == 0``: the run-time-order kernel
+    (csrc/jet_runtime.cu), a warp per query whose lanes stride over any
+    head dim, ``rows`` warps a block."""
     group: int
     rows: int
     key_tile: int
     dpl: int
     smem: int
+
+    @property
+    def runtime(self) -> bool:
+        return self.dpl == 0
 
 
 def _pow2_ceil(v: int) -> int:
@@ -105,18 +140,32 @@ def os_pitch(hd: int) -> int:
     return hd if hd % 2 else hd + 1
 
 
+def flash_runtime_words(n1: int, head_dim: int, dm: int) -> int:
+    """Words a K4 run-time-order warp keeps (csrc/jet_runtime.cu): the
+    query jet and the value accumulator of one head, the projected output
+    jet, and the score, e-jet and total of the current key."""
+    return 2 * n1 * head_dim + n1 * dm + 3 * n1
+
+
 def flash_geometry(n1: int, heads: int, t: int, head_dim: int,
-                   dtype: torch.dtype) -> FlashGeometry:
+                   dtype: torch.dtype, dm: int = 1) -> FlashGeometry:
     """The tiling the K4 launcher runs for these shapes (the kernels'
     shared-memory formulas, csrc/jet_flash_attention.cu::short_smem_words
-    and ::long_smem_words, in bytes).  Short T (<= SHORT_T_MAX, and no more
-    queries than a block has lane groups) gives each query a group of
+    and ::long_smem_words, in bytes).  Orders past the templates, bfloat16
+    and head dims past ``_TEMPLATE_HEAD_DIM`` take the run-time-order
+    kernel, whose block of up to 8 warps keeps :func:`flash_runtime_words`
+    a warp (``dm``, the projection's width, counts only there).  Short T
+    (<= SHORT_T_MAX, and no more queries than a block has lane groups)
+    gives each query a group of
     lanes, 4 head dims a lane, and packs as many batch rows into a
     128-thread block as it has groups; its shared memory holds the rows'
     output jets for the projection.  Long T takes 8 queries a block and
     32-key tiles, shrinking the tile to 8 keys, then the warps, then the
     tile again until the block fits ``_SMEM_LIMIT``.  Past that the
     returned ``smem`` exceeds the limit and the wrapper refuses."""
+    if runtime_path(n1, dtype) or head_dim > _TEMPLATE_HEAD_DIM:
+        warps, smem = runtime_warps(flash_runtime_words(n1, head_dim, dm), dtype)
+        return FlashGeometry(0, warps, 0, 0, smem)
     item = torch.empty((), dtype=dtype).element_size()
     group = min(32, _pow2_ceil(-(-head_dim // 4)))
     groups = _SHORT_THREADS // group
@@ -147,9 +196,9 @@ def flash_geometry(n1: int, heads: int, t: int, head_dim: int,
 
 
 def flash_smem_bytes(n1: int, heads: int, t: int, head_dim: int,
-                     dtype: torch.dtype) -> int:
+                     dtype: torch.dtype, dm: int = 1) -> int:
     """Dynamic shared memory of one K4 block (see :func:`flash_geometry`)."""
-    return flash_geometry(n1, heads, t, head_dim, dtype).smem
+    return flash_geometry(n1, heads, t, head_dim, dtype, dm).smem
 
 
 def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -167,7 +216,7 @@ def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     check_cuda_tensor(wo, "wo", 3, q.dtype)
     _same_device(q, k, v, wo)
     n1, bsz, heads, t, dh = q.shape
-    check_order(n1)
+    check_depth(n1)
     if tuple(wo.shape[:2]) != (heads, dh):
         raise ValueError(f"wo shape {tuple(wo.shape)} incompatible with "
                          f"(H, Dh) = ({heads}, {dh})")
@@ -175,21 +224,21 @@ def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"unknown mask variant {mask!r}")
     if mask == "local" and window < 1:
         raise ValueError(f"local mask needs window >= 1, got {window}")
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"the flash kernel takes head dims up to "
-                         f"{MAX_HEAD_DIM}, got {dh}")
-    geo = flash_geometry(n1, heads, t, dh, q.dtype)
-    if geo.smem > _SMEM_LIMIT:
-        raise ValueError(f"the flash kernel needs {geo.smem} bytes of shared "
-                         f"memory for {heads} heads x {dh} dims at order "
-                         f"{n1 - 1}; a block has {_SMEM_LIMIT}")
     dm = wo.shape[2]
+    geo = flash_geometry(n1, heads, t, dh, q.dtype, dm)
+    check_fits("flash", geo.smem, f"{heads} heads x {dh} dims at order {n1 - 1}")
     out = torch.empty((n1, bsz, t, dm), dtype=q.dtype, device=q.device)
-    cuda_lib.launch("jet_flash_attention_launch", q.device, q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), wo.data_ptr(), out.data_ptr(),
-                    bsz, heads, t, dh, dm, n1, DTYPE_CODES[q.dtype],
-                    float(scale), MASK_CODES[mask], int(window), geo.group,
-                    geo.rows, geo.key_tile, geo.dpl)
+    if geo.runtime:
+        cuda_lib.launch("jet_flash_attention_rt_launch", q.device, q.data_ptr(),
+                        k.data_ptr(), v.data_ptr(), wo.data_ptr(), out.data_ptr(),
+                        bsz, heads, t, dh, dm, n1, DTYPE_CODES[q.dtype],
+                        float(scale), MASK_CODES[mask], int(window), geo.rows)
+    else:
+        cuda_lib.launch("jet_flash_attention_launch", q.device, q.data_ptr(),
+                        k.data_ptr(), v.data_ptr(), wo.data_ptr(), out.data_ptr(),
+                        bsz, heads, t, dh, dm, n1, DTYPE_CODES[q.dtype],
+                        float(scale), MASK_CODES[mask], int(window), geo.group,
+                        geo.rows, geo.key_tile, geo.dpl)
     FLASH_LAUNCHES.add()
     return out
 
@@ -274,10 +323,18 @@ def scores_geometry(n1: int, t: int, d: int, dtype: torch.dtype,
     return next((geo for geo in candidates if geo.smem <= _SMEM_LIMIT), candidates[-1])
 
 
+def scores_runtime_words(n1: int, d: int) -> int:
+    """Words a K5 run-time-order warp keeps (csrc/jet_runtime.cu): its
+    query's jet, the score and e-jets of 32 keys (one a lane) and the
+    row's totals."""
+    return n1 * d + 65 * n1
+
+
 def jet_attention_scores_cuda(q: torch.Tensor, k: torch.Tensor,
                               scale: float) -> torch.Tensor:
     """K5 on the card: q/k (n+1, B, T, D) -> the softmaxed score jet
-    (n+1, B, T, T), tiled by :func:`scores_geometry`."""
+    (n+1, B, T, T), tiled by :func:`scores_geometry` (orders past the
+    templates and bfloat16: the run-time-order kernel, a warp a query)."""
     check_cuda_tensor(q, "q", 4)
     check_cuda_tensor(k, "k", 4, q.dtype)
     if k.shape != q.shape:
@@ -285,12 +342,18 @@ def jet_attention_scores_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(k.shape)}")
     _same_device(q, k)
     n1, bsz, t, d = q.shape
-    check_order(n1)
+    check_depth(n1)
+    if runtime_path(n1, q.dtype):
+        warps, smem = runtime_warps(scores_runtime_words(n1, d), q.dtype)
+        check_fits("score", smem, f"head dim {d} at order {n1 - 1}")
+        out = torch.empty((n1, bsz, t, t), dtype=q.dtype, device=q.device)
+        cuda_lib.launch("jet_attention_scores_rt_launch", q.device, q.data_ptr(),
+                        k.data_ptr(), out.data_ptr(), bsz, t, d, n1,
+                        DTYPE_CODES[q.dtype], float(scale), warps)
+        SCORES_LAUNCHES.add()
+        return out
     geo = scores_geometry(n1, t, d, q.dtype, bsz)
-    if geo.smem > _SMEM_LIMIT:
-        raise ValueError(f"the score kernel needs {geo.smem} bytes of shared "
-                         f"memory for head dim {d} at order {n1 - 1}; a block "
-                         f"has {_SMEM_LIMIT}")
+    check_fits("score", geo.smem, f"head dim {d} at order {n1 - 1}")
     if geo.groups * geo.split > scores_max_warps(n1, q.dtype):
         raise ValueError(f"a score kernel block takes at most "
                          f"{scores_max_warps(n1, q.dtype)} warps at order {n1 - 1}")

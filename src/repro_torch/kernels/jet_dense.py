@@ -9,6 +9,9 @@ adds the bias to ``c_0`` only, and runs the Faa di Bruno epilogue it
 shares with K2 before a single store, so the pre-activation stack never
 goes to device memory.  f32 accumulates in f32, f64 in f64.  The tiling
 is the launcher's (csrc/jet_dense.cu); this wrapper checks and launches.
+Orders above the templates and bfloat16 (accumulated in f32) take the
+run-time-order kernel of csrc/jet_runtime.cu: a thread per output
+element, its stack in shared memory (see ``tanh_jet``).
 
 Its plain version is :func:`repro_torch.kernels.ref.jet_dense_ref`.
 """
@@ -20,7 +23,8 @@ import torch
 from . import cuda_lib
 from .cuda_lib import LaunchCounter
 from .tanh_jet import (ACT_CODES, DTYPE_CODES, KERNEL_ACTS, check_cuda_tensor,
-                       check_order)
+                       check_depth, check_fits, device_tables, runtime_path,
+                       runtime_threads)
 
 LAUNCHES = LaunchCounter("jet_dense")
 
@@ -38,14 +42,23 @@ def jet_dense_cuda(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"jet_dense kernel has no epilogue for "
                          f"{activation!r}; it takes None or {KERNEL_ACTS}")
     n1, bsz, din = coeffs.shape
-    check_order(n1)
+    check_depth(n1)
     if w.shape[0] != din or b.shape[0] != w.shape[1]:
         raise ValueError(f"shapes do not chain: coeffs {tuple(coeffs.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)}")
     dout = w.shape[1]
     out = torch.empty((n1, bsz, dout), dtype=coeffs.dtype, device=coeffs.device)
-    cuda_lib.launch("jet_dense_launch", coeffs.device, coeffs.data_ptr(),
-                    w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, din, dout,
-                    n1, ACT_CODES[activation], DTYPE_CODES[coeffs.dtype])
+    if runtime_path(n1, coeffs.dtype):
+        threads, smem = runtime_threads(n1, coeffs.dtype)
+        check_fits("jet_dense", smem, f"order {n1 - 1} ({threads} threads)")
+        ints, reals = device_tables(n1 - 1, str(coeffs.device))
+        cuda_lib.launch("jet_dense_rt_launch", coeffs.device, coeffs.data_ptr(),
+                        w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, din, dout,
+                        n1, ACT_CODES[activation], DTYPE_CODES[coeffs.dtype],
+                        ints.data_ptr(), reals.data_ptr(), threads)
+    else:
+        cuda_lib.launch("jet_dense_launch", coeffs.device, coeffs.data_ptr(),
+                        w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, din, dout,
+                        n1, ACT_CODES[activation], DTYPE_CODES[coeffs.dtype])
     LAUNCHES.add()
     return out

@@ -6,9 +6,10 @@ trunk) and :func:`jet_attention_scores` (the materializing score jet)
 launch the hand-written CUDA kernels for CUDA tensors and run their
 plain versions (kernels/ref.py) only for CPU tensors, so the CPU tests
 reach every line around the kernels.  There is no
-fallback: on the card a wrapper launches its kernel or raises, and all
-refuse orders above :data:`MAX_ORDER` on every device, so ``impl="cuda"``
-means the same thing on the CPU as on the card.
+fallback: on the card a wrapper launches its kernel or raises.  Every
+order and float32, float64 and bfloat16 (computed in float32) are taken
+on both devices; on the card a launch is refused only where its block
+does not fit in shared memory.
 
 * All accept **arbitrary leading batch axes** -- ``(n+1, *batch, D)`` --
   and fold them into the kernel's batch dimension (a free reshape).
@@ -34,11 +35,11 @@ from . import jet_attention as _k34
 from . import jet_dense as _k1
 from . import ref
 from . import tanh_jet as _k2
-from .tanh_jet import KERNEL_ACTS, MAX_ORDER, check_order
+from .tanh_jet import KERNEL_ACTS
 
 __all__ = ["EpilogueKind", "epilogues", "act_jet", "jet_dense",
            "jet_rms_norm", "jet_flash_attention", "jet_attention_scores",
-           "MAX_ORDER", "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts"]
 
 
 class EpilogueKind(enum.Enum):
@@ -102,6 +103,12 @@ def _check_activation(activation: str | None, allow_none: bool) -> None:
             f"no kernel epilogue for activation {activation!r}; the kernels "
             f"take {KERNEL_ACTS}" + (" or None" if allow_none else "")
             + " (route others through jet_dense(..., None) and the jet algebra)")
+
+
+def _check_stack(coeffs: torch.Tensor) -> None:
+    if coeffs.ndim < 2 or coeffs.shape[0] < 1:
+        raise ValueError(f"a jet stack is (n+1, ..., D) with n >= 0, got shape "
+                         f"{tuple(coeffs.shape)}")
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -168,7 +175,7 @@ class _JetDense(torch.autograd.Function):
 def act_jet(coeffs: torch.Tensor, activation: str = "tanh") -> torch.Tensor:
     """Activation jet (n+1, *batch, W) -> same shape."""
     _check_activation(activation, allow_none=False)
-    check_order(coeffs.shape[0])
+    _check_stack(coeffs)
     flat, batch = _fold_batch(coeffs)
     out = _ActJet.apply(flat, activation)
     return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-1:]))
@@ -180,7 +187,7 @@ def jet_dense(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     *batch, Dout).  Extra leading batch axes fold into the kernel's batch
     dimension and unfold on the way out."""
     _check_activation(activation, allow_none=True)
-    check_order(coeffs.shape[0])
+    _check_stack(coeffs)
     flat, batch = _fold_batch(coeffs)
     out = _JetDense.apply(flat, w, b, activation)
     return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-1:]))
@@ -221,7 +228,7 @@ def jet_rms_norm(coeffs: torch.Tensor, gamma: torch.Tensor,
     """Fused rms_norm jet: (n+1, *batch, W) -> same shape, normalized over
     the trailing feature axis and scaled by the (W,) gain.  Leading batch
     axes (the token axis included) fold into the kernel's batch dimension."""
-    check_order(coeffs.shape[0])
+    _check_stack(coeffs)
     flat, batch = _fold_batch(coeffs)
     out = _RMSNorm.apply(flat, gamma, eps)
     return out.reshape(tuple(out.shape[:1]) + batch + tuple(out.shape[-1:]))
@@ -275,7 +282,7 @@ def jet_flash_attention(q_coeffs: torch.Tensor, k_coeffs: torch.Tensor,
     unfold on the way out."""
     from repro_torch.core.modules import normalize_attention_mask
     mask = normalize_attention_mask(mask)
-    check_order(q_coeffs.shape[0])
+    _check_stack(q_coeffs)
     h, d = q_coeffs.shape[-3], q_coeffs.shape[-1]
     if wo.ndim == 2:
         wo = wo.reshape(h, d, wo.shape[-1])
@@ -326,7 +333,7 @@ def jet_attention_scores(q_coeffs: torch.Tensor, k_coeffs: torch.Tensor,
     softmaxed probability jet (n+1, *batch, Tq, Tk).  Extra leading batch
     axes (collocation batch, head axis) fold into the kernel's batch
     dimension and unfold on the way out."""
-    check_order(q_coeffs.shape[0])
+    _check_stack(q_coeffs)
     qf, batch = _fold_batch(q_coeffs, keep=2)
     kf, _ = _fold_batch(k_coeffs, keep=2)
     out = _AttentionScores.apply(qf, kf, scale)

@@ -3,10 +3,15 @@
 These are *independent* straight-line implementations (no CUDA, no core.jet
 reuse beyond the static tables) so kernel bugs cannot hide behind a shared
 code path.  On the CPU the kernel wrappers run these; on the card
-``chip_smoke.py`` holds each kernel against them.
+``chip_smoke.py`` holds each kernel against them.  Each takes any order.
+bfloat16 inputs are computed in float32 and the result rounded to
+bfloat16, as the reference promotes them (``promote_types(dtype,
+float32)``) and as the kernels do.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,6 +22,20 @@ from .bell_tables import fdb_terms, sigmoid_poly_rows, tanh_poly_rows
 _POLY_ROWS = {"tanh": tanh_poly_rows, "sigmoid": sigmoid_poly_rows}
 _PRIMAL = {"tanh": torch.tanh,
            "sigmoid": lambda a: 0.5 * (torch.tanh(0.5 * a) + 1.0)}
+
+
+def _promoted(fn):
+    """``fn`` in float32 on bfloat16 tensor arguments, its result rounded
+    back to bfloat16."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not any(isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+                   for a in args):
+            return fn(*args, **kwargs)
+        up = [a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+              else a for a in args]
+        return fn(*up, **kwargs).to(torch.bfloat16)
+    return wrapper
 
 
 def _taylor_stack(a: torch.Tensor, n: int, activation: str) -> list[torch.Tensor]:
@@ -36,6 +55,7 @@ def _taylor_stack(a: torch.Tensor, n: int, activation: str) -> list[torch.Tensor
     return out
 
 
+@_promoted
 def act_jet_ref(coeffs: torch.Tensor, activation: str = "tanh") -> torch.Tensor:
     """Faa di Bruno activation jet.  coeffs: (n+1, ...) scaled Taylor coeffs of
     the pre-activation; returns the same-shaped stack for sigma(pre-act)."""
@@ -54,6 +74,7 @@ def act_jet_ref(coeffs: torch.Tensor, activation: str = "tanh") -> torch.Tensor:
     return torch.stack(rows)
 
 
+@_promoted
 def jet_dense_ref(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   activation: str | None = "tanh") -> torch.Tensor:
     """Fused layer: (n+1, B, Din) @ (Din, Dout) + bias-on-c0, then the
@@ -65,6 +86,7 @@ def jet_dense_ref(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return act_jet_ref(z, activation)
 
 
+@_promoted
 def jet_attention_scores_ref(q: torch.Tensor, k: torch.Tensor,
                              scale: float) -> torch.Tensor:
     """Fused attention-score oracle: (n+1, B, T, D) Q/K coefficient stacks
@@ -88,6 +110,7 @@ def jet_attention_scores_ref(q: torch.Tensor, k: torch.Tensor,
     return torch.stack(p)
 
 
+@_promoted
 def jet_flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             wo: torch.Tensor, scale: float,
                             mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -120,6 +143,7 @@ def jet_flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack([torch.einsum("bhqd,hdo->bqo", om, wo) for om in o])
 
 
+@_promoted
 def jet_rms_norm_ref(coeffs: torch.Tensor, gamma: torch.Tensor,
                      eps: float = 1e-6) -> torch.Tensor:
     """Fused rms_norm oracle: (n+1, B, W) stack + (W,) gain -> rms_norm jet.

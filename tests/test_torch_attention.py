@@ -295,16 +295,60 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
         tka.jet_flash_attention_cuda(cpu, cpu, cpu, torch.zeros((1, 4, 3)), 0.5)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tka.jet_rms_norm_cuda(cpu[:, 0, 0], torch.ones(4))
-    with pytest.raises(ValueError, match="0..8"):
-        tops.jet_rms_norm(torch.zeros((10, 2, 4)), torch.ones(4))
-    # orders 0..8, the kernels' template limit, bind on the CPU as well
-    big = torch.zeros((10, 1, 1, 2, 4), dtype=torch.float64)
-    with pytest.raises(ValueError, match="0..8"):
-        tops.jet_flash_attention(big, big, big, torch.zeros((4, 3)), 0.5)
+    # no order is capped on either device (parity at orders 10 and 12
+    # below); on the card the run-time-order kernels refuse only a warp
+    # whose jets do not fit a block: K4 keeps 2 n1 Dh + n1 Dm + 3 n1 words
+    # (and takes head dims past the templates' 128)
+    geo = tka.flash_geometry(5, 2, 3, 160, torch.float32, 40)
+    assert geo.runtime and geo.rows == 8
+    assert geo.smem == 8 * (2 * 5 * 160 + 5 * 40 + 3 * 5) * 4
+    assert not tka.flash_geometry(5, 2, 3, 128, torch.float32, 40).runtime
+    over = tka.flash_geometry(9, 1, 70, 1611, torch.float64, 4)
+    assert over.rows == 1 and over.smem == (18 * 1611 + 36 + 27) * 8 > tka._SMEM_LIMIT
+    assert tka.flash_geometry(9, 1, 70, 1610, torch.float64, 4).smem <= tka._SMEM_LIMIT
     # the served shape runs the short-T kernel, 16 rows a block: shared
     # memory holds the 160 output rows of its projection, 2 heads x 16 dims
     # at an odd pitch of 33 words
     assert tka.flash_smem_bytes(5, 2, 2, 16, torch.float64) == 160 * 33 * 8
+
+
+@pytest.mark.parametrize("order", [10, 12])
+def test_rms_norm_high_orders_match_reference_and_pallas(order):
+    """Orders past the CUDA templates, through the public op."""
+    x = _stack(order, (order + 1, 2, 3, 6))
+    g = _rng(10 + order).normal(size=(6,)) + 1.0
+    got = tops.jet_rms_norm(torch.tensor(x), torch.tensor(g), eps=1e-6)
+    flat = jnp.asarray(x.reshape(order + 1, 6, 6))
+    _close(got.reshape(order + 1, 6, 6), jref.jet_rms_norm_ref(flat, jnp.asarray(g), 1e-6))
+    _close(got.reshape(order + 1, 6, 6),
+           jka.jet_rms_norm_pallas(flat, jnp.asarray(g), 1e-6, block_b=4, interpret=True))
+
+
+@pytest.mark.parametrize("mask", MASKS, ids=_mask_name)
+@pytest.mark.parametrize("order", [10, 12])
+def test_flash_attention_high_orders_match_reference_and_pallas(order, mask):
+    q, k, v, wo = _qkvo(30 + order, order, 2, 2, 5, 4, 3)
+    got = tops.jet_flash_attention(*(torch.tensor(a) for a in (q, k, v, wo)), 0.5, mask)
+    _close(got, jref.jet_flash_attention_ref(*(jnp.asarray(a) for a in (q, k, v, wo)), 0.5,
+                                             mask=jmod.attention_mask(mask, 5)))
+    kind, window = jmod.normalize_attention_mask(mask)
+    _close(got, jka.jet_flash_attention_pallas(
+        *(jnp.asarray(a) for a in (q, k, v, wo)), 0.5, mask=kind, window=window,
+        block_q=4, block_k=4, block_b=2, interpret=True))
+
+
+def test_flash_attention_bfloat16_matches_float32_plain():
+    """bfloat16 stacks are computed in float32 and rounded once: the plain
+    version on bfloat16 is the float32 one on the same rounded inputs."""
+    q, k, v, wo = (torch.tensor(a, dtype=torch.float32).to(torch.bfloat16)
+                   for a in _qkvo(40, 3, 2, 2, 3, 4, 5))
+    got = tops.jet_flash_attention(q, k, v, wo, 0.5)
+    want = tref.jet_flash_attention_ref(q.float(), k.float(), v.float(), wo.float(), 0.5)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want.to(torch.bfloat16))
+    x = torch.tensor(_stack(41, (4, 3, 6)), dtype=torch.float32).to(torch.bfloat16)
+    g = torch.ones(6, dtype=torch.bfloat16)
+    assert torch.equal(tops.jet_rms_norm(x, g),
+                       tref.jet_rms_norm_ref(x.float(), g.float()).to(torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------

@@ -188,6 +188,9 @@ def test_cross_validates_axes(setup):
 
 
 def test_network_registry():
-    assert network_names() == ("dense", "mlp", "transformer")
+    """The port registers every network the reference does."""
+    from repro.core.network import network_names as jnetwork_names
+    assert network_names() == jnetwork_names() == (
+        "dense", "fourier", "mlp", "residual", "transformer")
     with pytest.raises(KeyError):
-        make_network("residual", d_in=2, d_out=1, width=4, depth=1)
+        make_network("siren", d_in=2, d_out=1, width=4, depth=1)

@@ -132,3 +132,48 @@ def test_jet_accessors():
     assert t.shape == tuple(j.shape) == (2, 5)
     assert t.dtype == torch.float64
     _close(t.primal, j.primal)
+
+
+# ---------------------------------------------------------------------------
+# log and layer_norm: port against the reference op, and both against
+# jax.experimental.jet's pushforward (the oracle of tests/test_engines.py)
+# ---------------------------------------------------------------------------
+
+def _jet_oracle(fn, *coeff_stacks):
+    """Raw derivatives of fn pushed through jax.experimental.jet."""
+    from jax.experimental import jet as jjet
+    raws = [np.asarray(JJ.derivatives(JJ.Jet(jnp.asarray(c)))) for c in coeff_stacks]
+    y0, ys = jjet.jet(fn, tuple(jnp.asarray(r[0]) for r in raws),
+                      tuple([jnp.asarray(x) for x in r[1:]] for r in raws))
+    return np.stack([np.asarray(y0)] + [np.asarray(y) for y in ys])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("order", range(1, 7))
+def test_log_matches_reference_and_jax_jet(order, seed):
+    c = _stack(order, (3, 4), 100 + seed)
+    c[0] = np.abs(c[0]) + 1.0
+    got = TJ.log(TJ.Jet(torch.tensor(c)))
+    _close(got.coeffs, JJ.log(JJ.Jet(jnp.asarray(c))).coeffs)
+    np.testing.assert_allclose(TJ.derivatives(got).numpy(), _jet_oracle(jnp.log, c),
+                               rtol=1e-8, atol=1e-9)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("order", range(0, 7))
+def test_layer_norm_matches_reference_and_jax_jet(order, seed):
+    c = _stack(order, (5, 6), 200 + seed)
+    rng = np.random.default_rng(300 + seed)
+    gamma, beta = rng.normal(size=(6,)) + 1.0, rng.normal(size=(6,)) * 0.1
+    got = TJ.layer_norm(TJ.Jet(torch.tensor(c)), torch.tensor(gamma), torch.tensor(beta))
+    _close(got.coeffs, JJ.layer_norm(JJ.Jet(jnp.asarray(c)), jnp.asarray(gamma),
+                                     jnp.asarray(beta)).coeffs)
+    if order == 0:
+        return
+
+    def ln(x):
+        mu = x.mean(-1, keepdims=True)
+        return (x - mu) / jnp.sqrt(x.var(-1, keepdims=True) + 1e-5) * gamma + beta
+
+    np.testing.assert_allclose(TJ.derivatives(got).numpy(), _jet_oracle(ln, c),
+                               rtol=1e-8, atol=1e-9)

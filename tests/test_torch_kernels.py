@@ -8,6 +8,8 @@ Tolerances: float64 1e-12 relative to each order's max |ref|; float32 1e-5
 relative to each order's max, as tests/test_parity.py uses.  The JAX
 outputs are cached per module: interpret-mode calls are slow."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tanh_jet
@@ -117,16 +120,84 @@ def test_act_jet_gradient_matches_reference_vjp():
                                atol=1e-12 * float(np.abs(want).max()))
 
 
-def test_order_limit_raises_naming_it():
-    x = torch.zeros((tanh_jet.MAX_ORDER + 2, 3, 4), dtype=torch.float64)
+def test_order_limit_raises_naming_it(monkeypatch):
+    """No order is capped: the CPU path takes orders 10 and 12 (parity
+    below) and on the card the only refusal is a block whose working set
+    does not fit in shared memory, named in bytes.  The dense path's
+    run-time kernels keep 2 (n+1) words a thread, 32 threads at least: at
+    f64 a stack of 454 coefficients fits, one more is refused."""
+    tk1 = importlib.import_module("repro_torch.kernels.jet_dense")
+    for mod in (tanh_jet, tk1):
+        monkeypatch.setattr(mod, "check_cuda_tensor", lambda *a, **k: None)
+    assert tanh_jet.runtime_threads(454, torch.float64) == (32, 454 * 2 * 32 * 8)
+    x = torch.zeros((455, 3, 4), dtype=torch.float64)
     w, b = torch.zeros((4, 2), dtype=torch.float64), torch.zeros(2, dtype=torch.float64)
-    with pytest.raises(ValueError, match="0..8"):
-        tops.jet_dense(x, w, b, "tanh")
-    with pytest.raises(ValueError, match="0..8"):
-        tops.act_jet(x, "tanh")
-    # the limit itself is served
-    ok = torch.zeros((tanh_jet.MAX_ORDER + 1, 3, 4), dtype=torch.float64)
+    with pytest.raises(ValueError, match=r"needs 232960 bytes of shared memory .* a block "
+                                         r"has 232448"):
+        act_jet_cuda(x, "tanh")
+    with pytest.raises(ValueError, match=r"needs 232960 bytes of shared memory"):
+        jet_dense_cuda(x, w, b, "tanh")
+    ok = torch.zeros((13, 3, 4), dtype=torch.float64)
     assert tops.act_jet(ok, "tanh").shape == ok.shape
+
+
+HIGH_ORDER_CASES = [(act, dt, order)
+                    for act in ("tanh", "sigmoid", "sin")
+                    for dt in ("f64", "f32") for order in (10, 12)]
+
+
+@pytest.mark.parametrize("act,dt,order", HIGH_ORDER_CASES)
+def test_act_jet_high_orders_match_reference(jax_cache, act, dt, order):
+    """Orders past the CUDA templates, which the reference's Pallas kernel
+    (interpret mode) takes from the stack's depth."""
+    np_dt, t_dt, tol = DTYPES[dt]
+    x = _inputs(order, order, (4,), 6, np_dt)
+    key = ("act_high", act, dt, order)
+    if key not in jax_cache:
+        jax_cache[key] = np.asarray(jops.act_jet(jnp.asarray(x), act))
+    _close_per_order(tops.act_jet(torch.tensor(x), act), jax_cache[key], tol)
+
+
+@pytest.mark.parametrize("act", [None, "tanh", "sin"])
+@pytest.mark.parametrize("order", [10, 12])
+def test_jet_dense_high_orders_match_reference(jax_cache, act, order):
+    rng = np.random.default_rng(200 + order)
+    x = _inputs(order, order, (5,), 3, np.float64)
+    w, b = rng.normal(size=(3, 7)) / np.sqrt(3), rng.normal(size=(7,)) * 0.1
+    key = ("dense_high", act, order)
+    if key not in jax_cache:
+        jax_cache[key] = np.asarray(jops.jet_dense(jnp.asarray(x), jnp.asarray(w),
+                                                   jnp.asarray(b), act))
+    got = tops.jet_dense(torch.tensor(x), torch.tensor(w), torch.tensor(b), act)
+    _close_per_order(got, jax_cache[key], 1e-12)
+
+
+def test_bfloat16_path():
+    """bfloat16 in, float32 arithmetic, bfloat16 out: the reference's
+    tests/test_kernels.py::test_bfloat16_path, for act_jet and jet_dense,
+    against the reference's own bfloat16 path (Pallas, interpret mode) and
+    its float32 plain version on the same rounded inputs, at 5e-2."""
+    rng = np.random.default_rng(9)
+    c = torch.tensor(rng.normal(size=(4, 16, 64)) * 0.7, dtype=torch.float32).to(torch.bfloat16)
+    c32 = c.float().numpy()
+    got = tops.act_jet(c, "tanh")
+    assert got.dtype == torch.bfloat16
+    for want in (jops.act_jet(jnp.asarray(c32, jnp.bfloat16), "tanh"),
+                 jref.act_jet_ref(jnp.asarray(c32), "tanh")):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=5e-2, atol=5e-2)
+    w = torch.tensor(rng.normal(size=(64, 24)) / 8, dtype=torch.float32).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(size=(24,)) * 0.1, dtype=torch.float32).to(torch.bfloat16)
+    got = tops.jet_dense(c, w, b, "tanh")
+    assert got.dtype == torch.bfloat16
+    w32, b32 = w.float().numpy(), b.float().numpy()
+    for want in (jops.jet_dense(*(jnp.asarray(a, jnp.bfloat16) for a in (c32, w32, b32)), "tanh"),
+                 jref.jet_dense_ref(jnp.asarray(c32), jnp.asarray(w32), jnp.asarray(b32), "tanh")):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=5e-2, atol=5e-2)
+    # the plain version is the float32 computation on the same bfloat16 inputs
+    assert torch.equal(got, tref.jet_dense_ref(c.float(), w.float(), b.float(), "tanh")
+                       .to(torch.bfloat16))
 
 
 def test_activation_without_kernel_table_raises():

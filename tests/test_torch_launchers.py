@@ -194,3 +194,38 @@ def test_flash_geometry_edge_of_what_the_wrapper_admits(monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         tka.jet_flash_attention_cuda(q, q, q, torch.zeros((edge + 1, 128, 4),
                                                           dtype=torch.float64), 0.1)
+
+
+@pytest.mark.parametrize("dtype,n1", [(torch.bfloat16, 5), (torch.float64, 11),
+                                      (torch.float32, 17)])
+def test_runtime_path_reaches_its_launchers(stubbed, monkeypatch, dtype, n1):
+    """Orders past the templates and bfloat16 reach the run-time-order
+    launchers (csrc/jet_runtime.cu) with the tables of order n1 - 1, the
+    block the wrapper sized, and one counted launch each; the templates'
+    launchers see none of them."""
+    seen, calls = stubbed
+    monkeypatch.setattr(tka, "check_cuda_tensor", lambda *a, **k: None)
+    code = tk2.DTYPE_CODES[dtype]
+    x = torch.zeros((n1, 3, 6), dtype=dtype)
+    w, b = torch.zeros((6, 7), dtype=dtype), torch.zeros(7, dtype=dtype)
+    threads, _ = tk2.runtime_threads(n1, dtype)
+    ints, reals = tk2.device_tables(n1 - 1, "cpu")
+    tables = (ints.data_ptr(), reals.data_ptr())
+    tops.jet_dense(x, w, b, "tanh")
+    assert calls[-1][0] == "jet_dense_rt_launch"
+    assert calls[-1][1][4:] == (3, 6, 7, n1, 1, code) + tables + (threads,)
+    tops.act_jet(x, "sin")
+    assert calls[-1][0] == "act_jet_rt_launch"
+    assert calls[-1][1][2:] == (18, n1, 3, code) + tables + (threads,)
+    tops.jet_rms_norm(x, torch.ones(6, dtype=dtype))
+    assert calls[-1][0] == "jet_rms_norm_rt_launch"
+    assert calls[-1][1][3:] == (3, 6, n1, code, 1e-6, 8)
+    qkv = torch.zeros((n1, 2, 2, 5, 4), dtype=dtype)
+    tops.jet_flash_attention(qkv, qkv, qkv, torch.zeros((8, 3), dtype=dtype), 0.5, "causal")
+    assert calls[-1][0] == "jet_flash_attention_rt_launch"
+    assert calls[-1][1][5:] == (2, 2, 5, 4, 3, n1, code, 0.5, 1, 0, 8)
+    tops.jet_attention_scores(qkv[:, :, 0], qkv[:, :, 1], 0.5)
+    assert calls[-1][0] == "jet_attention_scores_rt_launch"
+    assert calls[-1][1][3:] == (2, 5, 4, n1, code, 0.5, 8)
+    assert tops.launch_counts() == {"jet_dense": 1, "act_jet": 1, "jet_rms_norm": 1,
+                                    "jet_flash_attention": 1, "jet_attention_scores": 1}

@@ -357,6 +357,39 @@ def test_burgers_loss_and_gradients_match_reference(burgers_net, engine):
     _grads_close(grads, jgrad, tol)
 
 
+@pytest.mark.parametrize("engine", ["ntp", "ntp/cuda"])
+def test_burgers_k4_loss_and_gradients_match_reference(burgers_net, engine):
+    """Profile k = 4: the u-jet of order 2k + 2 = 10, past the CUDA
+    templates, through the port's kernel dispatch (plain versions here)."""
+    jp, tp, _ = burgers_net
+    rng = np.random.default_rng(11)
+    pts, org = rng.uniform(-2, 2, size=(8, 1)), rng.uniform(-0.15, 0.15, size=(4, 1))
+    k = 4
+    order = jburg.smoothness_order(k)
+    assert order + 1 == 10
+    kw = dict(k=k, domain=2.0, order=order, lam_window=jburg.lambda_window(k),
+              bc_vals=jloss.bc_targets(k, 2.0))
+
+    def jl(ps):
+        return jloss.burgers_pinn_loss(ps[0], ps[1], pts=jnp.asarray(pts),
+                                       origin_pts=jnp.asarray(org), engine="ntp",
+                                       weights=jloss.LossWeights(), **kw)
+
+    (want, jaux), jgrad = _once("burgers_loss_k4", lambda: jax.jit(
+        jax.value_and_grad(jl, has_aux=True))((jp, jnp.asarray(0.1))))
+
+    def tl(ps):
+        return tloss.burgers_pinn_loss(ps[0], ps[1], pts=torch.tensor(pts),
+                                       origin_pts=torch.tensor(org), engine=engine,
+                                       weights=tloss.LossWeights(), **kw)
+
+    (got, aux), grads = value_and_grad(tl, (tp, torch.tensor(0.1, dtype=torch.float64)))
+    _close(got, want)
+    for key in ("residual", "sobolev1", "origin", "bc", "lambda"):
+        _close(aux[key], jaux[key])
+    _grads_close(grads, jgrad, TOL)
+
+
 # ---------------------------------------------------------------------------
 # configs
 # ---------------------------------------------------------------------------

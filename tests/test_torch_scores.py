@@ -177,17 +177,43 @@ def test_dispatch_hands_the_launcher_contiguous_folded_stacks(monkeypatch):
     assert tops.launch_counts()["jet_attention_scores"] == 1
 
 
-def test_wrapper_refuses_what_the_kernel_does_not_take():
+def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     cpu = torch.zeros((2, 1, 3, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tka.jet_attention_scores_cuda(cpu, cpu, 0.5)
-    # orders 0..8, the kernels' template limit, bind on the CPU as well
-    big = torch.zeros((10, 1, 3, 4), dtype=torch.float64)
-    with pytest.raises(ValueError, match="0..8"):
-        tops.jet_attention_scores(big, big, 0.5)
+    # no order is capped on either device (parity at orders 10 and 12
+    # below); past the templates a warp keeps n1 (D + 65) words, and a
+    # block whose one warp does not fit is refused, naming the bytes
+    assert tka.runtime_warps(tka.scores_runtime_words(11, 16), torch.float64) == (
+        8, 8 * 11 * 81 * 8)
+    monkeypatch.setattr(tka, "check_cuda_tensor", lambda *a: None)
+    big = torch.zeros((11, 1, 3, 2577), dtype=torch.float64)
+    with pytest.raises(ValueError, match=r"needs 232496 bytes of shared memory"):
+        tka.jet_attention_scores_cuda(big, big, 0.5)
     # the queries, two stages of one 8-key tile, the merge slots: 9
     # coefficients, 4 chunks of 4 dims
     assert tka.scores_smem_bytes(9, 16, 1, 1, 1, 2, 8) == (9 * 4 * 32 * 3 + 8 * 10) * 8
+
+
+@pytest.mark.parametrize("order", [10, 12])
+def test_high_orders_match_reference_and_pallas(order):
+    """Orders past the CUDA templates, through the public op, against the
+    reference's oracle and its Pallas kernel (interpret mode)."""
+    q, k = _qk(50 + order, order, (2, 2, 5, 4))
+    got = tops.jet_attention_scores(torch.tensor(q), torch.tensor(k), 0.5)
+    flat = [jnp.asarray(a.reshape(order + 1, 4, 5, 4)) for a in (q, k)]
+    want = jref.jet_attention_scores_ref(*flat, 0.5)
+    _close(got.reshape(order + 1, 4, 5, 5), want, TOL[np.float64])
+    _close(got.reshape(order + 1, 4, 5, 5),
+           jet_attention_scores_pallas(*flat, 0.5, interpret=True), TOL[np.float64])
+
+
+def test_bfloat16_is_the_float32_plain_version_rounded():
+    q, k = (torch.tensor(a, dtype=torch.float32).to(torch.bfloat16)
+            for a in _qk(60, 3, (2, 5, 4)))
+    got = tops.jet_attention_scores(q, k, 0.5)
+    want = tref.jet_attention_scores_ref(q.float(), k.float(), 0.5).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -231,11 +231,23 @@ def test_overload_timeout_too_large_and_closed(model, xs):
         srv.submit(xs[3], order=1)
 
 
-def test_failed_launch_fails_only_its_requests(model, xs):
+def test_failed_launch_fails_only_its_requests(model, xs, monkeypatch):
+    """A launch that raises (here every order-9 dense launch, refused as a
+    block that does not fit would be) fails its own requests; the server
+    goes on answering the next ones."""
+    from repro_torch.kernels import ops as tops
     _, _, net, p = model
+    real = tops._jet_dense_impl
+
+    def refusing(coeffs, w, b, activation):
+        if coeffs.shape[0] == 10:
+            raise ValueError("the jet_dense kernel needs more shared memory than a block has")
+        return real(coeffs, w, b, activation)
+
+    monkeypatch.setattr(tops, "_jet_dense_impl", refusing)
     with DerivativeServer(net, p, "ntp/cuda", buckets=(8,), device="cpu") as srv:
-        with pytest.raises(ValueError, match="0..8"):
-            srv.grid(xs[3], 9, timeout=60)      # above the kernels' order limit
+        with pytest.raises(ValueError, match="shared memory"):
+            srv.grid(xs[3], 9, timeout=60)
         assert srv.grid(xs[3], 2, timeout=60).shape == (2, 3, 3, 1)
 
 

@@ -8,6 +8,7 @@ the Taylor stacks and primals are floating point and agree at f64 to
 1e-12 relative (the two libraries' tanh/sin differ in the last ulp)."""
 
 import importlib
+import math
 import re
 from pathlib import Path
 
@@ -86,8 +87,8 @@ def test_packed_device_tables_decode_to_fdb_terms():
     exactly, for every order <= 8."""
     text = _header()
     orders = _function_bodies(text, "fdb_order_")
-    assert sorted(orders) == list(range(1, tanh_jet.MAX_ORDER + 1))
-    for k, order_terms in enumerate(tbell.fdb_terms(tanh_jet.MAX_ORDER), 1):
+    assert sorted(orders) == list(range(1, tbell.HEADER_ORDER + 1))
+    for k, order_terms in enumerate(tbell.fdb_terms(tbell.HEADER_ORDER), 1):
         decoded = []
         for line in orders[k].splitlines()[:-1]:          # the last is `return acc;`
             expr = line.split("=", 1)[1].strip().rstrip(";")
@@ -110,7 +111,91 @@ def test_kernel_header_is_generated_from_the_tables():
     (regenerate with ``python -m repro_torch.kernels.bell_tables``), and
     covers the kernels' template limit."""
     assert _header() == tbell.cuda_header()
-    assert tbell.HEADER_ORDER == tanh_jet.MAX_ORDER
+    assert tbell.HEADER_ORDER + 1 == tanh_jet.TEMPLATE_N1
+
+
+def _decode_runtime_table(n):
+    """runtime_table(n) read back as the run-time kernels read it:
+    (fdb_terms, tanh rows, sigmoid rows, 1/m!)."""
+    ints, reals = tbell.runtime_table(n)
+    assert ints[tbell.RT_ORDER] == n
+    recs, coefs = ints[tbell.RT_RECORDS], ints[tbell.RT_COEFS]
+    terms = []
+    for k in range(1, n + 1):
+        p, t, order_terms = ints[recs + k - 1], ints[coefs + k - 1], []
+        while p < ints[recs + k]:
+            m, cnt = ints[p], ints[p + 1]
+            js = ints[p + 2:p + 2 + cnt]
+            powers = tuple((j, js.count(j)) for j in dict.fromkeys(js))
+            order_terms.append((reals[t], m, powers))
+            p, t = p + 2 + cnt, t + 1
+        assert t == ints[coefs + k]
+        terms.append(tuple(order_terms))
+    rows = {}
+    for name, pos in (("tanh", tbell.RT_TANH), ("sigmoid", tbell.RT_SIGMOID)):
+        starts = ints[ints[pos]:ints[pos] + n + 2]
+        rows[name] = tuple(reals[starts[m]:starts[m + 1]] for m in range(n + 1))
+    inv = reals[ints[tbell.RT_INV_FACT]:ints[tbell.RT_INV_FACT] + n + 1]
+    return tuple(terms), rows["tanh"], rows["sigmoid"], inv
+
+
+@pytest.mark.parametrize("n", [1, 8, 10, 16])
+def test_runtime_table_decodes_to_the_tables(n):
+    """The data the run-time-order kernels (csrc/jet_runtime.cu) read
+    decodes back to fdb_terms, the Horner rows and 1/m!, exactly; orders
+    1..16 hold 914 terms."""
+    terms, tanh_rows, sigmoid_rows, inv = _decode_runtime_table(n)
+    assert terms == tbell.fdb_terms(n)
+    assert tanh_rows == tbell.tanh_poly_rows(n)
+    assert sigmoid_rows == tbell.sigmoid_poly_rows(n)
+    assert inv == tuple(1.0 / math.factorial(m) for m in range(n + 1))
+    if n == 16:
+        assert sum(len(t) for t in terms) == 914
+
+
+def _runtime_epilogue(z, activation):
+    """csrc/jet_runtime.cu::act_jet_runtime in plain torch: the table walked
+    record by record, the output orders from the highest down, each stored
+    over its input coefficient."""
+    n = z.shape[0] - 1
+    ints, reals = tbell.runtime_table(n)
+    z = [c.clone() for c in z]
+    if activation == "sin":
+        s, c = torch.sin(z[0]), torch.cos(z[0])
+        inv = ints[tbell.RT_INV_FACT]
+        f = [(s, c, -s, -c)[m % 4] * reals[inv + m] for m in range(n + 1)]
+    else:
+        u = torch.tanh(z[0]) if activation == "tanh" else 0.5 * (torch.tanh(0.5 * z[0]) + 1.0)
+        rows = ints[ints[tbell.RT_TANH if activation == "tanh" else tbell.RT_SIGMOID]:][:n + 2]
+        f = []
+        for m in range(n + 1):
+            acc = torch.full_like(u, reals[rows[m + 1] - 1])
+            for i in range(rows[m + 1] - 2, rows[m] - 1, -1):
+                acc = acc * u + reals[i]
+            f.append(acc)
+    recs, coefs = ints[tbell.RT_RECORDS], ints[tbell.RT_COEFS]
+    for k in range(n, 0, -1):
+        p, t, acc = ints[recs + k - 1], ints[coefs + k - 1], None
+        while p < ints[recs + k]:
+            m, cnt = ints[p], ints[p + 1]
+            prod = f[m] * reals[t]
+            for j in ints[p + 2:p + 2 + cnt]:
+                prod = prod * z[j]
+            acc = prod if acc is None else acc + prod
+            p, t = p + 2 + cnt, t + 1
+        z[k] = acc
+    z[0] = f[0]
+    return torch.stack(z)
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
+@pytest.mark.parametrize("n", [4, 10, 12])
+def test_runtime_epilogue_walk_equals_the_plain_version(activation, n):
+    """The run-time kernels' in-place walk of the table rounds as ref.py:
+    bit for bit in float64."""
+    from repro_torch.kernels import ref as tref
+    z = torch.tensor(np.random.default_rng(n).normal(size=(n + 1, 6, 5)) * 0.5)
+    assert torch.equal(_runtime_epilogue(z, activation), tref.act_jet_ref(z, activation))
 
 
 @pytest.mark.parametrize("name", sorted(tact.TAYLOR_STACKS))
