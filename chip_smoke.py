@@ -42,7 +42,8 @@ Phases, each failing loudly with a non-zero exit:
    same computation with the absolute value of every term: ``abs_sum``)
    and f32, at the served shapes and a ragged one each; on bfloat16 at
    the served shapes, orders 1, 4 and 10, within BF16_ULPS of the float32
-   plain version; the largest order each wrapper admits at its served
+   plain version (K1 and K2 at f32/f64 bit for bit); the largest order each
+   wrapper admits at its served
    shape and the refusal, naming the bytes, one order past it (K4 at head
    dims 160 and 256 is in phase 2's edges, with the largest head dim
    admitted at f64 order 8 and the refusal of the next);
@@ -74,7 +75,8 @@ Phases, each failing loudly with a non-zero exit:
    nearest library call (the GEMM part of K1; for K3/K4 the order-0
    function alone), the bound from bytes and operations, and per request
    kind each server's p50/p99 for ``ntp/cuda`` and eager ``ntp`` beside the
-   engine call's device time; K5 at (4, 256, 8) and (4, 1024, 8), orders 2
+   engine call's device time (also the DenseMLP's ``grid(10)``, phase 3e's
+   request: the eager engine's device time from graph replays); K5 at (4, 256, 8) and (4, 1024, 8), orders 2
    and 8 (f64), and at the memory rows' (4, 1024, 8) order 2 (f32), beside
    its plain version and softmax(scale q_0 k_0^T); K1 also
    at the trunk's (5, 16384, 32), K4 at the memory comparison's row
@@ -99,11 +101,15 @@ Phases, each failing loudly with a non-zero exit:
 7. K1 at the shapes the training phases launched it most (recorded while
    they ran), beside its plain version and bound; 7b. the run-time-order
    kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
-   16 and on bfloat16 at the served shapes;
+   16 and on bfloat16 at the served shapes, K1 beside its GEMM part alone
+   (``torch.matmul``);
 8. only with ``--against DIR`` (another checkout, e.g. the parent commit
    unpacked with ``git archive``): that checkout's K1, K2 and K4 against
    this tree's in turns (other, this, this, other) at the served shapes,
-   K4 and K5 at the memory row, K5 at the phase-4 f64 shapes, and the
+   K4 and K5 at the memory row, K5 at the phase-4 f64 shapes, the
+   run-time-order K1 at the Burgers k = 4 layers and K1/K2 at the served
+   layer at orders 10 and 16 and on bfloat16 at order 4 (RUNTIME_TURNS),
+   the DenseMLP's ``grid(10)`` engine call with either tree's K1, and the
    phase-4 trace run with its K1 and K4 as well ("before");
 9. a JSON line describing each of the five kernels, the ``nvidia-smi``
    line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -237,8 +243,9 @@ BURGERS_KS = (1, 3, 4)
 BURGERS_STEPS = {1: (30, 5), 3: (30, 5), 4: (10, 2)}      # k: (Adam, L-BFGS)
 AUTODIFF_TIMED_KS = (1, 3)
 # k = 4's steps launch ~14000 kernels each (the eager backward at order
-# 10), and tracing them took minutes of the time limit (chip run 23): its
-# times are wall and CUDA-event times, with no device-busy split
+# 10), and tracing them takes minutes of the time limit: its steps' times
+# are wall and CUDA-event times, with no device-busy split; its forward
+# alone (where the run-time K1 runs) is traced like every k's
 PROFILED_KS = (1, 3)
 OPERATOR_ADAM = 20
 OPERATOR_RUNS = (
@@ -249,6 +256,11 @@ OPERATOR_RUNS = (
 )
 # K1 timed at the Burgers k = 4 layer shapes (N1, rows, din, dout)
 BURGERS_K4_SHAPES = ((11, 512, 24, 24), (11, 128, 24, 24))
+# the run-time-order K1 (and, at the served layer, K2) in phase 8's turns:
+# (N1, rows, din, dout, dtype)
+RUNTIME_TURNS = tuple((*shape, "float64") for shape in BURGERS_K4_SHAPES) + (
+    (11, 8192, 32, 32, "float64"), (17, 8192, 32, 32, "float64"),
+    (5, 8192, 32, 32, "bfloat16"))
 # ntp/cuda vs eager ntp training from the same init and draws, relative per
 # logged loss (and lambda): both run the reference's Adam, which rounds the
 # float64 parameters through float32 each step, so one float32 rounding
@@ -337,7 +349,8 @@ def kernel_resources(build_log: str) -> list[dict]:
     """Per instantiation, from the ``-Xptxas -v`` lines of the build log:
     the kernel, its dtype and integer template arguments (decoded from the
     mangled name: N1 first; then the activation for K1/K2, the column tile
-    TN for K1, the head dims per lane DPL for K4), registers, spill bytes
+    TN for K1, the head dims per lane DPL for K4; for the run-time K1/K2
+    only whether the table is staged in shared memory), registers, spill bytes
     and static shared memory (the kernels' tiles are dynamic shared memory,
     sized per launch: see ``flash_geometry`` and jet_dense.cu)."""
     out = []
@@ -368,8 +381,11 @@ def print_resources(resources: list[dict]) -> None:
     for r in resources:
         n1 = r["template"][0] if r["template"] else None
         if r["kernel"].endswith("_rt_kernel"):
-            print(f"    {r['kernel']:34s} {r['dtype']} any N1 registers {r['registers']}, "
-                  f"spill {r['spill_store_bytes']}/{r['spill_load_bytes']} bytes")
+            table = {(): "", (0,): " table in device memory", (1,): " table staged"}.get(
+                tuple(r["template"]), f" {r['template']}")
+            print(f"    {r['kernel']:34s} {r['dtype']} any N1{table}: registers "
+                  f"{r['registers']}, spill {r['spill_store_bytes']}/"
+                  f"{r['spill_load_bytes']} bytes")
             continue
         if r["kernel"] == "jet_attention_scores_kernel":
             if n1 not in (3, 9):
@@ -838,8 +854,9 @@ def _kernel_cases(gen, n: int, dt, served_only: bool = False) -> list:
 def check_high_orders(gen, report: dict, worst: dict) -> None:
     """Phase 2, K1-K5 past the templates (csrc/jet_runtime.cu): orders
     HIGH_ORDERS at f64 (the TOL_SCALED gate) and f32 (``holds``) at the
-    shapes of ``_kernel_cases``; then bfloat16 at the served shapes,
-    orders 1, 4 and 10, held to the f32 plain version within BF16_ULPS."""
+    shapes of ``_kernel_cases``, K1 and K2 also bit for bit; then bfloat16
+    at the served shapes, orders 1, 4 and 10, held to the f32 plain version
+    within BF16_ULPS."""
     import torch
     rows = []
     for dt in (torch.float64, torch.float32):
@@ -848,7 +865,13 @@ def check_high_orders(gen, report: dict, worst: dict) -> None:
                 got = call()
                 torch.cuda.synchronize()
                 e = holds_high(got, plain, args, dt, n, f"{name} {label} {dt} order {n}")
-                worst[name] = max(worst[name], float((got - plain(*args)).abs().max()))
+                diff = float((got - plain(*args)).abs().max())
+                worst[name] = max(worst[name], diff)
+                # the dense epilogue rounds op by op as ref.py, the GEMM part
+                # as the plain version's at these shapes: bit for bit
+                require(name not in ("act_jet", "jet_dense") or diff == 0.0,
+                        f"{name} {label} {dt} order {n}: differs from its plain version "
+                        f"by {diff:.3e}, not bit for bit")
                 rows.append((name, str(dt), n, label, e))
     for n in (1, 4, 10):
         for name, label, call, plain, args in _kernel_cases(gen, n, torch.bfloat16,
@@ -877,7 +900,9 @@ def check_admitted_orders(gen, report: dict) -> None:
     order-16 output on the same inputs' first 17 planes, which is exact
     math (order m of a jet reads inputs of orders <= m).  K1/K2 are not
     launched there: their epilogue reads the Faa di Bruno table of that
-    order, whose term count grows as the partition numbers (p(453) ~ 1e20)."""
+    order, whose term count grows as the partition numbers (p(453) ~ 1e20).
+    Their smallest block (32 elements, or one row of 32 columns, the table
+    in device memory) keeps 2 n1 words an element whatever the tile."""
     import re as _re
 
     import torch
@@ -917,14 +942,14 @@ def check_admitted_orders(gen, report: dict) -> None:
         return rnd(n1, *shape, scale=scale) * decay.reshape((n1,) + (1,) * len(shape))
 
     limits = {
-        "act_jet": largest(lambda n1: k2.runtime_threads(n1, dt)[1] <= k2.SMEM_LIMIT),
+        "act_jet": largest(lambda n1: k2.act_jet_min_smem(n1, dt) <= k2.SMEM_LIMIT),
+        "jet_dense": largest(lambda n1: k2.jet_dense_min_smem(n1, dt, 32) <= k2.SMEM_LIMIT),
         "jet_rms_norm": largest(lambda n1: ka.runtime_warps(
             ka.rms_norm_runtime_words(n1), dt)[1] <= ka._SMEM_LIMIT),
         "jet_flash_attention": largest(lambda n1: ka.flash_smem_bytes(
             n1, 2, 2, 16, dt, 32) <= ka._SMEM_LIMIT),
         "jet_attention_scores": largest(lambda n1: ka.runtime_warps(
             ka.scores_runtime_words(n1, 8), dt)[1] <= ka._SMEM_LIMIT)}
-    limits["jet_dense"] = limits["act_jet"]
     calls = {
         "act_jet": lambda n1: act_jet_cuda(torch.zeros((n1, 1, 32), dtype=dt,
                                                        device=DEVICE), "tanh"),
@@ -1627,24 +1652,29 @@ def time_kernels(net, params, gen, report: dict) -> dict:
     return out
 
 
-def time_server(net, params, gen, report: dict) -> dict:
+def time_server(net, params, gen, report: dict, requests=REQUESTS[:2]) -> dict:
     """Per request kind at the 512 bucket: the server's latency (one client,
     no flush window) beside the device time of the bare engine call, whose
-    ratio is the device's busy share of a request."""
+    ratio is the device's busy share of a request.  The eager engine's
+    grid(10) enqueues more kernels than the launch queue holds, so its
+    device time comes from graph replays (no host enqueue time then)."""
     import torch
     from repro_torch.core.engines import DerivativeEngine
     from repro_torch.serving import DerivativeServer
 
     x = torch.rand((512, net.d_in), generator=gen, device=DEVICE,
                    dtype=torch.float64) * 2 - 1
-    out = {}
+    out = report.setdefault("server_latency", {})
     for spec in ("ntp/cuda", "ntp"):
         engine = DerivativeEngine.from_spec(spec)
-        for kind, req in REQUESTS[:2]:
+        for kind, req in requests:
             fn = engine.grid if kind == "grid" else engine.cross
             with torch.no_grad():
-                dev_ms, host_ms = device_time_ms(lambda: fn(net, params, x, req),
-                                                 3 if spec == "ntp/cuda" else 1)
+                if spec == "ntp" and kind == "grid" and req > 4:
+                    dev_ms, host_ms = graph_time_ms(lambda: fn(net, params, x, req), 3), None
+                else:
+                    dev_ms, host_ms = device_time_ms(lambda: fn(net, params, x, req),
+                                                     3 if spec == "ntp/cuda" else 1)
             with DerivativeServer(net, params, spec, flush_window_s=0.0) as srv:
                 call = (lambda: srv.grid(x, req)) if kind == "grid" else \
                     (lambda: srv.cross(x, req))
@@ -1661,12 +1691,14 @@ def time_server(net, params, gen, report: dict) -> dict:
             out[key] = {"p50_us": lat["p50_us"], "p99_us": lat["p99_us"],
                         "mean_us": lat["mean_us"], "requests_per_s": 100 / wall,
                         "engine_device_us": dev_ms * 1e3,
-                        "engine_host_us": host_ms * 1e3, "device_busy_share": busy}
+                        "engine_host_us": None if host_ms is None else host_ms * 1e3,
+                        "device_busy_share": busy}
+            host = "not measured (graph replay)" if host_ms is None else \
+                f"{host_ms * 1e3:.1f} us"
             print(f"  server {key}: p50 {lat['p50_us']:.1f} us, p99 "
                   f"{lat['p99_us']:.1f} us, {100 / wall:.1f} requests/s (one client); "
-                  f"engine call: device {dev_ms * 1e3:.1f} us, host enqueue "
-                  f"{host_ms * 1e3:.1f} us; device busy {100 * busy:.1f}% of p50")
-    report["server_latency"] = out
+                  f"engine call: device {dev_ms * 1e3:.1f} us, host enqueue {host}; "
+                  f"device busy {100 * busy:.1f}% of p50")
     return out
 
 
@@ -1995,8 +2027,9 @@ def compare_turns(other: dict, gen, report: dict) -> dict:
     same inputs, device time in turns other, this, this, other
     (``device_time_ms``, 100 calls each, 20 for the long ones): K1, K2 and
     K4 at the served shapes, K4 and K5 at the memory row (f32), K5 at
-    SCORES_TIMED x SCORES_TIMED_ORDERS (f64).  Outputs held to each other
-    at TOL_F64 (f64) or 4 TOL_F32 (the f32 sums over 1024 keys)."""
+    SCORES_TIMED x SCORES_TIMED_ORDERS (f64), the run-time-order K1 and K2
+    at RUNTIME_TURNS.  Outputs held to each other at TOL_F64 (f64), 4
+    TOL_F32 (the f32 sums over 1024 keys) or BF16_ULPS (bfloat16)."""
     import torch
     from repro_torch.kernels.jet_attention import (jet_attention_scores_cuda,
                                                    jet_flash_attention_cuda)
@@ -2042,12 +2075,37 @@ def compare_turns(other: dict, gen, report: dict) -> dict:
                       lambda qs=qs, ks=ks, d=d: other["jet_attention"].jet_attention_scores_cuda(
                           qs, ks, d ** -0.5),
                       lambda qs=qs, ks=ks, d=d: jet_attention_scores_cuda(qs, ks, d ** -0.5)))
+    # the run-time-order K1 and K2 (csrc/jet_runtime.cu) at the shapes of
+    # phase 7b: K1 at the Burgers k = 4 layers, both at the served layer at
+    # orders 10 and 16 and on bfloat16 at order 4
+    for n1, rows, din, dout, rname in RUNTIME_TURNS:
+        rdt = getattr(torch, rname)
+        x = (0.5 * torch.randn((n1, rows, din), generator=gen, device=DEVICE,
+                               dtype=torch.float64)).to(rdt)
+        w = (torch.randn((din, dout), generator=gen, device=DEVICE,
+                         dtype=torch.float64) / din ** 0.5).to(rdt)
+        b = (0.1 * torch.randn((dout,), generator=gen, device=DEVICE,
+                               dtype=torch.float64)).to(rdt)
+        tag = "bf16" if rdt == torch.bfloat16 else "f64"
+        cases.append((f"jet_dense run-time ({n1}, {rows}, {din})x({din}, {dout}) tanh {tag}",
+                      lambda x=x, w=w, b=b: other["jet_dense"].jet_dense_cuda(x, w, b, "tanh"),
+                      lambda x=x, w=w, b=b: jet_dense_cuda(x, w, b, "tanh")))
+        if (rows, din) == (8192, 32):
+            cases.append((f"act_jet run-time ({n1}, {rows}, {din}) tanh {tag}",
+                          lambda x=x: other["tanh_jet"].act_jet_cuda(x, "tanh"),
+                          lambda x=x: act_jet_cuda(x, "tanh")))
     for what, old, new in cases:
-        e = rel_err(new(), old(), 1)
+        got, want = new(), old()
         torch.cuda.synchronize()
-        tol = TOL_F64 if "f32" not in what else 4 * TOL_F32
-        require(e <= tol, f"{what}: this tree vs the other checkout {e:.3e}")
-        reps = 20 if "memory" in what or "scores" in what else 100
+        if what.endswith("bf16"):
+            e = bf16_ulps(got, want)
+            require(e <= BF16_ULPS, f"{what}: this tree vs the other checkout {e:.2f} bf16 "
+                                    f"ulps of the plane max")
+        else:
+            e = rel_err(got, want, 1)
+            tol = TOL_F64 if "f32" not in what else 4 * TOL_F32
+            require(e <= tol, f"{what}: this tree vs the other checkout {e:.3e}")
+        reps = 20 if any(w in what for w in ("memory", "scores", "run-time")) else 100
         turns = [device_time_ms(fn, reps, what=what)[0] for fn in (old, new, new, old)]
         out[what] = {"turns_ms": turns, "order": ["other", "this", "this", "other"],
                      "rel_err": e}
@@ -2055,6 +2113,44 @@ def compare_turns(other: dict, gen, report: dict) -> dict:
               f"{turns[2] * 1e3:.2f} / other {turns[3] * 1e3:.2f} us (outputs agree to "
               f"{e:.1e})")
     report["turns"] = out
+    return out
+
+
+def engine_turns(other: dict, net, params, gen, report: dict) -> dict:
+    """Phase 8: the served DenseMLP ``grid(DENSE_GRID_ORDER)`` engine call
+    at 512 rows (four run-time K1 launches) with the other checkout's K1
+    and with this tree's, device time in turns other, this, this, other;
+    the tables held to each other at TOL_F64."""
+    import torch
+    from repro_torch.core.engines import DerivativeEngine
+    from repro_torch.kernels import ops
+
+    x = torch.rand((512, net.d_in), generator=gen, device=DEVICE,
+                   dtype=torch.float64) * 2 - 1
+    engine = DerivativeEngine.from_spec("ntp/cuda")
+
+    def call(k1):
+        def fn():
+            saved = ops._k1.jet_dense_cuda
+            ops._k1.jet_dense_cuda = k1
+            try:
+                with torch.no_grad():
+                    return engine.grid(net, params, x, DENSE_GRID_ORDER)
+            finally:
+                ops._k1.jet_dense_cuda = saved
+        return fn
+
+    old, new = call(other["jet_dense"].jet_dense_cuda), call(ops._k1.jet_dense_cuda)
+    e = rel_err(new(), old(), 2)
+    require(e <= TOL_F64, f"grid({DENSE_GRID_ORDER}) engine call: this tree vs the other "
+                          f"checkout {e:.3e}")
+    turns = [device_time_ms(fn, 3, what="grid engine call")[0] for fn in (old, new, new, old)]
+    what = f"DenseMLP grid({DENSE_GRID_ORDER}) engine call N=512"
+    print(f"  {what}: other {turns[0] * 1e3:.2f} / this {turns[1] * 1e3:.2f} / this "
+          f"{turns[2] * 1e3:.2f} / other {turns[3] * 1e3:.2f} us of device time (tables "
+          f"agree to {e:.1e})")
+    out = report.setdefault("turns", {})[what] = {
+        "turns_ms": turns, "order": ["other", "this", "this", "other"], "rel_err": e}
     return out
 
 
@@ -2159,11 +2255,17 @@ def time_new_instantiations(gen, report: dict) -> dict:
         nbytes, flops = kernel_cost(name, args, n1)
         dtype = str(args[0].dtype)
         bound = bound_ms(nbytes, flops, dtype)
-        out.setdefault(name, {})[label] = {
+        entry = out.setdefault(name, {})[label] = {
             "ms": ms, "host_ms": host, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "bytes": nbytes, "flops": flops}
+        gemm = ""
+        if name == "jet_dense":      # the GEMM part alone, one library call
+            x, w = args[0].reshape(-1, args[0].shape[-1]), args[1]
+            entry["gemm_only_ms"] = device_time_ms(lambda: torch.matmul(x, w), 20)[0]
+            gemm = f", GEMM part alone {entry['gemm_only_ms'] * 1e3:.2f} us"
         print(f"  {name} {label}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound "
-              f"{bound[0] * 1e3:.2f} us by {bound[1]}; host dispatch {host * 1e3:.2f} us)")
+              f"{bound[0] * 1e3:.2f} us by {bound[1]}{gemm}; host dispatch "
+              f"{host * 1e3:.2f} us)")
     report["runtime_kernel_times"] = out
     return out
 
@@ -2241,7 +2343,8 @@ def step_times(loss_fn, ps, batch, spec: str, lr: float, profiled: bool = True) 
     """Times of one Adam step of ``loss_fn`` from ``ps`` and of its forward
     alone (the loss under autograd, no backward): the rest of a step is the
     eager backward and the update.  ``profiled`` adds the device-busy
-    split (never for autodiff: its traces run to millions of events)."""
+    split of the step (never for autodiff: its traces run to millions of
+    events); the forward's is taken for every engine but autodiff."""
     import torch
     from repro_torch.optim import adam_init
     from repro_torch.pinn.trainer import adam_step
@@ -2260,7 +2363,7 @@ def step_times(loss_fn, ps, batch, spec: str, lr: float, profiled: bool = True) 
     reps = TIMED_STEPS[spec]
     profiled = profiled and spec != "autodiff"
     out = {"adam_step": time_steps(step, reps, profiled),
-           "forward": time_steps(forward, reps, profiled)}
+           "forward": time_steps(forward, reps, spec != "autodiff")}
     torch.cuda.synchronize()
     return out
 
@@ -2387,6 +2490,10 @@ def train_burgers(seed: int, report: dict) -> dict:
                          f"{f['busy_ms']:.2f} ms of it, the port's kernels "
                          f"{kernel_ms(a['profile']):.3f} ms; wall forward "
                          f"{tm['forward']['wall_ms']:.2f} ms)")
+            elif tm["forward"].get("profile"):
+                f = tm["forward"]["profile"]
+                line += (f"; forward busy {f['busy_ms']:.2f} ms (the port's kernels "
+                         f"{kernel_ms(f):.3f} ms; wall {tm['forward']['wall_ms']:.2f} ms)")
             if "lbfgs_iteration" in tm:
                 li = tm["lbfgs_iteration"]
                 line += f"; L-BFGS iteration wall {li['wall_ms']:.2f} ms, events {li['event_ms']:.2f} ms"
@@ -2596,6 +2703,8 @@ def main(argv=None) -> int:
     phase("4", "times (CUDA events, warm L2, back-to-back device work)")
     times = time_kernels(net, params, gen, report)
     time_server(net, params, gen, report)
+    # the DenseMLP served past the templates (phase 3e's request)
+    time_server(net, params, gen, report, (("grid", DENSE_GRID_ORDER),))
     trunk_times = time_trunk_kernels(gen, report)
     time_trunk_server(trunk, trunk_params, gen, report)
     scores_times = time_scores_kernel(gen, report)
@@ -2619,6 +2728,7 @@ def main(argv=None) -> int:
         phase("8", f"K1, K2, K4 and K5 of {args.against} (other) against this tree's, "
                    f"in turns")
         compare_turns(other, gen, report)
+        engine_turns(other, net, params, gen, report)
     phase("", "")
 
     paths = {"dense_mlp": launches, "transformer": trunk_launches,
@@ -2698,7 +2808,8 @@ def main(argv=None) -> int:
                          for key, v in scores_times.items()}})
     for k in kernels:      # the run-time-order kernel of each (phase 7b)
         k["runtime_shapes"] = {label: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                                          "bound_by")}
+                                                          "bound_by", "gemm_only_ms")
+                                       if f in v}
                                for label, v in runtime_times.get(k["name"], {}).items()}
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

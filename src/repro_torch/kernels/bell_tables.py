@@ -66,37 +66,72 @@ def flop_estimate(n: int, batch: int, width: int) -> int:
 # csrc/jet_runtime.cu: the same tables as data, any order
 # ---------------------------------------------------------------------------
 
-# Header of runtime_table's int array: the order, then where each section
-# starts (csrc/jet_runtime.cu reads the same positions).
-RT_ORDER, RT_RECORDS, RT_COEFS, RT_TANH, RT_SIGMOID, RT_INV_FACT = range(6)
-RT_HEADER = 6
+# Header of runtime_table's int array: the order, the number of slots, then
+# where each section starts (csrc/jet_runtime.cu reads the same positions).
+(RT_ORDER, RT_SLOTS, RT_SLOT_START, RT_SLOT_ORDERS, RT_ORDER_RECORDS, RT_RECORDS,
+ RT_TANH, RT_SIGMOID, RT_INV_FACT) = range(9)
+RT_HEADER = 9
+# A term is a record of 4 ints (one 16-byte load): its part count m, its
+# parts z_1 .. z_RT_LOW_PARTS counted 8 bits a part (the kernels keep those
+# coefficients in registers), the count of its larger parts, and the first
+# RT_INLINE_PARTS of them 8 bits each, so that the kernels' loads of their
+# coefficients wait for the record alone (more, past order 24, are
+# listed).  Orders past 255 would overflow the 8-bit fields.
+RT_LOW_PARTS = 4
+RT_INLINE_PARTS = 4
+RT_RECORD_INTS = 4
+RT_MAX_ORDER = 255
+# both arrays are padded to whole 16-byte pieces, which the kernels copy
+# into shared memory with 16-byte cp.async copies
+RT_INT_ALIGN, RT_REAL_ALIGN = 4, 2
+
+
+@lru_cache(maxsize=None)
+def order_slots(n: int) -> Tuple[Tuple[int, ...], ...]:
+    """The output orders 1..n grouped into slots, one slot a thread of the
+    run-time dense epilogue: first-fit decreasing by term count p(k), with
+    room p(n) (the largest), so that no slot sums more terms than order n
+    alone and the critical path is p(n) terms instead of sum_k p(k)."""
+    counts = {k: len(t) for k, t in enumerate(fdb_terms(n), start=1)}
+    room = max(counts.values(), default=0)
+    slots: list = []          # [terms, [orders]]
+    for k in sorted(counts, key=lambda k: (-counts[k], k)):
+        slot = next((s for s in slots if s[0] + counts[k] <= room), None)
+        if slot is None:
+            slots.append([counts[k], [k]])
+        else:
+            slot[0] += counts[k]
+            slot[1].append(k)
+    return tuple(tuple(orders) for _, orders in slots)
 
 
 @lru_cache(maxsize=None)
 def runtime_table(n: int) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
     """The epilogue's tables for orders 1..n as two flat arrays ``(ints,
-    reals)``, for the run-time-order kernels.
+    reals)``, for the run-time-order kernels: a schedule whose every load
+    address follows from loop counters, never from a loaded count.
 
-    ``ints[:RT_HEADER]`` is the order and the start of each section.
-    ``ints[ints[RT_RECORDS] + k - 1]`` (k = 1..n+1) is where the records of
-    output order k start in ``ints`` (k = n + 1: where the last ends); a
-    record is one Faa di Bruno term ``(m, count, j_1, .., j_count)``, the
-    factors z_j in the order ref.py multiplies them.  ``ints[ints[RT_COEFS]
-    + k - 1]`` is the index in ``reals`` of order k's first term
-    coefficient.  ``ints[ints[RT_TANH] + m]`` (m = 0..n+1) bound Horner row
-    m of tanh in ``reals`` (low -> high), likewise ``RT_SIGMOID``;
-    ``reals[ints[RT_INV_FACT] + m]`` is 1 / m!, the sin stack's factor."""
+    ``ints[:RT_HEADER]`` is the order, the slot count S and the start of
+    each section.  Slot s (:func:`order_slots`) holds the orders
+    ``slot_orders[slot_start[s]:slot_start[s + 1]]``.  Faa di Bruno terms
+    are numbered r = 0.. order by order, each order in fdb_terms' order:
+    order k's are ``order_records[k - 1] <= r < order_records[k]``.  Term r
+    is ``reals[r] F_m z_1^e_1 .. z_4^e_4 prod_i z_{j_i}``, multiplied in
+    that order (ref.py's: parts ascending); its record ``records[4 r:4 r +
+    4]`` is (m, e_1..e_4, h + 256 start, j_1..j_4), the e and j packed 8
+    bits each, lowest first: m the count of all parts, h of the larger
+    parts j_1..j_h, the first four inline (0 past the last), the rest at
+    ``ints[start:start + h - 4]``.
+    ``ints[ints[RT_TANH] + m]`` (m = 0..n+1) bound Horner row m of tanh
+    in ``reals`` (low -> high), likewise ``RT_SIGMOID``;
+    ``reals[ints[RT_INV_FACT] + m]`` is 1 / m!, the sin stack's factor.
+    Both arrays end in zeros up to whole 16-byte pieces."""
+    if n > RT_MAX_ORDER:
+        raise ValueError(f"the run-time table counts parts in 8 bits: order {n} > "
+                         f"{RT_MAX_ORDER}")
     terms = fdb_terms(n)
-    ints = [n] + [0] * (RT_HEADER - 1)
-    reals: list = []
-    records, coef_start = [], []
-    for order_terms in terms:
-        coef_start.append(len(reals))
-        for coef, m, powers in order_terms:
-            reals.append(coef)
-            factors = [j for j, e in powers for _ in range(e)]
-            records.append((m, len(factors), *factors))
-    coef_start.append(len(reals))
+    slots = order_slots(n)
+    reals = [coef for order_terms in terms for coef, _, _ in order_terms]
     row_starts = {}
     for name, rows in (("tanh", tanh_poly_rows(n)), ("sigmoid", sigmoid_poly_rows(n))):
         row_starts[name] = []
@@ -107,21 +142,34 @@ def runtime_table(n: int) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
     inv_fact = len(reals)
     reals.extend(1.0 / math.factorial(m) for m in range(n + 1))
 
-    ints[RT_COEFS] = len(ints)
-    ints += coef_start
-    ints[RT_TANH] = len(ints)
-    ints += row_starts["tanh"]
-    ints[RT_SIGMOID] = len(ints)
-    ints += row_starts["sigmoid"]
+    ints = [0] * RT_HEADER
+    ints[RT_ORDER], ints[RT_SLOTS], ints[RT_INV_FACT] = n, len(slots), inv_fact
+    ints[RT_SLOT_START] = len(ints)
+    ints += [sum(map(len, slots[:s])) for s in range(len(slots) + 1)]
+    ints[RT_SLOT_ORDERS] = len(ints)
+    ints += [k for orders in slots for k in orders]
+    ints[RT_ORDER_RECORDS] = len(ints)
+    ints += [sum(map(len, terms[:k])) for k in range(n + 1)]
+    for name, pos in (("tanh", RT_TANH), ("sigmoid", RT_SIGMOID)):
+        ints[pos] = len(ints)
+        ints += row_starts[name]
+    ints += [0] * (-len(ints) % RT_INT_ALIGN)          # records load 16 bytes at once
     ints[RT_RECORDS] = len(ints)
-    ints += [0] * (n + 1)
-    for k in range(n):
-        ints[ints[RT_RECORDS] + k] = len(ints)
-        first = sum(len(t) for t in terms[:k])
-        for rec in records[first:first + len(terms[k])]:
-            ints += rec
-    ints[ints[RT_RECORDS] + n] = len(ints)
-    ints[RT_INV_FACT] = inv_fact
+    records = [(m, powers) for order_terms in terms for _, m, powers in order_terms]
+    at = len(ints) + RT_RECORD_INTS * len(records)
+    high = [[j for j, e in powers if j > RT_LOW_PARTS for _ in range(e)]
+            for _, powers in records]
+    for (m, powers), js in zip(records, high):
+        counts = dict(powers)
+        assert sum(counts.values()) == m, "a term's part count is its F order"
+        ints += [m, sum(counts.get(j, 0) << (8 * (j - 1)) for j in range(1, RT_LOW_PARTS + 1)),
+                 len(js) + (at << 8),
+                 sum(j << (8 * i) for i, j in enumerate(js[:RT_INLINE_PARTS]))]
+        at += max(0, len(js) - RT_INLINE_PARTS)
+    for js in high:
+        ints += js[RT_INLINE_PARTS:]
+    ints += [0] * (-len(ints) % RT_INT_ALIGN)
+    reals += [0.0] * (-len(reals) % RT_REAL_ALIGN)
     return tuple(ints), tuple(float(r) for r in reals)
 
 

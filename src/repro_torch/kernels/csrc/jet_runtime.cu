@@ -14,27 +14,56 @@
 // they do instead of the templates:
 //
 // * N1 is a run-time argument, so every per-element jet lives in shared
-//   memory, laid out [coefficient][thread] (or [coefficient][lane]) so a
-//   warp's accesses hit distinct banks; the wrappers size blocks so that
-//   the working set fits (jet_attention.py / tanh_jet.py mirror each
-//   formula) and refuse, naming the bytes, only where one warp does not.
-// * The dense epilogue (K1, K2) walks the tables of
-//   bell_tables.py::runtime_table, read from device memory: each output
-//   order's terms as records (m, count, j_1..j_count) with their
-//   coefficients, the tanh / sigmoid Horner rows, 1/m! for sin.  Every
-//   thread of a warp reads the same record (one broadcast load), and the
-//   products and sums round one by one, in ref.py's order, as in the
-//   templated epilogue.  The output orders are computed from the highest
-//   down, each stored over its input coefficient, which no lower order
-//   reads.
+//   memory; the wrappers size blocks so that the working set fits
+//   (jet_attention.py / tanh_jet.py mirror each formula) and refuse, naming
+//   the bytes, only where the smallest block does not.
 // * bfloat16 is loaded into float, computed on the float path (FMAs; no
 //   tensor cores) and rounded to bfloat16 once, on the store: the
 //   reference's promote_types(dtype, float32).
 //
-// Designs, one a kernel: K2 a thread per element; K1 a thread per output
-// element (row, column), its N1 dot products over Din straight from device
-// memory (x broadcast across the row's threads, w coalesced), the bias on
-// c_0, then the epilogue; K3 a warp per row (lanes over W, warp sums of the
+// K1 and K2, the dense path (the Burgers k = 4 net trains at N1 = 11 and
+// the DenseMLP serves grid(10) through them).  Their epilogue is the Faa di
+// Bruno sum out_k = sum_{p in P(k)} C_p F_|p| prod_j z_j^{p_j}: p(k) terms
+// of order k, sum_k p(k) in all (138 at order 10, 914 at 16), each a chain
+// of products, every order independent of the others.  Walked by one thread
+// an element, as one chain of table loads, that chain is the kernel's time
+// wherever the elements do not fill the card (the Burgers layers: 12288
+// elements).  This design:
+//
+// * Spread over (element, output order).  bell_tables.order_slots packs the
+//   orders into slots of at most p(n) terms (first-fit decreasing: 4 slots
+//   at orders 9-16), and a warp takes one slot for 32 lanes x kLane<T>
+//   elements: the critical path falls from sum_k p(k) terms to p(n) (138 ->
+//   42 at order 10, 914 -> 231 at order 16).  Each order's terms are still
+//   summed one by one from zero in ref.py's order, each product multiplied
+//   left to right, so K1 and K2 equal their plain versions bit for bit at
+//   f32 and f64.  Orders are stored straight out.
+// * A flat schedule.  A term is one 16-byte record (its part count m, the
+//   counts of the parts 1..4, its first four larger parts), at an address
+//   that follows from the term's index: no load waits for another record,
+//   and the coefficients the term multiplies wait for its record alone.
+//   The table is staged once per block by cp.async where it fits beside
+//   the tile (24 KB at order 16), else read from device memory.
+// * Registers where the data allow.  The parts 1..4 make up 80-90% of all
+//   factors at orders 10-16; a lane keeps z_1..z_4 of its elements in
+//   registers and multiplies by them as often as the record counts, with
+//   no load.  A lane takes kLane<T> neighbouring elements (32 bytes: 4
+//   doubles, 8 floats), so every table load, loop step and vector load of
+//   F_m serves that many products, and their chains run side by side.
+// * The Taylor stack F once per element: the primal (tanh, sigmoid; sin's
+//   whole stack) a thread an element, then the Horner rows a thread an
+//   (m, kLane elements), into shared memory.
+// * K1's GEMM part tiled: a block's tile is rows x up to 32 output
+//   columns, all N1 planes; x's rows (plane, batch row) and w staged by
+//   cp.async (kc input columns at a time) in F's room, a thread keeping one
+//   column of kRowTile rows in registers, each an FMA chain in input order
+//   from zero, as the plain version's GEMM at these shapes.
+// * A persistent grid: as many blocks as the SMs hold, walking the tiles,
+//   so each block stages the table once.  Small inputs shrink the tile
+//   until the grid covers the SMs twice (the Burgers layers: one row of 24
+//   columns a block).
+//
+// K3-K5: K3 a warp per row (lanes over W, warp sums of the
 // mean-square jet, lane 0 runs the rsqrt recurrence); K4 a warp per
 // (row, query), lanes over the head dims in steps of 32 (any Dh), per head
 // two passes over the kept keys (the max of s_0, then the e-jets, totals
@@ -47,15 +76,19 @@
 // scores.
 //
 // Bound on the H100: the same as the templated kernels' (bytes; FP64
-// operations for K1/K2 at high orders), but these are simple kernels that
-// are right, not fast: the epilogue is a chain of dependent table loads,
-// K1 re-reads its row of x for every output column (from L1), K4 and K5
+// operations for K1/K2 at high orders).  K1/K2's walk is bounded by the
+// instructions around its products (a term's loads and loop steps) and
+// their latency, not by the FP64 pipe; PERF.md has their times against the
+// bound.  K3-K5 are simple kernels that are right, not fast: K4 and K5
 // re-read keys and values per query from L2 and reduce each score
-// coefficient across the warp.  Their times against the bound are in
-// PERF.md; making them fast is later work.
+// coefficient across the warp.
 #include <cuda_bf16.h>
 
+#include <algorithm>
+#include <type_traits>
+
 #include "act_jet.cuh"  // jetk::Act, jetk::DType, fdb::mul / fdb::add, dev_tanh / sin / cos
+#include "cp_async.cuh"
 
 namespace {
 
@@ -67,8 +100,8 @@ constexpr int kMaxWarps = 8;         // warps of a K3/K4/K5 block, at most
 constexpr double kMaskNeg = -1e30;
 enum Mask : int { kMaskNone = 0, kMaskCausal = 1, kMaskLocal = 2 };
 // positions of bell_tables.runtime_table's header
-enum Table : int { kOrder = 0, kRecords = 1, kCoefs = 2, kTanhRows = 3, kSigmoidRows = 4,
-                   kInvFact = 5 };
+enum Table : int { kOrder = 0, kSlots = 1, kSlotStart = 2, kSlotOrders = 3, kOrderRecords = 4,
+                   kRecords = 5, kTanhRows = 6, kSigmoidRows = 7, kInvFact = 8 };
 
 // storage type S, computed in Compute<S>::T
 template <typename S>
@@ -111,94 +144,407 @@ __device__ __forceinline__ T warp_max(T v) {
   return v;
 }
 
-// z[k * stride] <- sigma(z) as a jet for k < n1 (the tables of order
-// n1 - 1); f is scratch of the same layout.  A no-op for kNone.
+// ---------------------------------------------------------------------------
+// K2 and K1: the dense epilogue spread over (element, output order)
+// ---------------------------------------------------------------------------
+
+constexpr int kDenseMaxWarps = 8;    // warps of a K1/K2 block, at most (tanh_jet._DENSE_WARPS)
+constexpr int kDenseCols = 32;       // K1: output columns of a tile, at most
+constexpr int kRowTile = 8;          // K1: (plane, row) pairs a GEMM thread keeps in registers
+constexpr int kMaxKc = 32;           // K1: input columns staged at a time, at most
+
+// 16 bytes of T, one vector load.
 template <typename T>
-__device__ void act_jet_runtime(int act, int n1, const int* __restrict__ tab,
-                                const double* __restrict__ re, T* z, T* f, int stride) {
-  if (act == kNone) return;
-  const T z0 = z[0];
-  if (act == kSin) {
-    const T s = dev_sin(z0), c = dev_cos(z0);
-    const double* inv = re + tab[kInvFact];
-    for (int m = 0; m < n1; ++m) {
-      const T v = (m % 4 == 0) ? s : (m % 4 == 1) ? c : (m % 4 == 2) ? -s : -c;
-      f[m * stride] = fdb::mul(v, T(inv[m]));
-    }
+struct alignas(16) Lane16 {
+  T v[16 / sizeof(T)];
+};
+
+// Bytes of `words` compute-type words, rounded up to 16 (the table follows).
+__host__ __device__ __forceinline__ int64_t tile_bytes(int64_t words, int item) {
+  return (words * item + 15) / 16 * 16;
+}
+// Words of a K1/K2 tile (tanh_jet.dense_smem): the stacks z and F, n1 words
+// an element of epad; K1's GEMM staging shares F's room.
+__host__ __device__ __forceinline__ int64_t dense_words(int n1, int epad, int64_t stage) {
+  const int64_t stacks = static_cast<int64_t>(n1) * epad;
+  return stacks + (stage > stacks ? stage : stacks);
+}
+// K1's GEMM staging: x rows (plane, row) padded to kRowTile, kc words
+// each, then kc rows of w.
+__host__ __device__ __forceinline__ int64_t stage_words(int n1, int rows, int kc, int cols) {
+  const int64_t nqp = (static_cast<int64_t>(n1) * rows + kRowTile - 1) / kRowTile * kRowTile;
+  return (nqp + cols) * kc;
+}
+
+// Where element e of a tile goes in an output plane.  K2: a run of
+// elements from base.
+struct ElemRun {
+  int64_t base, count;
+  __device__ bool valid(int e) const { return base + e < count; }
+  __device__ int64_t at(int e) const { return base + e; }
+};
+// K1: element e = r * cols + c of a tile of rows x cols from (b0, o0) of
+// the (B, Dout) plane.
+struct ElemTile {
+  int64_t b0, bsz;
+  int o0, cols, dout;
+  __device__ bool valid(int e) const { return b0 + e / cols < bsz && o0 + e % cols < dout; }
+  __device__ int64_t at(int e) const { return (b0 + e / cols) * dout + o0 + e % cols; }
+};
+
+// One element of a stack into a shared tile: by cp.async where the storage
+// type is the compute type (zero-filled when !ok; `any` is a valid address),
+// else loaded and widened (bfloat16).
+template <typename S, typename T>
+__device__ __forceinline__ void stage_elem(T* dst, const S* src, const S* any, bool ok) {
+  if constexpr (std::is_same<S, T>::value) {
+    cp_async_elem(dst, ok ? src : any, ok);
   } else {
-    const T u = act == kTanh ? dev_tanh(z0) : T(0.5) * (dev_tanh(T(0.5) * z0) + T(1));
-    const int* rows = tab + tab[act == kTanh ? kTanhRows : kSigmoidRows];
-    for (int m = 0; m < n1; ++m) {
+    *dst = ok ? ld(src) : T(0);
+  }
+}
+
+// The table into shared memory by 16-byte cp.async copies (runtime_table
+// pads both arrays to whole pieces); the caller's next wait covers them.
+__device__ __forceinline__ void stage_table(int* ts, const int* tab, int n_ints, double* rs,
+                                            const double* re, int n_reals) {
+  for (int i = 4 * threadIdx.x; i < n_ints; i += 4 * blockDim.x) cp_async_16(ts + i, tab + i, true);
+  for (int i = 2 * threadIdx.x; i < n_reals; i += 2 * blockDim.x) cp_async_16(rs + i, re + i, true);
+}
+
+// Horner row m of a Taylor stack (rows bound each row in re, low -> high) at u.
+template <typename T>
+__device__ __forceinline__ T horner(const int* rows, const double* re, int m, T u) {
+  const int lo = rows[m], hi = rows[m + 1];
+  T acc = T(re[hi - 1]);
+  for (int i = hi - 2; i >= lo; --i) acc = fdb::add(fdb::mul(acc, u), T(re[i]));
+  return acc;
+}
+
+// kLane<T> neighbouring elements of a tile, which one lane of the epilogue
+// takes (tanh_jet.lane_elems): each table load, loop step and vector load
+// from shared memory serves kLane products, and the lane's kLane chains of
+// products run side by side.  32 bytes of compute type: 4 doubles, 8 floats.
+template <typename T>
+constexpr int kLane = 32 / static_cast<int>(sizeof(T));
+
+template <typename T>
+struct alignas(16) Lane {
+  T v[kLane<T>];
+};
+template <typename T>
+__device__ __forceinline__ Lane<T> ldl(const T* p) {
+  return *reinterpret_cast<const Lane<T>*>(p);
+}
+template <typename T>
+__device__ __forceinline__ void mul_lane(Lane<T>& p, const Lane<T>& x) {
+#pragma unroll
+  for (int i = 0; i < kLane<T>; ++i) p.v[i] = fdb::mul(p.v[i], x.v[i]);
+}
+template <typename T>
+__device__ __forceinline__ void add_lane(Lane<T>& acc, const Lane<T>& x) {
+#pragma unroll
+  for (int i = 0; i < kLane<T>; ++i) acc.v[i] = fdb::add(acc.v[i], x.v[i]);
+}
+// p <- p * x, `count` times (a count the warp shares)
+template <typename T>
+__device__ __forceinline__ void mul_lane_pow(Lane<T>& p, const Lane<T>& x, unsigned count) {
+#pragma unroll 2
+  for (; count > 0; --count) mul_lane(p, x);
+}
+
+// A lane's z_1 .. z_4, kept in registers.
+template <typename T>
+struct Low {
+  Lane<T> z1, z2, z3, z4;
+};
+
+// Output order k of a lane's elements (z, f their stacks, `stride` apart;
+// low their z_1..z_4): the order's terms r, each C_r F_m z_1^e_1 ..
+// z_4^e_4 z_j1 .. z_jh multiplied left to right, summed one by one from
+// zero in ref.py's order.  A term's record is one 16-byte load, (m, e_1..e_4,
+// h + 256 start, j_1..j_4) packed 8 bits a field, at an address that follows
+// from r alone; the loads of F_m and z_j1..z_j4 wait for the record and
+// nothing else (parts past the fourth larger one, from order 25, are listed
+// at start).
+template <typename T>
+__device__ __forceinline__ Lane<T> order_sum(int k, const int* tab, const double* re, const T* z,
+                                             const T* f, int stride, const Low<T>& low) {
+  const int* first = tab + tab[kOrderRecords];
+  const int4* records = reinterpret_cast<const int4*>(tab + tab[kRecords]);
+  Lane<T> acc;
+#pragma unroll
+  for (int i = 0; i < kLane<T>; ++i) acc.v[i] = T(0);
+  for (int r = first[k - 1]; r < first[k]; ++r) {
+    const int4 rec = records[r];
+    const T c = T(re[r]);
+    Lane<T> prod = ldl(f + rec.x * stride);
+#pragma unroll
+    for (int i = 0; i < kLane<T>; ++i) prod.v[i] = fdb::mul(prod.v[i], c);
+    const unsigned e = static_cast<unsigned>(rec.y), j = static_cast<unsigned>(rec.w);
+    mul_lane_pow(prod, low.z1, e & 255u);
+    mul_lane_pow(prod, low.z2, (e >> 8) & 255u);
+    mul_lane_pow(prod, low.z3, (e >> 16) & 255u);
+    mul_lane_pow(prod, low.z4, e >> 24);
+    const int h = rec.z & 255;
+    if (h > 0) {
+      mul_lane(prod, ldl(z + (j & 255u) * stride));
+      if (h > 1) {
+        mul_lane(prod, ldl(z + ((j >> 8) & 255u) * stride));
+        if (h > 2) {
+          mul_lane(prod, ldl(z + ((j >> 16) & 255u) * stride));
+          if (h > 3) {
+            mul_lane(prod, ldl(z + (j >> 24) * stride));
+            for (int i = rec.z >> 8; i < (rec.z >> 8) + h - 4; ++i)
+              mul_lane(prod, ldl(z + tab[i] * stride));
+          }
+        }
+      }
+    }
+    add_lane(acc, prod);
+  }
+  return acc;
+}
+
+// The activation jet of a tile's `elems` elements whose stacks are in z
+// ([coefficient][epad], epad a multiple of 32), stored to out (planes `plane`
+// apart, element e at map.at(e)); f is the Taylor stack's room.  Three
+// phases, each closed by __syncthreads(): (1) a thread an element: the
+// primal u into f[0] (tanh, sigmoid; for sin the whole stack) and out_0;
+// (2) a thread an (m, kLane elements): Horner row m at u into f[m]; (3) a
+// warp a (group of 32 kLane elements, slot of the table's schedule): each
+// output order of the slot, stored straight out.  Orders read z and F
+// only, so none waits for another, and the longest slot sums p(n) terms.
+template <typename S, typename T, typename Map>
+__device__ __forceinline__ void dense_epilogue(int act, int n1, int elems, int epad,
+                                               const int* tab, const double* re, const T* z,
+                                               T* f, S* out, int64_t plane, Map map) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int* rows = tab + tab[act == kTanh ? kTanhRows : kSigmoidRows];
+  for (int e = tid; e < elems; e += nthreads) {
+    const T z0 = z[e];
+    if (act == kSin) {
+      const T s = dev_sin(z0), c = dev_cos(z0);
+      const double* inv = re + tab[kInvFact];
+      for (int m = 0; m < n1; ++m) {
+        const T v = (m % 4 == 0) ? s : (m % 4 == 1) ? c : (m % 4 == 2) ? -s : -c;
+        f[m * epad + e] = fdb::mul(v, T(inv[m]));
+      }
+      if (map.valid(e)) st(out + map.at(e), f[e]);
+    } else {
+      const T u = act == kTanh ? dev_tanh(z0) : T(0.5) * (dev_tanh(T(0.5) * z0) + T(1));
+      f[e] = u;
+      if (map.valid(e)) st(out + map.at(e), horner(rows, re, 0, u));
+    }
+  }
+  __syncthreads();
+  if (act != kSin) {
+    const int chunks = epad / kLane<T>;
+    for (int i = tid; i < (n1 - 1) * chunks; i += nthreads) {
+      const int m = 1 + i / chunks, e = (i - (m - 1) * chunks) * kLane<T>;
+      if (e >= elems) continue;
+      const Lane<T> u = ldl(f + e);
       const int lo = rows[m], hi = rows[m + 1];
-      T acc = T(re[hi - 1]);
-      for (int i = hi - 2; i >= lo; --i) acc = fdb::add(fdb::mul(acc, u), T(re[i]));
-      f[m * stride] = acc;
+      Lane<T> acc;
+#pragma unroll
+      for (int j = 0; j < kLane<T>; ++j) acc.v[j] = T(re[hi - 1]);
+      for (int h = hi - 2; h >= lo; --h) {
+        const T c = T(re[h]);
+#pragma unroll
+        for (int j = 0; j < kLane<T>; ++j) acc.v[j] = fdb::add(fdb::mul(acc.v[j], u.v[j]), c);
+      }
+      *reinterpret_cast<Lane<T>*>(f + m * epad + e) = acc;
+    }
+    __syncthreads();
+  }
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int slots = tab[kSlots], groups = (elems + 32 * kLane<T> - 1) / (32 * kLane<T>);
+  const int* slot_start = tab + tab[kSlotStart];
+  const int* slot_orders = tab + tab[kSlotOrders];
+  for (int it = warp; it < groups * slots; it += nwarps) {
+    const int g = it / slots, s = it - g * slots, e0 = (g * 32 + lane) * kLane<T>;
+    if (e0 >= elems) continue;
+    int64_t at[kLane<T>];
+    unsigned ok = 0;
+#pragma unroll
+    for (int i = 0; i < kLane<T>; ++i) {
+      ok |= (e0 + i < elems && map.valid(e0 + i)) ? 1u << i : 0u;
+      at[i] = map.at(e0 + i);
+    }
+    const T* ze = z + e0;
+    Lane<T> zero;
+#pragma unroll
+    for (int i = 0; i < kLane<T>; ++i) zero.v[i] = T(0);
+    const Low<T> low{n1 > 1 ? ldl(ze + epad) : zero, n1 > 2 ? ldl(ze + 2 * epad) : zero,
+                     n1 > 3 ? ldl(ze + 3 * epad) : zero, n1 > 4 ? ldl(ze + 4 * epad) : zero};
+    for (int i = slot_start[s]; i < slot_start[s + 1]; ++i) {
+      const int k = slot_orders[i];
+      const Lane<T> v = order_sum(k, tab, re, ze, f + e0, epad, low);
+#pragma unroll
+      for (int j = 0; j < kLane<T>; ++j)
+        if (ok & (1u << j)) st(out + k * plane + at[j], v.v[j]);
     }
   }
-  const int* recs = tab + tab[kRecords];   // recs[k - 1]: order k's first record
-  const int* coefs = tab + tab[kCoefs];    // coefs[k - 1]: order k's first coefficient
-  for (int k = n1 - 1; k >= 1; --k) {
-    const int end = recs[k];
-    int t = coefs[k - 1];
-    T acc = T(0);
-    for (int p = recs[k - 1]; p < end; ++t) {
-      const int m = tab[p], cnt = tab[p + 1];
-      T prod = fdb::mul(f[m * stride], T(re[t]));
-      for (int i = 0; i < cnt; ++i) prod = fdb::mul(prod, z[tab[p + 2 + i] * stride]);
-      acc = p == recs[k - 1] ? prod : fdb::add(acc, prod);
-      p += 2 + cnt;
+}
+
+// K2: a persistent grid; a block walks tiles of 32 * units elements, its
+// warps one per (group of 64, slot).
+template <typename S, bool STAGED>
+__global__ void __launch_bounds__(kDenseMaxWarps * 32, 3)
+    act_jet_rt_kernel(const S* __restrict__ x, S* __restrict__ out, int64_t n_elem, int n1,
+                      int act, const int* __restrict__ tab_g, const double* __restrict__ re_g,
+                      int n_ints, int n_reals, int units) {
+  using T = typename Compute<S>::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int epad = 32 * units;
+  T* z = reinterpret_cast<T*>(smem_raw);
+  T* f = z + n1 * epad;
+  const int* tab = tab_g;
+  const double* re = re_g;
+  if constexpr (STAGED) {
+    int* ts = reinterpret_cast<int*>(smem_raw + tile_bytes(dense_words(n1, epad, 0), sizeof(T)));
+    double* rs = reinterpret_cast<double*>(ts + n_ints);
+    stage_table(ts, tab_g, n_ints, rs, re_g, n_reals);
+    tab = ts;
+    re = rs;
+  }
+  const int64_t tiles = (n_elem + epad - 1) / epad;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t base = t * epad;
+    const int elems = static_cast<int>(n_elem - base < epad ? n_elem - base : epad);
+#pragma unroll 8
+    for (int i = threadIdx.x; i < n1 * epad; i += blockDim.x) {
+      const int p = i / epad, e = i - p * epad;
+      stage_elem(z + i, x + p * n_elem + base + e, x, e < elems);
     }
-    z[k * stride] = acc;
+    cp_async_wait_all();
+    __syncthreads();
+    dense_epilogue<S, T>(act, n1, elems, epad, tab, re, z, f, out, n_elem, ElemRun{base, n_elem});
+    __syncthreads();   // the next tile overwrites z and f
   }
-  z[0] = f[0];
 }
 
-// ---------------------------------------------------------------------------
-// K2 and K1: a thread per element, its stack z and Taylor stack F in shared
-// memory
-// ---------------------------------------------------------------------------
-
-template <typename S>
-__global__ void act_jet_rt_kernel(const S* __restrict__ x, S* __restrict__ out, int64_t n_elem,
-                                  int n1, int act, const int* __restrict__ tab,
-                                  const double* __restrict__ re) {
+// K1: a persistent grid over tiles of rows x cols outputs.  The GEMM part:
+// kc input columns at a time, x's rows (plane p, batch row r) as rows
+// q = p * rows + r, a warp a row, and w's rows staged by cp.async in F's
+// room; a thread keeps one output column of kRowTile rows q in registers,
+// each a chain of FMAs in input order from zero (as the templated K1 and
+// the plain version's GEMM), the bias on c_0 after it, and reads x 16 bytes
+// at a time (the warp's lanes share the address).  The pre-activations go
+// to z, then the epilogue as K2's.  Without an activation they go straight
+// out.
+template <typename S, bool STAGED>
+__global__ void __launch_bounds__(kDenseMaxWarps * 32, 3)
+    jet_dense_rt_kernel(const S* __restrict__ x, const S* __restrict__ w,
+                        const S* __restrict__ bias, S* __restrict__ out, int64_t bsz, int din,
+                        int dout, int n1, int act, const int* __restrict__ tab_g,
+                        const double* __restrict__ re_g, int n_ints, int n_reals, int rows,
+                        int kc) {
   using T = typename Compute<S>::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int stride = blockDim.x;
-  T* z = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
-  T* f = z + n1 * stride;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n_elem) return;
-  for (int k = 0; k < n1; ++k) z[k * stride] = ld(x + k * n_elem + i);
-  act_jet_runtime<T>(act, n1, tab, re, z, f, stride);
-  for (int k = 0; k < n1; ++k) st(out + k * n_elem + i, z[k * stride]);
-}
-
-template <typename S>
-__global__ void jet_dense_rt_kernel(const S* __restrict__ x, const S* __restrict__ w,
-                                    const S* __restrict__ bias, S* __restrict__ out,
-                                    int64_t bsz, int din, int dout, int n1, int act,
-                                    const int* __restrict__ tab, const double* __restrict__ re) {
-  using T = typename Compute<S>::T;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int stride = blockDim.x;
-  T* z = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
-  T* f = z + n1 * stride;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= bsz * dout) return;
-  const int64_t b = idx / dout;
-  const int o = static_cast<int>(idx - b * dout);
-  const int64_t plane_in = bsz * din;
-  for (int p = 0; p < n1; ++p) {
-    const S* xr = x + p * plane_in + b * din;
-    T acc = T(0);
-    for (int i = 0; i < din; ++i) acc = fmadd(ld(xr + i), ld(w + static_cast<int64_t>(i) * dout + o), acc);
-    if (p == 0) acc += ld(bias + o);
-    z[p * stride] = acc;
+  const int cols = min(dout, kDenseCols), elems = rows * cols, epad = (elems + 31) / 32 * 32;
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const int nq = n1 * rows, nqp = (nq + kRowTile - 1) / kRowTile * kRowTile;
+  T* z = reinterpret_cast<T*>(smem_raw);
+  T* f = z + n1 * epad;
+  T* xs = f;                 // the staging shares F's room: [nqp][kc], then [kc][cols]
+  T* ws = xs + nqp * kc;
+  const int* tab = tab_g;
+  const double* re = re_g;
+  if constexpr (STAGED) {
+    int* ts = reinterpret_cast<int*>(
+        smem_raw + tile_bytes(dense_words(n1, epad, stage_words(n1, rows, kc, cols)), sizeof(T)));
+    double* rs = reinterpret_cast<double*>(ts + n_ints);
+    stage_table(ts, tab_g, n_ints, rs, re_g, n_reals);
+    tab = ts;
+    re = rs;
   }
-  act_jet_runtime<T>(act, n1, tab, re, z, f, stride);
-  const int64_t plane_out = bsz * dout;
-  for (int p = 0; p < n1; ++p) st(out + p * plane_out + idx, z[p * stride]);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int col_tiles = (dout + cols - 1) / cols;
+  const int64_t tiles = (bsz + rows - 1) / rows * col_tiles;
+  const int64_t plane_in = bsz * din, plane_out = bsz * dout;
+  const int items = nqp / kRowTile * cols, rounds = (items + nthreads - 1) / nthreads;
+  const bool one_chunk = din <= kc;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t b0 = t / col_tiles * rows;
+    const int o0 = static_cast<int>(t % col_tiles) * cols;
+    const int nrows = static_cast<int>(bsz - b0 < rows ? bsz - b0 : rows);
+    for (int round = 0; round < rounds; ++round) {
+      const int item = round * nthreads + tid;
+      const bool active = item < items;
+      const int c = item % cols, q0 = item / cols * kRowTile;
+      T acc[kRowTile];
+#pragma unroll
+      for (int j = 0; j < kRowTile; ++j) acc[j] = T(0);
+      for (int k0 = 0; k0 < din; k0 += kc) {
+        const int kn = min(kc, din - k0);
+        if (round == 0 || !one_chunk) {
+          if (lane < kc) {
+#pragma unroll 4
+            for (int q = warp; q < nqp; q += nwarps) {
+              const int p = q / rows, r = q - p * rows;
+              const bool ok = q < nq && r < nrows && lane < kn;
+              stage_elem(xs + q * kc + lane, x + p * plane_in + (b0 + r) * din + k0 + lane, x,
+                         ok);
+            }
+          }
+          for (int k = warp; k < kc; k += nwarps)
+            for (int cc = lane; cc < cols; cc += 32)
+              stage_elem(ws + k * cols + cc, w + static_cast<int64_t>(k0 + k) * dout + o0 + cc,
+                         w, k < kn && o0 + cc < dout);
+          cp_async_wait_all();
+          __syncthreads();
+        }
+        if (active) {
+          const T* xq = xs + q0 * kc;
+          int k = 0;
+          if (kc % VEC == 0) {
+            for (; k + VEC <= kn; k += VEC) {
+              T xv[kRowTile][VEC];
+#pragma unroll
+              for (int j = 0; j < kRowTile; ++j)
+                *reinterpret_cast<Lane16<T>*>(xv[j]) =
+                    *reinterpret_cast<const Lane16<T>*>(xq + j * kc + k);
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) {
+                const T wv = ws[(k + v) * cols + c];
+#pragma unroll
+                for (int j = 0; j < kRowTile; ++j) acc[j] = fmadd(xv[j][v], wv, acc[j]);
+              }
+            }
+          }
+          for (; k < kn; ++k) {
+            const T wv = ws[k * cols + c];
+#pragma unroll
+            for (int j = 0; j < kRowTile; ++j) acc[j] = fmadd(xq[j * kc + k], wv, acc[j]);
+          }
+        }
+        if (!one_chunk) __syncthreads();   // the next chunk overwrites xs and ws
+      }
+      if (active) {
+#pragma unroll
+        for (int j = 0; j < kRowTile; ++j) {
+          const int q = q0 + j, p = q / rows, r = q - p * rows;
+          if (q < nq) {
+            T v = acc[j];
+            if (p == 0 && o0 + c < dout) v += ld(bias + o0 + c);
+            if (act != kNone) {
+              z[p * epad + r * cols + c] = v;
+            } else if (r < nrows && o0 + c < dout) {
+              st(out + p * plane_out + (b0 + r) * dout + o0 + c, v);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();   // z complete; the staging's room is F's again
+    if (act != kNone) {
+      dense_epilogue<S, T>(act, n1, elems, epad, tab, re, z, f, out, plane_out,
+                           ElemTile{b0, bsz, o0, cols, dout});
+      __syncthreads();   // the next tile overwrites z and f
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -469,35 +815,60 @@ cudaError_t allow_smem(K kernel, int64_t smem) {
 
 int64_t blocks_of(int64_t items, int per_block) { return (items + per_block - 1) / per_block; }
 
+// A persistent grid: as many blocks as the SMs hold at once, at most one a
+// tile.
+template <typename K>
+cudaError_t persistent_grid(K kernel, int threads, int64_t smem, int64_t tiles, unsigned* grid) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      static_cast<size_t>(smem));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *grid = static_cast<unsigned>(std::min<int64_t>(tiles, std::max(per_sm, 1) * int64_t{sms}));
+  return cudaSuccess;
+}
+
+int64_t table_bytes(int n_ints, int n_reals) { return 4LL * n_ints + 8LL * n_reals; }
+
 template <typename S>
 cudaError_t act_jet_rt(const void* x, void* out, int64_t n_elem, int n1, int act, const int* tab,
-                       const double* re, int threads, cudaStream_t stream) {
+                       const double* re, int n_ints, int n_reals, int units, int warps,
+                       bool staged, cudaStream_t stream) {
   using T = typename Compute<S>::T;
-  const int64_t smem = 2LL * n1 * threads * sizeof(T);
-  const int64_t blocks = blocks_of(n_elem, threads);
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = act_jet_rt_kernel<S>;
-  const cudaError_t err = allow_smem(kernel, smem);
+  const int epad = 32 * units;
+  const int64_t smem = tile_bytes(dense_words(n1, epad, 0), sizeof(T)) +
+                       (staged ? table_bytes(n_ints, n_reals) : 0);
+  auto kernel = staged ? &act_jet_rt_kernel<S, true> : &act_jet_rt_kernel<S, false>;
+  unsigned grid = 0;
+  const cudaError_t err =
+      persistent_grid(kernel, warps * 32, smem, (n_elem + epad - 1) / epad, &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      static_cast<const S*>(x), static_cast<S*>(out), n_elem, n1, act, tab, re);
+  kernel<<<grid, warps * 32, smem, stream>>>(static_cast<const S*>(x), static_cast<S*>(out),
+                                             n_elem, n1, act, tab, re, n_ints, n_reals, units);
   return cudaGetLastError();
 }
 
 template <typename S>
 cudaError_t jet_dense_rt(const void* x, const void* w, const void* bias, void* out, int64_t bsz,
                          int din, int dout, int n1, int act, const int* tab, const double* re,
-                         int threads, cudaStream_t stream) {
+                         int n_ints, int n_reals, int rows, int kc, int warps, bool staged,
+                         cudaStream_t stream) {
   using T = typename Compute<S>::T;
-  const int64_t smem = 2LL * n1 * threads * sizeof(T);
-  const int64_t blocks = blocks_of(bsz * dout, threads);
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = jet_dense_rt_kernel<S>;
-  const cudaError_t err = allow_smem(kernel, smem);
+  const int cols = std::min(dout, kDenseCols), epad = (rows * cols + 31) / 32 * 32;
+  const int64_t smem =
+      tile_bytes(dense_words(n1, epad, stage_words(n1, rows, kc, cols)), sizeof(T)) +
+      (staged ? table_bytes(n_ints, n_reals) : 0);
+  const int64_t tiles = (bsz + rows - 1) / rows * ((dout + cols - 1) / cols);
+  auto kernel = staged ? &jet_dense_rt_kernel<S, true> : &jet_dense_rt_kernel<S, false>;
+  unsigned grid = 0;
+  const cudaError_t err = persistent_grid(kernel, warps * 32, smem, tiles, &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+  kernel<<<grid, warps * 32, smem, stream>>>(
       static_cast<const S*>(x), static_cast<const S*>(w), static_cast<const S*>(bias),
-      static_cast<S*>(out), bsz, din, dout, n1, act, tab, re);
+      static_cast<S*>(out), bsz, din, dout, n1, act, tab, re, n_ints, n_reals, rows, kc);
   return cudaGetLastError();
 }
 
@@ -552,7 +923,6 @@ cudaError_t jet_attention_scores_rt(const void* q, const void* k, void* out, int
   return cudaGetLastError();
 }
 
-bool bad_threads(int threads) { return threads < 32 || threads > 1024 || threads % 32; }
 bool bad_warps(int warps) { return warps < 1 || warps > kMaxWarps; }
 
 }  // namespace
@@ -562,43 +932,55 @@ bool bad_warps(int warps) { return warps < 1 || warps > kMaxWarps; }
 // whose shared memory exceeds the limit among them), or cudaSuccess for an
 // empty input.  dtype: 0 float32, 1 float64, 2 bfloat16.  tab and reals are
 // bell_tables.runtime_table(n1 - 1) on the tensors' device, as int32 and
-// float64.  The wrappers (tanh_jet.py, jet_dense.py, jet_attention.py)
-// choose threads / warps so the block fits; the caller makes the tensors'
-// device current.
+// float64, n_ints and n_reals long.  The wrappers (tanh_jet.py,
+// jet_dense.py, jet_attention.py) choose the geometry so the block fits: K2
+// units of 32 elements, K1 rows and kc, the warps and whether the table is
+// staged in shared memory (act_jet_geometry, jet_dense_geometry); the caller
+// makes the tensors' device current.
 extern "C" int act_jet_rt_launch(const void* x, void* out, int64_t n_elem, int n1, int act,
-                                 int dtype, const void* tab, const void* reals, int threads,
-                                 void* stream) {
-  if (n_elem < 0 || n1 < 1 || act < kTanh || act > kSin || bad_threads(threads))
+                                 int dtype, const void* tab, const void* reals, int n_ints,
+                                 int n_reals, int units, int warps, int staged, void* stream) {
+  if (n_elem < 0 || n1 < 1 || act < kTanh || act > kSin || units < 1 || warps < 1 ||
+      warps > kDenseMaxWarps || n_ints % 4 || n_reals % 2)
     return cudaErrorInvalidValue;
   if (n_elem == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   const int* ti = static_cast<const int*>(tab);
   const double* re = static_cast<const double*>(reals);
-  if (dtype == kF32) return act_jet_rt<float>(x, out, n_elem, n1, act, ti, re, threads, s);
-  if (dtype == kF64) return act_jet_rt<double>(x, out, n_elem, n1, act, ti, re, threads, s);
+  const bool stage = staged != 0;
+  if (dtype == kF32)
+    return act_jet_rt<float>(x, out, n_elem, n1, act, ti, re, n_ints, n_reals, units, warps,
+                             stage, s);
+  if (dtype == kF64)
+    return act_jet_rt<double>(x, out, n_elem, n1, act, ti, re, n_ints, n_reals, units, warps,
+                              stage, s);
   if (dtype == kBF16)
-    return act_jet_rt<__nv_bfloat16>(x, out, n_elem, n1, act, ti, re, threads, s);
+    return act_jet_rt<__nv_bfloat16>(x, out, n_elem, n1, act, ti, re, n_ints, n_reals, units,
+                                     warps, stage, s);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int jet_dense_rt_launch(const void* x, const void* w, const void* bias, void* out,
                                    int64_t bsz, int din, int dout, int n1, int act, int dtype,
-                                   const void* tab, const void* reals, int threads,
-                                   void* stream) {
-  if (bsz < 0 || din < 1 || dout < 1 || n1 < 1 || act < kNone || act > kSin ||
-      bad_threads(threads))
+                                   const void* tab, const void* reals, int n_ints, int n_reals,
+                                   int rows, int kc, int warps, int staged, void* stream) {
+  if (bsz < 0 || din < 1 || dout < 1 || n1 < 1 || act < kNone || act > kSin || rows < 1 ||
+      kc < 1 || kc > kMaxKc || warps < 1 || warps > kDenseMaxWarps || n_ints % 4 || n_reals % 2)
     return cudaErrorInvalidValue;
   if (bsz == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   const int* ti = static_cast<const int*>(tab);
   const double* re = static_cast<const double*>(reals);
+  const bool stage = staged != 0;
   if (dtype == kF32)
-    return jet_dense_rt<float>(x, w, bias, out, bsz, din, dout, n1, act, ti, re, threads, s);
+    return jet_dense_rt<float>(x, w, bias, out, bsz, din, dout, n1, act, ti, re, n_ints, n_reals,
+                               rows, kc, warps, stage, s);
   if (dtype == kF64)
-    return jet_dense_rt<double>(x, w, bias, out, bsz, din, dout, n1, act, ti, re, threads, s);
+    return jet_dense_rt<double>(x, w, bias, out, bsz, din, dout, n1, act, ti, re, n_ints, n_reals,
+                                rows, kc, warps, stage, s);
   if (dtype == kBF16)
-    return jet_dense_rt<__nv_bfloat16>(x, w, bias, out, bsz, din, dout, n1, act, ti, re,
-                                       threads, s);
+    return jet_dense_rt<__nv_bfloat16>(x, w, bias, out, bsz, din, dout, n1, act, ti, re, n_ints,
+                                       n_reals, rows, kc, warps, stage, s);
   return cudaErrorInvalidValue;
 }
 

@@ -51,12 +51,14 @@ _SIGNATURES = {
     "jet_attention_scores_launch": (_P, _P, _P, _I64, _I, _I, _I, _I, _D, _I,
                                     _I, _I, _I, _P),
     # the run-time-order kernels (csrc/jet_runtime.cu): any N1, bfloat16
-    # x, out, n_elem, n1, act, dtype, tab, reals, threads, stream
-    "act_jet_rt_launch": (_P, _P, _I64, _I, _I, _I, _P, _P, _I, _P),
-    # x, w, bias, out, bsz, din, dout, n1, act, dtype, tab, reals, threads,
-    # stream
+    # x, out, n_elem, n1, act, dtype, tab, reals, n_ints, n_reals, units,
+    # warps, staged, stream
+    "act_jet_rt_launch": (_P, _P, _I64, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                          _P),
+    # x, w, bias, out, bsz, din, dout, n1, act, dtype, tab, reals, n_ints,
+    # n_reals, rows, kc, warps, staged, stream
     "jet_dense_rt_launch": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
-                            _I, _P),
+                            _I, _I, _I, _I, _I, _I, _P),
     # x, gamma, out, bsz, width, n1, dtype, eps, warps, stream
     "jet_rms_norm_rt_launch": (_P, _P, _P, _I64, _I, _I, _I, _D, _I, _P),
     # q, k, v, wo, out, bsz, heads, t, dh, dm, n1, dtype, scale, mask,

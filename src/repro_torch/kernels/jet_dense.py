@@ -10,8 +10,11 @@ shares with K2 before a single store, so the pre-activation stack never
 goes to device memory.  f32 accumulates in f32, f64 in f64.  The tiling
 is the launcher's (csrc/jet_dense.cu); this wrapper checks and launches.
 Orders above the templates and bfloat16 (accumulated in f32) take the
-run-time-order kernel of csrc/jet_runtime.cu: a thread per output
-element, its stack in shared memory (see ``tanh_jet``).
+run-time-order kernel of csrc/jet_runtime.cu: a tile of rows x up to 32
+columns, its GEMM part staged and accumulated like the templated one's,
+then the epilogue spread over (element, output order), a warp a slot of
+orders for 32 lanes of several elements, the tile's stacks in shared
+memory (``tanh_jet.jet_dense_geometry`` sizes it).
 
 Its plain version is :func:`repro_torch.kernels.ref.jet_dense_ref`.
 """
@@ -23,8 +26,7 @@ import torch
 from . import cuda_lib
 from .cuda_lib import LaunchCounter
 from .tanh_jet import (ACT_CODES, DTYPE_CODES, KERNEL_ACTS, check_cuda_tensor,
-                       check_depth, check_fits, device_tables, runtime_path,
-                       runtime_threads)
+                       check_depth, device_tables, jet_dense_geometry, runtime_path)
 
 LAUNCHES = LaunchCounter("jet_dense")
 
@@ -49,13 +51,13 @@ def jet_dense_cuda(coeffs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     dout = w.shape[1]
     out = torch.empty((n1, bsz, dout), dtype=coeffs.dtype, device=coeffs.device)
     if runtime_path(n1, coeffs.dtype):
-        threads, smem = runtime_threads(n1, coeffs.dtype)
-        check_fits("jet_dense", smem, f"order {n1 - 1} ({threads} threads)")
+        geo = jet_dense_geometry(n1, coeffs.dtype, bsz, din, dout, activation)
         ints, reals = device_tables(n1 - 1, str(coeffs.device))
         cuda_lib.launch("jet_dense_rt_launch", coeffs.device, coeffs.data_ptr(),
                         w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, din, dout,
                         n1, ACT_CODES[activation], DTYPE_CODES[coeffs.dtype],
-                        ints.data_ptr(), reals.data_ptr(), threads)
+                        ints.data_ptr(), reals.data_ptr(), ints.numel(), reals.numel(),
+                        geo.tile, geo.kc, geo.warps, int(geo.staged))
     else:
         cuda_lib.launch("jet_dense_launch", coeffs.device, coeffs.data_ptr(),
                         w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, din, dout,

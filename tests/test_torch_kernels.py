@@ -21,6 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import bell_tables as tbell
 from repro_torch.kernels import tanh_jet
 from repro_torch.kernels.jet_dense import jet_dense_cuda
 from repro_torch.kernels.tanh_jet import act_jet_cuda
@@ -124,12 +125,14 @@ def test_order_limit_raises_naming_it(monkeypatch):
     """No order is capped: the CPU path takes orders 10 and 12 (parity
     below) and on the card the only refusal is a block whose working set
     does not fit in shared memory, named in bytes.  The dense path's
-    run-time kernels keep 2 (n+1) words a thread, 32 threads at least: at
-    f64 a stack of 454 coefficients fits, one more is refused."""
+    run-time kernels keep 2 (n+1) words an element (the stacks z and F;
+    outputs go straight out, K1's GEMM staging shares F's room and the
+    table can stay in device memory), 32 elements at least: at f64 a
+    stack of 454 coefficients fits, one more is refused."""
     tk1 = importlib.import_module("repro_torch.kernels.jet_dense")
     for mod in (tanh_jet, tk1):
         monkeypatch.setattr(mod, "check_cuda_tensor", lambda *a, **k: None)
-    assert tanh_jet.runtime_threads(454, torch.float64) == (32, 454 * 2 * 32 * 8)
+    assert tanh_jet.dense_smem(454, 32, 0, 8, 0) == 454 * 2 * 32 * 8 == tanh_jet.SMEM_LIMIT
     x = torch.zeros((455, 3, 4), dtype=torch.float64)
     w, b = torch.zeros((4, 2), dtype=torch.float64), torch.zeros(2, dtype=torch.float64)
     with pytest.raises(ValueError, match=r"needs 232960 bytes of shared memory .* a block "
@@ -139,6 +142,76 @@ def test_order_limit_raises_naming_it(monkeypatch):
         jet_dense_cuda(x, w, b, "tanh")
     ok = torch.zeros((13, 3, 4), dtype=torch.float64)
     assert tops.act_jet(ok, "tanh").shape == ok.shape
+
+
+def _table_bytes(n):
+    ints, reals = tbell.runtime_table(n)
+    return 4 * len(ints) + 8 * len(reals)
+
+
+def test_dense_geometry_sizes_blocks_by_the_kernels_formula():
+    """K1/K2's run-time blocks: a warp a (group of 32 lanes x lane_elems
+    elements, slot of the schedule), at most 8; the tile shrinks until the
+    grid covers the 132 SMs twice; K1's tile has up to 32 columns and whole
+    units of 32 elements where it can; the bytes are the kernels' formula:
+    z and F (n1 words an element), K1's GEMM staging in F's room, the
+    table when staged."""
+    f64 = torch.float64
+    assert (tanh_jet.lane_elems(f64), tanh_jet.lane_elems(torch.float32),
+            tanh_jet.lane_elems(torch.bfloat16)) == (4, 8, 8)
+    table = _table_bytes(10)
+    geo = tanh_jet.act_jet_geometry(11, f64, 8192 * 32)
+    assert geo == (8, 0, 0, 8, True, tanh_jet.dense_smem(11, 8 * 32, 0, 8, table))
+    assert geo.smem == 2 * 11 * 256 * 8 + table
+    # Burgers k = 4's hidden layer: 512 rows x 24 columns shrink to a row a tile
+    geo = tanh_jet.jet_dense_geometry(11, f64, 512, 24, 24, "tanh")
+    assert (geo.tile, geo.cols, geo.kc, geo.warps, geo.staged) == (1, 24, 24, 4, True)
+    stage = (16 + 24) * 24                  # x rows (11 padded to 16), then w, kc words each
+    assert geo.smem == tanh_jet.dense_smem(11, 24, stage, 8, table) == 8 * (11 * 32 + stage) + table
+    # the served layer at order 16: 8 rows x 32 columns, two groups x four slots
+    geo = tanh_jet.jet_dense_geometry(17, f64, 8192, 32, 32, "tanh")
+    assert (geo.tile, geo.cols, geo.kc, geo.warps, geo.staged) == (8, 32, 32, 8, True)
+    assert geo.smem == 8 * (17 * 256 + (136 + 32) * 32) + _table_bytes(16)
+    # rows of 24 columns keep whole units of 32 elements: 8 rows
+    geo = tanh_jet.jet_dense_geometry(11, f64, 1 << 16, 24, 24, "tanh")
+    assert (geo.tile, geo.warps) == (8, 8)
+    # without an activation: no table and one slot
+    geo = tanh_jet.jet_dense_geometry(11, f64, 8192, 32, 32, None)
+    assert (geo.tile, geo.warps, geo.staged) == (16, 4, False)
+    # bfloat16 computes in float32, eight elements a lane
+    geo = tanh_jet.act_jet_geometry(5, torch.bfloat16, 8192 * 32)
+    assert geo == (16, 0, 0, 6, True, tanh_jet.dense_smem(5, 16 * 32, 0, 4, _table_bytes(4)))
+
+
+def test_dense_geometry_shrinks_before_it_refuses(monkeypatch):
+    """Where a block does not fit: K1 halves kc first, then the rows, then
+    leaves the table in device memory; K2 halves its tile, then leaves
+    the table; only a block of 32 elements that does not fit is refused,
+    and the message names its bytes."""
+    f64, table = torch.float64, _table_bytes(16)
+    stacks = 2 * 17 * 8                      # z and F, bytes an element at order 16
+    served = 8 * (17 * 256 + (136 + 32) * 32) + table        # K1: 8 rows, kc 32
+    monkeypatch.setattr(tanh_jet, "SMEM_LIMIT", served - 1)
+    geo = tanh_jet.jet_dense_geometry(17, f64, 8192, 32, 32, "tanh")
+    assert (geo.tile, geo.kc, geo.staged) == (8, 16, True)
+    assert geo.smem == stacks * 256 + table          # the staging fits in F's room
+    monkeypatch.setattr(tanh_jet, "SMEM_LIMIT", stacks * 256 + table - 1)
+    geo = tanh_jet.act_jet_geometry(17, f64, 8192 * 32)
+    assert (geo.tile, geo.staged, geo.smem) == (4, True, stacks * 128 + table)
+    limit = stacks * 32 + table - 1          # not even 32 elements beside the table
+    monkeypatch.setattr(tanh_jet, "SMEM_LIMIT", limit)
+    geo = tanh_jet.act_jet_geometry(17, f64, 8192 * 32)
+    units = max(u for u in (8, 4, 2, 1) if stacks * 32 * u <= limit)
+    assert (geo.tile, geo.staged, geo.smem) == (units, False, stacks * 32 * units)
+    geo = tanh_jet.jet_dense_geometry(17, f64, 8192, 32, 32, "tanh")
+    assert not geo.staged and geo.smem <= limit
+    monkeypatch.setattr(tanh_jet, "SMEM_LIMIT", stacks * 32 - 1)
+    with pytest.raises(ValueError, match=r"act_jet kernel needs 8704 bytes of shared memory "
+                                         r"for order 16 \(32 elements\)"):
+        tanh_jet.act_jet_geometry(17, f64, 8192 * 32)
+    with pytest.raises(ValueError, match=r"jet_dense kernel needs 8704 bytes of shared memory "
+                                         r"for order 16 \(one row of 32 columns\)"):
+        tanh_jet.jet_dense_geometry(17, f64, 8192, 32, 32, "tanh")
 
 
 HIGH_ORDER_CASES = [(act, dt, order)

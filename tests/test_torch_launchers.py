@@ -5,13 +5,14 @@ launch stubbed, CPU tensors forced down the CUDA branch), and the flash
 kernel's tiling (``jet_attention.flash_geometry``) at its limits."""
 
 import importlib
+import math
 import re
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import bell_tables, cuda_lib
 from repro_torch.kernels import jet_attention as tka
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import tanh_jet as tk2
@@ -208,15 +209,18 @@ def test_runtime_path_reaches_its_launchers(stubbed, monkeypatch, dtype, n1):
     code = tk2.DTYPE_CODES[dtype]
     x = torch.zeros((n1, 3, 6), dtype=dtype)
     w, b = torch.zeros((6, 7), dtype=dtype), torch.zeros(7, dtype=dtype)
-    threads, _ = tk2.runtime_threads(n1, dtype)
     ints, reals = tk2.device_tables(n1 - 1, "cpu")
-    tables = (ints.data_ptr(), reals.data_ptr())
+    tables = (ints.data_ptr(), reals.data_ptr(), ints.numel(), reals.numel())
+    geo = tk2.jet_dense_geometry(n1, dtype, 3, 6, 7, "tanh")
     tops.jet_dense(x, w, b, "tanh")
     assert calls[-1][0] == "jet_dense_rt_launch"
-    assert calls[-1][1][4:] == (3, 6, 7, n1, 1, code) + tables + (threads,)
+    assert calls[-1][1][4:] == ((3, 6, 7, n1, 1, code) + tables
+                                + (geo.tile, geo.kc, geo.warps, int(geo.staged)))
+    geo = tk2.act_jet_geometry(n1, dtype, 18)
     tops.act_jet(x, "sin")
     assert calls[-1][0] == "act_jet_rt_launch"
-    assert calls[-1][1][2:] == (18, n1, 3, code) + tables + (threads,)
+    assert calls[-1][1][2:] == ((18, n1, 3, code) + tables
+                                + (geo.tile, geo.warps, int(geo.staged)))
     tops.jet_rms_norm(x, torch.ones(6, dtype=dtype))
     assert calls[-1][0] == "jet_rms_norm_rt_launch"
     assert calls[-1][1][3:] == (3, 6, n1, code, 1e-6, 8)
@@ -229,3 +233,87 @@ def test_runtime_path_reaches_its_launchers(stubbed, monkeypatch, dtype, n1):
     assert calls[-1][1][3:] == (2, 5, 4, n1, code, 0.5, 8)
     assert tops.launch_counts() == {"jet_dense": 1, "act_jet": 1, "jet_rms_norm": 1,
                                     "jet_flash_attention": 1, "jet_attention_scores": 1}
+
+
+def _dense_writes(n1, n_elem, lanes, tile_map):
+    """The outputs csrc/jet_runtime.cu's dense epilogue stores for one
+    tile's elements, following its loops: out_0 a thread an element, then
+    each warp a (group of 32 lanes x ``lanes`` elements, slot), a lane's
+    elements e0 .. e0 + lanes - 1, each order of the slot.  ``tile_map(e)``
+    is the element's (row, column) or None where it lies past the output."""
+    orders = bell_tables.order_slots(n1 - 1)
+    writes = []
+    for e in range(n_elem):
+        if tile_map(e) is not None:
+            writes.append((0, *tile_map(e)))
+    groups = math.ceil(n_elem / (32 * lanes))
+    for it in range(groups * len(orders)):
+        g, s = divmod(it, len(orders))
+        for lane in range(32):
+            e0 = (g * 32 + lane) * lanes
+            if e0 >= n_elem:
+                continue
+            for e in range(e0, e0 + lanes):
+                if e < n_elem and tile_map(e) is not None:
+                    writes += [(k, *tile_map(e)) for k in orders[s]]
+    return writes
+
+
+@pytest.mark.parametrize("n1,bsz,din,dout,dtype,act", [
+    (11, 37, 24, 24, torch.float64, "tanh"), (11, 9, 1, 24, torch.float64, "tanh"),
+    (11, 300, 24, 1, torch.float64, None), (5, 77, 13, 45, torch.bfloat16, "sin"),
+    (17, 70, 32, 32, torch.float32, "sigmoid"), (13, 5, 40, 70, torch.float64, "tanh")])
+def test_runtime_dense_kernel_indexing_covers_every_output_once(n1, bsz, din, dout, dtype,
+                                                                act):
+    """K1's run-time kernel as its loops index, at the geometry the wrapper
+    picks: every pre-activation of a tile (plane, row, column) gets exactly
+    one GEMM thread, and every output (plane, row, column) is stored
+    exactly once, by the direct store without an activation or by the
+    epilogue; rows and columns past the output are computed, never
+    stored."""
+    geo = tk2.jet_dense_geometry(n1, dtype, bsz, din, dout, act)
+    rows, cols, row_tile = geo.tile, geo.cols, tk2._ROW_TILE
+    nq, nthreads = n1 * rows, 32 * geo.warps
+    nqp = math.ceil(nq / row_tile) * row_tile
+    items = nqp // row_tile * cols
+    col_tiles = math.ceil(dout / cols)
+    stores = []
+    for t in range(math.ceil(bsz / rows) * col_tiles):
+        b0, o0 = t // col_tiles * rows, t % col_tiles * cols
+        z = []
+        for rnd in range(math.ceil(items / nthreads)):
+            for tid in range(nthreads):
+                item = rnd * nthreads + tid
+                if item >= items:
+                    continue
+                c, q0 = item % cols, item // cols * row_tile
+                for q in range(q0, min(q0 + row_tile, nq)):
+                    p, r = divmod(q, rows)
+                    z.append((p, r, c))
+                    if act is None and b0 + r < bsz and o0 + c < dout:
+                        stores.append((p, b0 + r, o0 + c))
+        assert sorted(z) == [(p, r, c) for p in range(n1) for r in range(rows)
+                             for c in range(cols)]
+        if act is not None:
+            def tile_map(e, b0=b0, o0=o0):
+                r, c = divmod(e, cols)
+                return (b0 + r, o0 + c) if b0 + r < bsz and o0 + c < dout else None
+            stores += _dense_writes(n1, rows * cols, tk2.lane_elems(dtype), tile_map)
+    assert sorted(stores) == [(p, b, o) for p in range(n1) for b in range(bsz)
+                              for o in range(dout)]
+
+
+@pytest.mark.parametrize("n1,n_elem,dtype", [(11, 1000, torch.float64), (5, 77, torch.bfloat16),
+                                             (17, 4097, torch.float32), (1, 40, torch.float64)])
+def test_runtime_act_kernel_indexing_covers_every_output_once(n1, n_elem, dtype):
+    """K2's run-time kernel: tiles of 32 units elements, every output
+    (plane, element) stored exactly once."""
+    geo = tk2.act_jet_geometry(n1, dtype, n_elem)
+    epad = 32 * geo.tile
+    stores = []
+    for t in range(math.ceil(n_elem / epad)):
+        base = t * epad
+        elems = min(epad, n_elem - base)
+        stores += _dense_writes(n1, elems, tk2.lane_elems(dtype),
+                                lambda e, base=base: (base + e, 0))
+    assert sorted(stores) == [(p, i, 0) for p in range(n1) for i in range(n_elem)]
