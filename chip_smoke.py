@@ -46,7 +46,11 @@ Phases, each failing loudly with a non-zero exit:
    wrapper admits at its served
    shape and the refusal, naming the bytes, one order past it (K4 at head
    dims 160 and 256 is in phase 2's edges, with the largest head dim
-   admitted at f64 order 8 and the refusal of the next);
+   admitted at f64 order 8 and the refusal of the next); then the run-time
+   K3 and K4 where their geometries split (RT_RMS_CHECKS, RT_FLASH_CHECKS:
+   16-byte vectors, ragged and unaligned rows; short T at the trunk's
+   grid(10) launch under every mask, T 1, 3, 4, head dims 160 and 256; long
+   T 70 and 1024) at the same gates;
 3. the served main paths, each with the launch counters zeroed just before
    it and read just after:
    a. a ``DerivativeServer`` on the ``pinn-pde`` DenseMLP (d_in 2, width 32,
@@ -64,19 +68,23 @@ Phases, each failing loudly with a non-zero exit:
       (d_in 2, width 32, depth 3, d_out 1, tanh; 16 features, scale 1.0),
       ``grid(4)`` and ``cross((0,0,1,1))``, 5 and 4 K1 launches per call;
    e. the DenseMLP at ``grid(10)`` (N1 = 11, the run-time-order K1);
+   f. the trunk at ``grid(10)``: 16 K1, 7 K3 and 3 K4 launches per engine
+      call and nothing else, every one through csrc/jet_runtime.cu's
+      launchers (``LauncherCounts``);
    every table is held against the eager ``ntp`` engine on the card and
    against nested autodiff (the trunk's and 3c-d's at the 5- and 37-row
-   sizes only; not 3e's order 10); the trunk's grid tables relative to a
-   conditioning scale (``readout_scale``), its cross tables relative to
-   the polarization terms;
+   sizes only; not 3e's or 3f's order 10); the trunk's grid tables relative
+   to a conditioning scale (``readout_scale``), its cross tables relative
+   to the polarization terms;
 4. times from CUDA events after warm-up at the 512-row serving shapes: each
    kernel's device time (the host's enqueue kept off the clock, see
    ``device_time_ms``) and host dispatch time, its plain version, the
    nearest library call (the GEMM part of K1; for K3/K4 the order-0
    function alone), the bound from bytes and operations, and per request
    kind each server's p50/p99 for ``ntp/cuda`` and eager ``ntp`` beside the
-   engine call's device time (also the DenseMLP's ``grid(10)``, phase 3e's
-   request: the eager engine's device time from graph replays); K5 at (4, 256, 8) and (4, 1024, 8), orders 2
+   engine call's device time (also the DenseMLP's and the trunk's
+   ``grid(10)``, phases 3e and 3f: the eager engine's device time from
+   graph replays); K5 at (4, 256, 8) and (4, 1024, 8), orders 2
    and 8 (f64), and at the memory rows' (4, 1024, 8) order 2 (f32), beside
    its plain version and softmax(scale q_0 k_0^T); K1 also
    at the trunk's (5, 16384, 32), K4 at the memory comparison's row
@@ -101,16 +109,21 @@ Phases, each failing loudly with a non-zero exit:
 7. K1 at the shapes the training phases launched it most (recorded while
    they ran), beside its plain version and bound; 7b. the run-time-order
    kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
-   16 and on bfloat16 at the served shapes, K1 beside its GEMM part alone
-   (``torch.matmul``);
+   16 and on bfloat16 at the served shapes, K3 and K4 at the trunk's
+   grid(10) launches and K4 at long T, K1 beside its GEMM part alone
+   (``torch.matmul``), K3-K5 beside the same function at order 0 in one
+   library call (ORDER0_LIBRARY);
 8. only with ``--against DIR`` (another checkout, e.g. the parent commit
-   unpacked with ``git archive``): that checkout's K1, K2 and K4 against
+   unpacked with ``git archive``): that checkout's K1-K5 against
    this tree's in turns (other, this, this, other) at the served shapes,
    K4 and K5 at the memory row, K5 at the phase-4 f64 shapes, the
-   run-time-order K1 at the Burgers k = 4 layers and K1/K2 at the served
-   layer at orders 10 and 16 and on bfloat16 at order 4 (RUNTIME_TURNS),
-   the DenseMLP's ``grid(10)`` engine call with either tree's K1, and the
-   phase-4 trace run with its K1 and K4 as well ("before");
+   run-time-order K3 and K4 at phase 7b's shapes (RT_RMS_SHAPES,
+   RT_FLASH_SHAPES), the run-time K1 at the Burgers k = 4 layers and K1/K2
+   at the served layer at orders 10 and 16 and on bfloat16 at order 4
+   (RUNTIME_TURNS), the DenseMLP's ``grid(10)`` engine call with either
+   tree's K1, the trunk's ``grid(10)`` engine call with either tree's K3
+   and K4, and the phase-4 trace run with its K1 and K4 as well
+   ("before");
 9. a JSON line describing each of the five kernels, the ``nvidia-smi``
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -194,6 +207,19 @@ PDE_NETS = {"residual": (dict(d_in=2, width=32, depth=3, d_out=1), 5),
 PDE_REQUESTS = (("grid", 4), ("cross", (0, 0, 1, 1)))
 PDE_AUTODIFF_SIZES = (5, 37)
 DENSE_GRID_ORDER = 10   # the DenseMLP served past the templates (N1 = 11)
+# the trunk served past the templates (phase 3f): every kernel of its engine
+# call takes csrc/jet_runtime.cu, this many launches of each C launcher
+TRUNK_GRID_ORDER = 10
+TRUNK_RT_LAUNCHERS = {"jet_dense_rt_launch": 16, "jet_rms_norm_rt_launch": 7,
+                      "jet_flash_attention_rt_launch": 3}
+# the run-time-order K3 and K4 timed in phase 7b and in phase 8's turns
+# beside the table shapes: the trunk's grid(10) launches (K3 (11, 2048, 32),
+# K4 (11, 1024, 2, 2, 16) x (2, 16, 32)) and K4 at long T
+RT_RMS_SHAPES = ((11, 2048, 32, "float64"), (11, 16384, 32, "float64"),
+                 (17, 16384, 32, "float64"), (5, 16384, 32, "bfloat16"))
+RT_FLASH_SHAPES = ((11, 1024, 2, 2, 16, 32, "float64"), (11, 8192, 2, 2, 16, 32, "float64"),
+                   (17, 8192, 2, 2, 16, 32, "float64"), (5, 8192, 2, 2, 16, 32, "bfloat16"),
+                   (11, 2, 2, 1024, 8, 16, "float64"))
 
 # Edge shapes of phase 2 for the tiled kernels, orders 0, 4 and 8 (N1 1, 5,
 # 9), f32 and f64.  K1 (rows, din, dout): rows that are no multiple of a
@@ -340,6 +366,7 @@ KERNEL_SYMBOLS = ("jet_dense_kernel", "act_jet_kernel", "jet_rms_norm_kernel",
                   "jet_flash_attention_short_kernel", "jet_flash_attention_long_kernel",
                   "jet_attention_scores_kernel", "jet_dense_rt_kernel", "act_jet_rt_kernel",
                   "jet_rms_norm_rt_kernel", "jet_flash_attention_rt_kernel",
+                  "jet_flash_attention_rt_short_kernel", "jet_flash_attention_rt_long_kernel",
                   "jet_attention_scores_rt_kernel")
 DTYPE_MANGLED = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}
 ACT_NAMES = {0: "none", 1: "tanh", 2: "sigmoid", 3: "sin"}
@@ -380,10 +407,14 @@ def print_resources(resources: list[dict]) -> None:
     instantiation."""
     for r in resources:
         n1 = r["template"][0] if r["template"] else None
-        if r["kernel"].endswith("_rt_kernel"):
-            table = {(): "", (0,): " table in device memory", (1,): " table staged"}.get(
-                tuple(r["template"]), f" {r['template']}")
-            print(f"    {r['kernel']:34s} {r['dtype']} any N1{table}: registers "
+        if "_rt_" in r["kernel"]:
+            if r["kernel"] == "jet_rms_norm_rt_kernel":     # <S, V, Staged>
+                vec, staged = r["template"]
+                table = f" vec {vec}, rows {'staged' if staged else 'from device memory'}"
+            else:
+                table = {(): "", (0,): " table in device memory",
+                         (1,): " table staged"}.get(tuple(r["template"]), f" {r['template']}")
+            print(f"    {r['kernel']:36s} {r['dtype']} any N1{table}: registers "
                   f"{r['registers']}, spill {r['spill_store_bytes']}/"
                   f"{r['spill_load_bytes']} bytes")
             continue
@@ -892,6 +923,108 @@ def check_high_orders(gen, report: dict, worst: dict) -> None:
                                    for r in rows]
 
 
+# Phase 2e, the run-time-order K3 and K4 where their geometries split:
+# K4 (bsz, heads, T, Dh, Dm, masks) at short T (groups of lanes: the
+# trunk's grid(10) launch, T 1, 3 and 4, head dims 160 and 256) and long T
+# (key tiles: T 70 and 1024); K3 (rows, width, aligned) with 16-byte
+# vectors, ragged widths (one element a lane) and an unaligned view
+RT_FLASH_CHECKS = ((1024, 2, 2, 16, 32, FLASH_MASKS), (37, 2, 1, 16, 32, (None,)),
+                   (37, 2, 3, 20, 7, FLASH_MASKS), (13, 2, 4, 8, 16, (("local", 1),)),
+                   (5, 2, 2, 160, 40, (None,)), (3, 2, 2, 256, 24, ("causal",)),
+                   (3, 4, 70, 8, 20, (("local", 5),)), (2, 2, 1024, 8, 16, (None, "causal")))
+RT_FLASH_LONG_ORDERS = (9, 10)    # T = 1024: the plain version's T^2 planes
+RT_RMS_CHECKS = ((2048, 32, True), (37, 24, True), (70, 33, True), (64, 32, False))
+
+
+def flash_kernel_kind(geo) -> str:
+    """Which K4 kernel a geometry runs (see ``FlashGeometry``)."""
+    if not geo.runtime:
+        return "template " + ("short" if geo.group else "long")
+    return "short" if geo.group else "long" if geo.key_tile else "smallest block"
+
+
+def check_runtime_attention(gen, report: dict, worst: dict) -> None:
+    """Phase 2e: the run-time-order K3 and K4 at RT_RMS_CHECKS and
+    RT_FLASH_CHECKS against their plain versions, at the existing gates:
+    orders HIGH_ORDERS at f64 (TOL_SCALED of the abs-sum scale) and f32
+    (``holds``; f32 over 1024 keys by ``holds_f32_sum``), T = 1024 at
+    RT_FLASH_LONG_ORDERS only; bfloat16 at orders 1, 4 and 10 within
+    BF16_ULPS of the f32 plain version.  The trunk's grid(10) launch must
+    take the short-T kernel, T = 1024 the long-T one."""
+    import torch
+    from repro_torch.core.modules import attention_mask, normalize_attention_mask
+    from repro_torch.kernels import jet_attention as ka
+    from repro_torch.kernels import ref
+
+    def rnd(*shape, dt, scale=0.5):
+        return (scale * torch.randn(shape, generator=gen, device=DEVICE,
+                                    dtype=torch.float64)).to(dt)
+
+    def gate(got, plain, args, dt, n, what):
+        torch.cuda.synchronize()
+        if dt == torch.bfloat16:
+            e = bf16_ulps(got, plain(*(a.float() for a in args)))
+            require(e <= BF16_ULPS, f"{what}: {e:.2f} bf16 ulps of the plane max > {BF16_ULPS}")
+            return e
+        if dt == torch.float32 and args[0].shape[3:4] == (1024,):
+            return holds_f32_sum(got, plain, args, what)
+        return holds_high(got, plain, args, dt, n, what)
+
+    rows = []
+    dtypes = ((torch.float64, HIGH_ORDERS), (torch.float32, HIGH_ORDERS),
+              (torch.bfloat16, (1, 4, 10)))
+    for dt, orders in dtypes:
+        for bsz, width, aligned in RT_RMS_CHECKS:
+            e_max = 0.0
+            for n in orders:
+                flat = rnd((n + 1) * bsz * width + 1, dt=dt)    # unaligned: one element in
+                x = (flat[:-1] if aligned else flat[1:]).view(n + 1, bsz, width)
+                g = 1 + rnd(width, dt=dt, scale=0.2)
+                geo = ka.rms_norm_geometry(n + 1, bsz, width, dt, aligned)
+                got = ka.jet_rms_norm_cuda(x, g, 1e-6)
+                e_max = max(e_max, gate(got, lambda c, gg: ref.jet_rms_norm_ref(c, gg, 1e-6),
+                                        (x, g), dt, n, f"jet_rms_norm run-time {dt} order "
+                                                       f"{n} ({bsz}, {width}) {geo}"))
+            rows.append(("jet_rms_norm", str(dt), f"vec {geo.vec} group {geo.group}",
+                         (bsz, width), orders, e_max))
+        for bsz, heads, t, dh, dm, masks in RT_FLASH_CHECKS:
+            for mask in masks:
+                kind, window = normalize_attention_mask(mask)
+                dense = attention_mask(mask, t, DEVICE)
+                scale = dh ** -0.5
+
+                def flash_plain(q, k, v, wo, dense=dense, scale=scale):
+                    return ref.jet_flash_attention_ref(q, k, v, wo, scale, dense)
+
+                e_max, ns = 0.0, orders
+                if t >= 1024 and dt != torch.bfloat16:
+                    ns = RT_FLASH_LONG_ORDERS
+                for n in ns:
+                    q, k, v = (rnd(n + 1, bsz, heads, t, dh, dt=dt) for _ in range(3))
+                    wo = rnd(heads, dh, dm, dt=dt, scale=(heads * dh) ** -0.5)
+                    geo = ka.flash_geometry(n + 1, heads, t, dh, dt, dm)
+                    got = ka.jet_flash_attention_cuda(q, k, v, wo, scale, kind, window)
+                    e_max = max(e_max, gate(got, flash_plain, (q, k, v, wo), dt, n,
+                                            f"jet_flash_attention run-time {kind}{window or ''} "
+                                            f"{dt} order {n} ({bsz}, {heads}, {t}, {dh})->{dm} "
+                                            f"{geo}"))
+                    worst["jet_flash_attention"] = max(worst["jet_flash_attention"], float(
+                        (got.double() - flash_plain(q, k, v, wo).double()).abs().max()))
+                kernel = flash_kernel_kind(geo)
+                if (bsz, t, dh) == (1024, 2, 16) or t >= 1024:
+                    require(kernel == ("short" if t <= 4 else "long"),
+                            f"K4 ({bsz}, {heads}, {t}, {dh}) {dt} took the {kernel} kernel")
+                rows.append(("jet_flash_attention", str(dt), f"{kernel} {kind}{window or ''}",
+                             (bsz, heads, t, dh, dm), ns, e_max))
+    for r in rows:
+        unit = "bf16 ulps" if r[1] == "torch.bfloat16" else (
+            "of the scale" if r[1] == "torch.float64" else "rel")
+        print(f"  run-time {r[0]:19s} {r[1]:14s} {r[2]:22s} {str(r[3]):22s} orders "
+              f"{str(r[4]):15s} err {r[5]:.2e} {unit}")
+    report["runtime_attention_checks"] = [
+        dict(zip(("kernel", "dtype", "variant", "shape", "orders", "err"), r)) for r in rows]
+
+
 def check_admitted_orders(gen, report: dict) -> None:
     """Phase 2, the largest order each wrapper admits at its served shape
     (float64), and the refusal one order past it, whose message names the
@@ -944,8 +1077,8 @@ def check_admitted_orders(gen, report: dict) -> None:
     limits = {
         "act_jet": largest(lambda n1: k2.act_jet_min_smem(n1, dt) <= k2.SMEM_LIMIT),
         "jet_dense": largest(lambda n1: k2.jet_dense_min_smem(n1, dt, 32) <= k2.SMEM_LIMIT),
-        "jet_rms_norm": largest(lambda n1: ka.runtime_warps(
-            ka.rms_norm_runtime_words(n1), dt)[1] <= ka._SMEM_LIMIT),
+        "jet_rms_norm": largest(lambda n1: ka.rms_norm_geometry(
+            n1, 2, 32, dt).smem <= ka._SMEM_LIMIT),
         "jet_flash_attention": largest(lambda n1: ka.flash_smem_bytes(
             n1, 2, 2, 16, dt, 32) <= ka._SMEM_LIMIT),
         "jet_attention_scores": largest(lambda n1: ka.runtime_warps(
@@ -1414,8 +1547,37 @@ def readout_scale(net, params, x, order: int):
     return torch.stack(out)
 
 
-def serve_trunk(net, params, gen, report: dict) -> dict:
-    """Phase 3b: the Transformer trunk served under ntp/cuda."""
+class LauncherCounts:
+    """Counts the calls of each C launcher (``cuda_lib.launch``'s name)
+    while installed: which kernel source a wrapper took."""
+
+    def __init__(self):
+        self.counts: dict = {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from repro_torch.kernels import cuda_lib
+        self._mod, self._fn = cuda_lib, cuda_lib.launch
+
+        def counted(name, device, *args):
+            self._fn(name, device, *args)
+            with self._lock:
+                self.counts[name] = self.counts.get(name, 0) + 1
+
+        cuda_lib.launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.launch = self._fn
+
+
+def serve_trunk(net, params, gen, report: dict, requests=REQUESTS,
+                autodiff_sizes=TRUNK_AUTODIFF_SIZES, label: str = "trunk",
+                launchers: dict | None = None) -> dict:
+    """Phase 3b (and 3f): the Transformer trunk served under ntp/cuda,
+    ``requests`` at SIZES rows, launch counters zeroed just before and read
+    just after: TRUNK_PER_CALL launches per engine call and nothing else;
+    with ``launchers``, the C launchers those calls took, per engine call."""
     import torch
     from repro_torch.core.engines import DerivativeEngine
     from repro_torch.serving import DerivativeServer
@@ -1423,27 +1585,34 @@ def serve_trunk(net, params, gen, report: dict) -> dict:
     eager, autodiff = (DerivativeEngine.from_spec(s) for s in ("ntp", "autodiff"))
     xs = {n: torch.rand((n, net.d_in), generator=gen, device=DEVICE,
                         dtype=torch.float64) * 2 - 1 for n in SIZES}
-    jobs = [(kind, req, n) for kind, req in REQUESTS for n in SIZES]
-    results, launches, metrics = serve_concurrently(
-        {"trunk": DerivativeServer(net, params, "ntp/cuda")}, xs, jobs)
-    metrics = metrics["trunk"]
+    jobs = [(kind, req, n) for kind, req in requests for n in SIZES]
+    with LauncherCounts() as took:
+        results, launches, metrics = serve_concurrently(
+            {label: DerivativeServer(net, params, "ntp/cuda")}, xs, jobs)
+    metrics = metrics[label]
 
     batches = metrics["batches"]
     want = {name: per * batches for name, per in TRUNK_PER_CALL.items()}
-    print(f"  launches in the served trunk run: {launches}; engine calls "
-          f"(batches): {batches}; expected {want}")
+    print(f"  launches in the served {label} run: {launches}; engine calls "
+          f"(batches): {batches}; expected {want}; C launchers {took.counts}")
     for name, n in want.items():
         require(launches[name] == n,
-                f"{name} launched {launches[name]} times in the trunk run, "
+                f"{name} launched {launches[name]} times in the {label} run, "
                 f"want {n} ({TRUNK_PER_CALL[name]} per engine call)")
+    require(sum(launches.values()) == sum(want.values()),
+            f"{label}: launches {launches}, want {want} and nothing else")
+    if launchers is not None:
+        expect = {name: per * batches for name, per in launchers.items()}
+        require(took.counts == expect, f"{label}: C launchers {took.counts}, want {expect}")
 
     worst = {"served_vs_eager": 0.0, "served_vs_autodiff": 0.0,
              "grid_vs_eager_of_table_max": 0.0, "cross_vs_eager_of_table_max": 0.0}
-    by_request = {f"{kind}{req}": {"vs_eager": 0.0, "vs_autodiff": 0.0}
-                  for kind, req in REQUESTS}
+    by_request = {f"{kind}{req}": {"vs_eager": 0.0, "vs_autodiff": 0.0,
+                                   "vs_eager_of_table_max": 0.0}
+                  for kind, req in requests}
     for kind, req, n in jobs:
         mine = by_request[f"{kind}{req}"]
-        x, served = xs[n], results[("trunk", kind, req, n)]
+        x, served = xs[n], results[(label, kind, req, n)]
         with torch.no_grad():
             direct = (eager.grid(net, params, x, req) if kind == "grid"
                       else eager.cross(net, params, x, req))
@@ -1453,17 +1622,18 @@ def serve_trunk(net, params, gen, report: dict) -> dict:
         if kind == "grid":
             gscale = readout_scale(net, params, x, req)
             e = scaled_err(served, direct, gscale, keep=2)
-            worst["grid_vs_eager_of_table_max"] = max(
-                worst["grid_vs_eager_of_table_max"], rel_err(served, direct, 2))
+            own = rel_err(served, direct, 2)
+            worst["grid_vs_eager_of_table_max"] = max(worst["grid_vs_eager_of_table_max"], own)
         else:
             scale = polarization_scale(eager, net, params, x, req)
             e = float((served - direct).abs().max()) / scale
-            worst["cross_vs_eager_of_table_max"] = max(
-                worst["cross_vs_eager_of_table_max"], rel_err(served, direct, 0))
+            own = rel_err(served, direct, 0)
+            worst["cross_vs_eager_of_table_max"] = max(worst["cross_vs_eager_of_table_max"], own)
         worst["served_vs_eager"] = max(worst["served_vs_eager"], e)
         mine["vs_eager"] = max(mine["vs_eager"], e)
-        require(e <= TOL_SERVED, f"served trunk {kind} {req} N={n} vs eager: {e:.3e}")
-        if n in TRUNK_AUTODIFF_SIZES:
+        mine["vs_eager_of_table_max"] = max(mine["vs_eager_of_table_max"], own)
+        require(e <= TOL_SERVED, f"served {label} {kind} {req} N={n} vs eager: {e:.3e}")
+        if n in autodiff_sizes:
             ad = (autodiff.grid(net, params, x, req) if kind == "grid"
                   else autodiff.cross(net, params, x, req)).detach()
             e = rel_err(served, ad, 2) if kind == "grid" else \
@@ -1472,19 +1642,19 @@ def serve_trunk(net, params, gen, report: dict) -> dict:
             mine["vs_autodiff"] = max(mine["vs_autodiff"], e)
             require(e <= TOL_AUTODIFF,
                     f"served trunk {kind} {req} N={n} vs autodiff: {e:.3e}")
-    print(f"  served trunk tables: {len(jobs)}; worst err vs eager ntp "
+    print(f"  served {label} tables: {len(jobs)}; worst err vs eager ntp "
           f"{worst['served_vs_eager']:.2e} (tol {TOL_SERVED:.0e}; grid tables relative "
           f"to the readout's terms, {worst['grid_vs_eager_of_table_max']:.2e} of the "
           f"table's own max; cross tables relative to the polarization terms, "
           f"{worst['cross_vs_eager_of_table_max']:.2e} of the table's own max), vs autodiff "
-          f"at N in {TRUNK_AUTODIFF_SIZES} {worst['served_vs_autodiff']:.2e} (tol "
-          f"{TOL_AUTODIFF:.0e})")
+          + (f"at N in {autodiff_sizes} {worst['served_vs_autodiff']:.2e} (tol "
+             f"{TOL_AUTODIFF:.0e})" if autodiff_sizes else "not run (order-10 towers)"))
     for key, w in by_request.items():
-        print(f"    {key}: vs eager {w['vs_eager']:.2e}, vs autodiff "
-              f"{w['vs_autodiff']:.2e}")
-    report["served_trunk"] = {"launches": launches, "batches": batches,
-                              "worst_rel_err": worst, "by_request": by_request,
-                              "metrics": metrics}
+        print(f"    {key}: vs eager {w['vs_eager']:.2e} ({w['vs_eager_of_table_max']:.2e} of "
+              f"the table's max), vs autodiff {w['vs_autodiff']:.2e}")
+    report["served_trunk" if label == "trunk" else f"served_{label}"] = {
+        "launches": launches, "batches": batches, "launchers": took.counts,
+        "worst_rel_err": worst, "by_request": by_request, "metrics": metrics}
     return launches
 
 
@@ -1843,7 +2013,7 @@ def time_trunk_kernels(gen, report: dict) -> dict:
     return out
 
 
-def time_trunk_server(net, params, gen, report: dict) -> dict:
+def time_trunk_server(net, params, gen, report: dict, requests=REQUESTS[:2]) -> dict:
     """Per request kind at the 512 bucket: the trunk server's latency (one
     client, no flush window) beside the device time of the bare engine call
     (``graph_time_ms``), whose ratio is the device's busy share."""
@@ -1853,10 +2023,10 @@ def time_trunk_server(net, params, gen, report: dict) -> dict:
 
     x = torch.rand((512, net.d_in), generator=gen, device=DEVICE,
                    dtype=torch.float64) * 2 - 1
-    out = {}
+    out = report.setdefault("trunk_server_latency", {})
     for spec in ("ntp/cuda", "ntp"):
         engine = DerivativeEngine.from_spec(spec)
-        for kind, req in REQUESTS[:2]:
+        for kind, req in requests:
             fn = engine.grid if kind == "grid" else engine.cross
             with torch.no_grad():
                 dev_ms = graph_time_ms(lambda: fn(net, params, x, req))
@@ -1881,7 +2051,6 @@ def time_trunk_server(net, params, gen, report: dict) -> dict:
                   f"{lat['p99_us']:.1f} us, {100 / wall:.1f} requests/s (one "
                   f"client); engine call device {dev_ms * 1e3:.1f} us (graph "
                   f"replay); device busy {100 * busy:.1f}% of p50")
-    report["trunk_server_latency"] = out
     return out
 
 
@@ -1932,13 +2101,15 @@ def time_scores_kernel(gen, report: dict) -> dict:
     return out
 
 
-def trace_trunk_cross(net, params, gen, report: dict, other=None) -> dict:
-    """Where the trunk's ``cross((0,0,1,1))`` call at the 512 bucket spends
-    its device time: ``torch.profiler`` over replays of one CUDA graph of
-    the engine call, device time summed per kernel name (the port's
-    kernels by symbol, the rest by PyTorch's kernel names).  With ``other``
-    (an earlier checkout's kernels, ``--against``) it traces the call with
-    that checkout's K1 and K4 first ("before"), then with this tree's."""
+def trace_trunk_call(net, params, gen, report: dict, other=None,
+                     request=("cross", (0, 0, 1, 1))) -> dict:
+    """Where the trunk's ``request`` at the 512 bucket spends its device
+    time: ``torch.profiler`` over replays of one CUDA graph of the engine
+    call, device time summed per kernel name (the port's kernels by
+    symbol, the rest by PyTorch's kernel names).  With ``other`` (an
+    earlier checkout's kernels, ``--against``) it traces the call with
+    that checkout's K1, K3 and K4 first ("before"), then with this
+    tree's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1948,26 +2119,31 @@ def trace_trunk_cross(net, params, gen, report: dict, other=None) -> dict:
     x = torch.rand((512, net.d_in), generator=gen, device=DEVICE,
                    dtype=torch.float64) * 2 - 1
     engine = DerivativeEngine.from_spec("ntp/cuda")
+    kind, req = request
+    call = engine.grid if kind == "grid" else engine.cross
+    what = f"{kind}({req})" if kind == "grid" else f"{kind}({','.join(map(str, req))})"
+    wrappers = ((ops._k1, "jet_dense", "jet_dense_cuda"),
+                (ops._k34, "jet_attention", "jet_rms_norm_cuda"),
+                (ops._k34, "jet_attention", "jet_flash_attention_cuda"))
     reps, out = 5, {}
     variants = [("after", None)]
     if other is not None:
         variants.insert(0, ("before", other))
     for label, kernels in variants:
-        saved = (ops._k1.jet_dense_cuda, ops._k34.jet_flash_attention_cuda)
+        saved = [getattr(mod, name) for mod, _, name in wrappers]
         if kernels is not None:
-            ops._k1.jet_dense_cuda = kernels["jet_dense"].jet_dense_cuda
-            ops._k34.jet_flash_attention_cuda = \
-                kernels["jet_attention"].jet_flash_attention_cuda
+            for mod, other_mod, name in wrappers:
+                setattr(mod, name, getattr(kernels[other_mod], name))
         try:
             graph = torch.cuda.CUDAGraph()
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.no_grad(), torch.cuda.stream(side):
                 for _ in range(3):
-                    engine.cross(net, params, x, (0, 0, 1, 1))
+                    call(net, params, x, req)
             torch.cuda.current_stream().wait_stream(side)
             with torch.no_grad(), torch.cuda.graph(graph):
-                engine.cross(net, params, x, (0, 0, 1, 1))
+                call(net, params, x, req)
             graph.replay()
             torch.cuda.synchronize()
             source = "graph replays"
@@ -1980,10 +2156,11 @@ def trace_trunk_cross(net, params, gen, report: dict, other=None) -> dict:
                 with torch.no_grad(), profile(
                         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     for _ in range(reps):
-                        engine.cross(net, params, x, (0, 0, 1, 1))
+                        call(net, params, x, req)
                     torch.cuda.synchronize()
         finally:
-            ops._k1.jet_dense_cuda, ops._k34.jet_flash_attention_cuda = saved
+            for (mod, _, name), fn in zip(wrappers, saved):
+                setattr(mod, name, fn)
         by_name, launches = {}, {}
         for evt in prof.events():
             if evt.device_type != DeviceType.CUDA:
@@ -1997,11 +2174,11 @@ def trace_trunk_cross(net, params, gen, report: dict, other=None) -> dict:
         ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
         out[label] = {"device_us": total, "by_kernel_us": dict(ranked),
                       "launches": {k: launches[k] for k, _ in ranked}, "source": source}
-        print(f"  trunk cross((0,0,1,1)) N=512, {label}: {total:.1f} us of device time "
+        print(f"  trunk {what} N=512, {label}: {total:.1f} us of device time "
               f"per call in {sum(launches.values()):.0f} kernels (profiler over {source})")
         for name, us in ranked[:10]:
             print(f"    {us:9.1f} us  {launches[name]:5.0f} x  {name[:90]}")
-    report["trunk_cross_trace"] = out
+    report[f"trunk_{kind}{req if kind == 'grid' else ''}_trace"] = out
     return out
 
 
@@ -2023,16 +2200,17 @@ def load_other_kernels(root: Path) -> dict:
 
 
 def compare_turns(other: dict, gen, report: dict) -> dict:
-    """The other checkout's K1, K2, K4 and K5 against this tree's on the
-    same inputs, device time in turns other, this, this, other
-    (``device_time_ms``, 100 calls each, 20 for the long ones): K1, K2 and
-    K4 at the served shapes, K4 and K5 at the memory row (f32), K5 at
-    SCORES_TIMED x SCORES_TIMED_ORDERS (f64), the run-time-order K1 and K2
-    at RUNTIME_TURNS.  Outputs held to each other at TOL_F64 (f64), 4
+    """The other checkout's K1-K5 against this tree's on the same inputs,
+    device time in turns other, this, this, other (``device_time_ms``, 100
+    calls each, 20 for the long ones, 5 for K4 at long T): K1, K2 and K4 at
+    the served shapes, K3 at (5, 16384, 32), K4 and K5 at the memory row
+    (f32), K5 at SCORES_TIMED x SCORES_TIMED_ORDERS (f64), the
+    run-time-order K3 and K4 at RT_RMS_SHAPES and RT_FLASH_SHAPES, K1 and
+    K2 at RUNTIME_TURNS.  Outputs held to each other at TOL_F64 (f64), 4
     TOL_F32 (the f32 sums over 1024 keys) or BF16_ULPS (bfloat16)."""
     import torch
     from repro_torch.kernels.jet_attention import (jet_attention_scores_cuda,
-                                                   jet_flash_attention_cuda)
+                                                   jet_flash_attention_cuda, jet_rms_norm_cuda)
     from repro_torch.kernels.jet_dense import jet_dense_cuda
     from repro_torch.kernels.tanh_jet import act_jet_cuda
 
@@ -2075,6 +2253,26 @@ def compare_turns(other: dict, gen, report: dict) -> dict:
                       lambda qs=qs, ks=ks, d=d: other["jet_attention"].jet_attention_scores_cuda(
                           qs, ks, d ** -0.5),
                       lambda qs=qs, ks=ks, d=d: jet_attention_scores_cuda(qs, ks, d ** -0.5)))
+    # K3 at its templated served shape, then the run-time-order K3 and K4
+    # at RT_RMS_SHAPES / RT_FLASH_SHAPES (phase 7b's)
+    x, g = rt_rms_inputs(gen, 5, 16384, 32, torch.float64)
+    cases.append(("jet_rms_norm (5, 16384, 32)",
+                  lambda x=x, g=g: other["jet_attention"].jet_rms_norm_cuda(x, g, 1e-6),
+                  lambda x=x, g=g: jet_rms_norm_cuda(x, g, 1e-6)))
+    for n1, rows, width, dname in RT_RMS_SHAPES:
+        x, g = rt_rms_inputs(gen, n1, rows, width, getattr(torch, dname))
+        tag = "bf16" if dname == "bfloat16" else "f64"
+        cases.append((f"jet_rms_norm run-time ({n1}, {rows}, {width}) {tag}",
+                      lambda x=x, g=g: other["jet_attention"].jet_rms_norm_cuda(x, g, 1e-6),
+                      lambda x=x, g=g: jet_rms_norm_cuda(x, g, 1e-6)))
+    for shape in RT_FLASH_SHAPES:     # own names: the served K4 case above reads q, k, v, wo
+        qr, kr, vr, wr = rt_flash_inputs(gen, *shape[:6], getattr(torch, shape[6]))
+        scale, tag = shape[4] ** -0.5, "bf16" if shape[6] == "bfloat16" else "f64"
+        cases.append((f"jet_flash_attention run-time {tuple(qr.shape)}x{tuple(wr.shape)} {tag}",
+                      lambda q=qr, k=kr, v=vr, wo=wr, scale=scale: other["jet_attention"]
+                      .jet_flash_attention_cuda(q, k, v, wo, scale),
+                      lambda q=qr, k=kr, v=vr, wo=wr, scale=scale:
+                      jet_flash_attention_cuda(q, k, v, wo, scale)))
     # the run-time-order K1 and K2 (csrc/jet_runtime.cu) at the shapes of
     # phase 7b: K1 at the Burgers k = 4 layers, both at the served layer at
     # orders 10 and 16 and on bfloat16 at order 4
@@ -2106,6 +2304,8 @@ def compare_turns(other: dict, gen, report: dict) -> dict:
             tol = TOL_F64 if "f32" not in what else 4 * TOL_F32
             require(e <= tol, f"{what}: this tree vs the other checkout {e:.3e}")
         reps = 20 if any(w in what for w in ("memory", "scores", "run-time")) else 100
+        if "1024, 8)x" in what:      # K4 at long T: milliseconds a call
+            reps = 5
         turns = [device_time_ms(fn, reps, what=what)[0] for fn in (old, new, new, old)]
         out[what] = {"turns_ms": turns, "order": ["other", "this", "this", "other"],
                      "rel_err": e}
@@ -2149,6 +2349,48 @@ def engine_turns(other: dict, net, params, gen, report: dict) -> dict:
     print(f"  {what}: other {turns[0] * 1e3:.2f} / this {turns[1] * 1e3:.2f} / this "
           f"{turns[2] * 1e3:.2f} / other {turns[3] * 1e3:.2f} us of device time (tables "
           f"agree to {e:.1e})")
+    out = report.setdefault("turns", {})[what] = {
+        "turns_ms": turns, "order": ["other", "this", "this", "other"], "rel_err": e}
+    return out
+
+
+def trunk_engine_turns(other: dict, net, params, gen, report: dict) -> dict:
+    """Phase 8: the served trunk's ``grid(TRUNK_GRID_ORDER)`` engine call at
+    512 rows (16 K1, 7 K3, 3 K4, all run-time-order) with the other
+    checkout's K3 and K4 and with this tree's (K1 is this tree's in both),
+    device time by graph replay in turns other, this, this, other; the
+    tables held to each other at TOL_F64 relative to each slice's max."""
+    import torch
+    from repro_torch.core.engines import DerivativeEngine
+    from repro_torch.kernels import ops
+
+    x = torch.rand((512, net.d_in), generator=gen, device=DEVICE,
+                   dtype=torch.float64) * 2 - 1
+    engine = DerivativeEngine.from_spec("ntp/cuda")
+    names = ("jet_rms_norm_cuda", "jet_flash_attention_cuda")
+
+    def call(mod):
+        def fn():
+            saved = {n: getattr(ops._k34, n) for n in names}
+            for n in names:
+                setattr(ops._k34, n, getattr(mod, n))
+            try:
+                with torch.no_grad():
+                    return engine.grid(net, params, x, TRUNK_GRID_ORDER)
+            finally:
+                for n, f in saved.items():
+                    setattr(ops._k34, n, f)
+        return fn
+
+    old, new = call(other["jet_attention"]), call(ops._k34)
+    e = rel_err(new(), old(), 2)
+    require(e <= TOL_F64, f"trunk grid({TRUNK_GRID_ORDER}) engine call: this tree vs the "
+                          f"other checkout {e:.3e}")
+    turns = [graph_time_ms(fn) for fn in (old, new, new, old)]
+    what = f"Transformer trunk grid({TRUNK_GRID_ORDER}) engine call N=512"
+    print(f"  {what}: other {turns[0] * 1e3:.2f} / this {turns[1] * 1e3:.2f} / this "
+          f"{turns[2] * 1e3:.2f} / other {turns[3] * 1e3:.2f} us of device time (graph "
+          f"replay; tables agree to {e:.1e})")
     out = report.setdefault("turns", {})[what] = {
         "turns_ms": turns, "order": ["other", "this", "this", "other"], "rel_err": e}
     return out
@@ -2217,10 +2459,13 @@ def time_new_instantiations(gen, report: dict) -> dict:
     bound: K1 at the Burgers k = 4 layer shapes (f64, tanh); K1-K5 at
     orders 10 and 16 at the served shapes of ``_kernel_cases`` (K5 at
     (n+1, 4, 1024, 8) as phase 4 times it); each kernel on bfloat16 at its
-    served order-4 shape (K5 at the memory rows' order 2)."""
+    served order-4 shape (K5 at the memory rows' order 2); K3 and K4 at
+    the trunk's grid(10) launches and K4 at long T.  K3-K5 beside their
+    order-0 library call (ORDER0_LIBRARY), K1 beside its GEMM part."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.jet_attention import jet_attention_scores_cuda
+    from repro_torch.kernels.jet_attention import (jet_attention_scores_cuda,
+                                                   jet_flash_attention_cuda, jet_rms_norm_cuda)
     from repro_torch.kernels.jet_dense import jet_dense_cuda
 
     cases = []
@@ -2247,6 +2492,23 @@ def time_new_instantiations(gen, report: dict) -> dict:
                           lambda q=q, k=k, d=d: jet_attention_scores_cuda(q, k, d ** -0.5),
                           lambda a, bb, d=d: ref.jet_attention_scores_ref(a, bb, d ** -0.5),
                           (q, k)))
+    # the trunk's grid(10) launches and K4 at long T (RT_RMS_SHAPES /
+    # RT_FLASH_SHAPES beside the table shapes above)
+    for n1, rows, width, dname in RT_RMS_SHAPES[:1]:
+        x, g = rt_rms_inputs(gen, n1, rows, width, getattr(torch, dname))
+        cases.append(("jet_rms_norm", f"trunk grid(10) ({n1}, {rows}, {width}) torch.{dname}",
+                      lambda x=x, g=g: jet_rms_norm_cuda(x, g, 1e-6),
+                      lambda c, gg: ref.jet_rms_norm_ref(c, gg, 1e-6), (x, g)))
+    for shape in (RT_FLASH_SHAPES[0], RT_FLASH_SHAPES[-1]):
+        q, k, v, wo = rt_flash_inputs(gen, *shape[:6], getattr(torch, shape[6]))
+        scale = shape[4] ** -0.5
+        what = "trunk grid(10)" if shape[3] <= 4 else "long T"
+        cases.append(("jet_flash_attention",
+                      f"{what} {tuple(q.shape)}x{tuple(wo.shape)} torch.{shape[6]}",
+                      lambda q=q, k=k, v=v, wo=wo, scale=scale:
+                      jet_flash_attention_cuda(q, k, v, wo, scale),
+                      lambda a, bb, c, d, scale=scale:
+                      ref.jet_flash_attention_ref(a, bb, c, d, scale), (q, k, v, wo)))
     out = {}
     for name, label, call, plain, args in cases:
         n1 = args[0].shape[0]
@@ -2258,16 +2520,70 @@ def time_new_instantiations(gen, report: dict) -> dict:
         entry = out.setdefault(name, {})[label] = {
             "ms": ms, "host_ms": host, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "bytes": nbytes, "flops": flops}
-        gemm = ""
+        extra = ""
         if name == "jet_dense":      # the GEMM part alone, one library call
             x, w = args[0].reshape(-1, args[0].shape[-1]), args[1]
             entry["gemm_only_ms"] = device_time_ms(lambda: torch.matmul(x, w), 20)[0]
-            gemm = f", GEMM part alone {entry['gemm_only_ms'] * 1e3:.2f} us"
+            extra = f", GEMM part alone {entry['gemm_only_ms'] * 1e3:.2f} us"
+        elif name in ORDER0_LIBRARY:  # the same function at order 0, one library call
+            call0, timer, what = ORDER0_LIBRARY[name]
+            entry["library_order0_ms"] = timer(lambda: call0(*args))
+            entry["library_order0_call"] = what
+            extra = f", order-0 library call {entry['library_order0_ms'] * 1e3:.2f} us"
         print(f"  {name} {label}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound "
-              f"{bound[0] * 1e3:.2f} us by {bound[1]}{gemm}; host dispatch "
+              f"{bound[0] * 1e3:.2f} us by {bound[1]}{extra}; host dispatch "
               f"{host * 1e3:.2f} us)")
     report["runtime_kernel_times"] = out
     return out
+
+
+def rt_rms_inputs(gen, n1: int, rows: int, width: int, dt):
+    import torch
+    x = (0.5 * torch.randn((n1, rows, width), generator=gen, device=DEVICE,
+                           dtype=torch.float64)).to(dt)
+    g = (1 + 0.2 * torch.randn((width,), generator=gen, device=DEVICE,
+                               dtype=torch.float64)).to(dt)
+    return x, g
+
+
+def rt_flash_inputs(gen, n1: int, bsz: int, heads: int, t: int, dh: int, dm: int, dt):
+    import torch
+    q, k, v = ((0.5 * torch.randn((n1, bsz, heads, t, dh), generator=gen, device=DEVICE,
+                                  dtype=torch.float64)).to(dt) for _ in range(3))
+    wo = (torch.randn((heads, dh, dm), generator=gen, device=DEVICE, dtype=torch.float64)
+          / (heads * dh) ** 0.5).to(dt)
+    return q, k, v, wo
+
+
+def _rms_order0(x, g):
+    import torch.nn.functional as F
+    return F.rms_norm(x[0], (x.shape[-1],), g, 1e-6)
+
+
+def _flash_order0(q, k, v, wo):
+    import torch.nn.functional as F
+    bsz, heads, t, dh = q.shape[1:]
+    o = F.scaled_dot_product_attention(q[0], k[0], v[0], scale=dh ** -0.5)
+    return o.transpose(1, 2).reshape(bsz, t, heads * dh) @ wo.reshape(heads * dh, -1)
+
+
+def _scores_order0(q, k):
+    import torch
+    return torch.softmax(q.shape[-1] ** -0.5 * q[0] @ k[0].transpose(-1, -2), dim=-1)
+
+
+# K3-K5's order-0 yardsticks in phase 7b: the same function on c_0 in one
+# library call, timed beside the kernel, never called by the port; f64
+# scaled_dot_product_attention synchronizes, so it is timed by events
+# around single calls (an upper bound)
+ORDER0_LIBRARY = {
+    "jet_rms_norm": (_rms_order0, lambda fn: device_time_ms(fn, 20)[0],
+                     "torch.nn.functional.rms_norm on c_0"),
+    "jet_flash_attention": (_flash_order0, lambda fn: event_time_ms(fn),
+                            "scaled_dot_product_attention on c_0, then @ wo (events)"),
+    "jet_attention_scores": (_scores_order0, lambda fn: device_time_ms(fn, 20)[0],
+                             "torch.softmax(scale * q_0 @ k_0^T)"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -2673,6 +2989,8 @@ def main(argv=None) -> int:
     # from their own generator, like the edges: the later phases keep their inputs
     check_high_orders(torch.Generator(device=DEVICE).manual_seed(args.seed + 3), report,
                       worst)
+    check_runtime_attention(torch.Generator(device=DEVICE).manual_seed(args.seed + 7), report,
+                            worst)
     check_admitted_orders(torch.Generator(device=DEVICE).manual_seed(args.seed + 3), report)
 
     net = DenseMLP(d_in=2, width=32, depth=3, d_out=1, activation="tanh")
@@ -2699,6 +3017,11 @@ def main(argv=None) -> int:
     new_paths["dense_grid10"] = serve_network("dense_grid10", net, params,
                                               (("grid", DENSE_GRID_ORDER),), 4, (), gen3,
                                               report)
+    phase("3f", f"served: pinn-pde Transformer grid({TRUNK_GRID_ORDER}) f64, ntp/cuda (N1 = "
+                f"{TRUNK_GRID_ORDER + 1}: the run-time-order K1, K3 and K4)")
+    new_paths["trunk_grid10"] = serve_trunk(
+        trunk, trunk_params, torch.Generator(device=DEVICE).manual_seed(args.seed + 6), report,
+        (("grid", TRUNK_GRID_ORDER),), (), "trunk_grid10", TRUNK_RT_LAUNCHERS)
 
     phase("4", "times (CUDA events, warm L2, back-to-back device work)")
     times = time_kernels(net, params, gen, report)
@@ -2707,9 +3030,12 @@ def main(argv=None) -> int:
     time_server(net, params, gen, report, (("grid", DENSE_GRID_ORDER),))
     trunk_times = time_trunk_kernels(gen, report)
     time_trunk_server(trunk, trunk_params, gen, report)
+    # the trunk served past the templates (phase 3f's request)
+    time_trunk_server(trunk, trunk_params, gen, report, (("grid", TRUNK_GRID_ORDER),))
     scores_times = time_scores_kernel(gen, report)
     other = load_other_kernels(args.against) if args.against else None
-    trace_trunk_cross(trunk, trunk_params, gen, report, other)
+    trace_trunk_call(trunk, trunk_params, gen, report, other)
+    trace_trunk_call(trunk, trunk_params, gen, report, other, ("grid", TRUNK_GRID_ORDER))
 
     phase("5", f"Burgers training, pinn-mlp (3 x 24 tanh) f64, 512 + 128 points, "
                f"k: (Adam, L-BFGS) {BURGERS_STEPS}, ntp/cuda vs ntp")
@@ -2725,10 +3051,11 @@ def main(argv=None) -> int:
     runtime_times = time_new_instantiations(
         torch.Generator(device=DEVICE).manual_seed(args.seed + 5), report)
     if other is not None:
-        phase("8", f"K1, K2, K4 and K5 of {args.against} (other) against this tree's, "
-                   f"in turns")
+        phase("8", f"K1-K5 of {args.against} (other) against this tree's, in turns, and "
+                   f"the engine calls of phases 3e and 3f")
         compare_turns(other, gen, report)
         engine_turns(other, net, params, gen, report)
+        trunk_engine_turns(other, trunk, trunk_params, gen, report)
     phase("", "")
 
     paths = {"dense_mlp": launches, "transformer": trunk_launches,
@@ -2808,7 +3135,8 @@ def main(argv=None) -> int:
                          for key, v in scores_times.items()}})
     for k in kernels:      # the run-time-order kernel of each (phase 7b)
         k["runtime_shapes"] = {label: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                                          "bound_by", "gemm_only_ms")
+                                                          "bound_by", "gemm_only_ms",
+                                                          "library_order0_ms")
                                        if f in v}
                                for label, v in runtime_times.get(k["name"], {}).items()}
     report["kernels"] = kernels

@@ -1,5 +1,6 @@
 // cp.async helpers shared by the kernels that stage tiles in shared memory
-// (jet_dense.cu, jet_flash_attention.cu, jet_attention_scores.cu).
+// (jet_dense.cu, jet_flash_attention.cu, jet_attention_scores.cu,
+// jet_runtime.cu).
 #pragma once
 
 #include <cstdint>

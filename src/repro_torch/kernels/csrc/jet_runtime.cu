@@ -63,25 +63,50 @@
 //   until the grid covers the SMs twice (the Burgers layers: one row of 24
 //   columns a block).
 //
-// K3-K5: K3 a warp per row (lanes over W, warp sums of the
-// mean-square jet, lane 0 runs the rsqrt recurrence); K4 a warp per
-// (row, query), lanes over the head dims in steps of 32 (any Dh), per head
-// two passes over the kept keys (the max of s_0, then the e-jets, totals
-// and value contraction with that max: no rescaling), the jet division,
-// and the head's share of the projection accumulated in shared memory;
-// K5 a warp per (row, query), lanes over keys, three passes (max, totals,
-// probabilities), recomputing the score jet in each from one read of the
-// key (its coefficients dim by dim).  Dot products use
-// explicit fused multiply-adds so that every pass computes bit-identical
-// scores.
+// K3 and K4, the trunk's kernels past the templates (its grid(10) engine
+// call launches 7 K3 at (11, 2048, 32) and 3 K4 at (11, 1024, 2, 2, 16)).
+// Their first versions gave a warp a row or a (row, query), re-read each
+// coefficient O(n1) times, reduced every score and mean-square coefficient
+// in its own warp sum and ran the recurrences on lane 0.  Now:
+//
+// * K3: a power-of-two group of lanes a row (16-byte chunks a lane, several
+//   rows a warp at W = 32), the row copied once into shared memory by
+//   cp.async; the mean square and the output are Cauchy products, kRmsTile
+//   coefficients a lane at a time from a sliding window of the row's
+//   chunks (one load of a and one of b for kRmsTile x V multiply-adds);
+//   the lane partials meet in one sweep through shared memory; every lane
+//   runs the rsqrt recurrence.  A persistent grid of warps walks the rows.
+// * K4 at T <= 4 (the templates' short-T geometry): a (row, head) a team
+//   of lanes, a group of lanes a query, all of a row's heads in one block,
+//   q/k/v copied once by cp.async; scores accumulated kTile coefficients at
+//   a time from a sliding window, one butterfly over the group each; the T
+//   scores kept, so the max and the e-jets share s_0; the value
+//   contraction and the jet division on the lane's dims; the projection
+//   over heads x Dh a block GEMM from shared memory (f64 mma.sync m8n8k4,
+//   f32 FMAs), wo staged once per persistent block.
+// * K4 at long T: a block of W warps takes W queries of one row, key tiles
+//   of all n1 coefficients staged once by cp.async into padded rows, a
+//   lane a key, an online max with the alpha rescale.
+// * K4's smallest block (what neither geometry fits): the first version's warp per
+//   (row, query), keys read from L2; the wrappers admit what it admits.
+// * K5 a warp per (row, query), lanes over keys, three passes (max, totals,
+//   probabilities), recomputing the score jet in each from one read of the
+//   key (its coefficients dim by dim).
+// Dot products use explicit fused multiply-adds so that every pass
+// computes bit-identical scores.
 //
 // Bound on the H100: the same as the templated kernels' (bytes; FP64
 // operations for K1/K2 at high orders).  K1/K2's walk is bounded by the
 // instructions around its products (a term's loads and loop steps) and
 // their latency, not by the FP64 pipe; PERF.md has their times against the
-// bound.  K3-K5 are simple kernels that are right, not fast: K4 and K5
-// re-read keys and values per query from L2 and reduce each score
-// coefficient across the warp.
+// bound.  K3 and K4 at the trunk's grid(10) shapes run one wave of the
+// card: their time is a block's chain of phases (copy, the Cauchy tiles,
+// the serial e-jet, division and rsqrt recurrences through shared memory,
+// the projection), not bytes; at 8-16 times those rows the phases of
+// other warps overlap and they run at 1.9x (K3) and 4x (K4) their byte
+// bound at order 10.  K5 is a simple kernel that is right, not fast: it
+// re-reads keys per query from L2 and reduces each score coefficient
+// across the warp.
 #include <cuda_bf16.h>
 
 #include <algorithm>
@@ -548,54 +573,264 @@ __global__ void __launch_bounds__(kDenseMaxWarps * 32, 3)
 }
 
 // ---------------------------------------------------------------------------
-// K3: a warp per row; the row's mean-square and rsqrt jets in shared memory
+// K3: a group of lanes per row, the row's coefficients staged once
 // ---------------------------------------------------------------------------
 
+constexpr int kRmsChunk = 32;   // K3: mean-square coefficients reduced in one sweep, at most
+constexpr int kRmsTile = 4;     // K3: coefficients a lane accumulates in registers at a time
+
+// Bytes of one K3 row slot (jet_attention.rms_norm_slot_bytes): when
+// staged, the row's coefficients (n1 x width of the storage type, padded to
+// 16 bytes); then its mean-square jet (n1) and the sweep's scratch (a chunk
+// of coefficients x (group + 1) lanes), whose room the rsqrt jet (n1)
+// takes once the mean square is complete, in the compute type.
+__host__ __device__ inline int64_t rms_slot_bytes(int n1, int width, int group, bool staged,
+                                                  int item_s, int item_t) {
+  const int64_t chunk = n1 < kRmsChunk ? n1 : kRmsChunk;
+  const int64_t scratch = chunk * (group + 1) > n1 ? chunk * (group + 1) : n1;
+  return (staged ? tile_bytes(static_cast<int64_t>(n1) * width, item_s) : 0) +
+         tile_bytes(n1 + scratch, item_t);
+}
+
+// V elements of a stack (16 bytes of P when V > 1, p 16-byte aligned) into
+// registers of the compute type.
+template <int V, typename T, typename P>
+__device__ __forceinline__ void ld_chunk(T (&c)[V], const P* p) {
+  if constexpr (V == 1) {
+    c[0] = ld(p);
+  } else {
+    constexpr int per = 16 / sizeof(P);
+#pragma unroll
+    for (int q = 0; q < V / per; ++q) {
+      const Lane16<P> l = reinterpret_cast<const Lane16<P>*>(p)[q];
+#pragma unroll
+      for (int i = 0; i < per; ++i) c[q * per + i] = ld(&l.v[i]);
+    }
+  }
+}
+
+// V outputs, one 16-byte store when V > 1.
+template <int V, typename S, typename T>
+__device__ __forceinline__ void st_chunk(S* p, const T (&c)[V]) {
+  if constexpr (V == 1) {
+    st(p, c[0]);
+  } else {
+    Lane16<S> l;
+#pragma unroll
+    for (int i = 0; i < V; ++i) st(&l.v[i], c[i]);
+    *reinterpret_cast<Lane16<S>*>(p) = l;
+  }
+}
+
+__device__ __forceinline__ float rcp(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double rcp(double x) { return __drcp_rn(x); }
+
+// acc[mm][.] += sum_{i <= m} a_i b_{m-i} for m = m0 + mm < n1, V lanes at
+// once: a_i and b_j are V-element chunks from `at(i)` (a_is_b: the same
+// sequence, the mean square) or a_i a scalar from `a` (the output).  A
+// window of kTile b's slides down as i grows: each step loads one a and
+// one b for kTile x V multiply-adds.
+template <int V, typename T, typename At>
+__device__ __forceinline__ void cauchy_chunks(T (&acc)[kRmsTile][V], At at, const T* a, int m0,
+                                              int n1) {
+  T w[kRmsTile][V];
+#pragma unroll
+  for (int mm = 0; mm < kRmsTile; ++mm) {
+    if (m0 + mm < n1) {
+      at(m0 + mm, w[mm]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) w[mm][q] = T(0);
+    }
+  }
+  const int top = min(m0 + kRmsTile, n1);
+  for (int i = 0; i < top; ++i) {
+    T ai[V];
+    if (a == nullptr) {
+      at(i, ai);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) ai[q] = a[i];
+    }
+#pragma unroll
+    for (int mm = 0; mm < kRmsTile; ++mm)
+#pragma unroll
+      for (int q = 0; q < V; ++q) acc[mm][q] = fmadd(ai[q], w[mm][q], acc[mm][q]);
+#pragma unroll
+    for (int mm = kRmsTile - 1; mm > 0; --mm)
+#pragma unroll
+      for (int q = 0; q < V; ++q) w[mm][q] = w[mm - 1][q];
+    if (m0 - i - 1 >= 0) {
+      at(m0 - i - 1, w[0]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) w[0][q] = T(0);
+    }
+  }
+}
+
+// One element of a stack into shared memory of the same type: cp.async
+// where it is 4 or 8 bytes, else a plain copy (bfloat16).
 template <typename S>
+__device__ __forceinline__ void stage_copy(S* dst, const S* src) {
+  if constexpr (sizeof(S) >= 4) {
+    cp_async_elem(dst, src, true);
+  } else {
+    *dst = *src;
+  }
+}
+
+// A group of `group` lanes (a power of two) per row, 32 / group rows a warp;
+// a lane takes the row's V-element chunks gl, gl + group, ...  A persistent
+// grid: each warp walks its rows 32 / group at a time.  Staged: the rows'
+// n1 x width coefficients are copied (16-byte cp.async where V > 1) into
+// shared memory in the storage type, and every pass reads them there; else
+// (rows too long for a warp's share) from device memory.  V is 16 bytes of
+// the storage type where rows are 16-byte aligned, else 1.  The mean
+// square and the output are Cauchy products, kRmsTile coefficients at a
+// time from a sliding window; the mean square's lane partials meet in one
+// sweep over shared memory (kRmsChunk coefficients a sweep); every lane of
+// the row runs the rsqrt recurrence.
+template <typename S, int V, bool Staged>
 __global__ void jet_rms_norm_rt_kernel(const S* __restrict__ x, const S* __restrict__ gamma,
                                        S* __restrict__ out, int64_t bsz, int width, int n1,
-                                       typename Compute<S>::T eps) {
+                                       typename Compute<S>::T eps, int group) {
   using T = typename Compute<S>::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  T* ms = reinterpret_cast<T*>(smem_raw) + warp * 2 * n1;
-  T* inv = ms + n1;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * nw + warp;
-  if (row >= bsz) return;   // the whole warp leaves: the shuffles below stay full
-  const int64_t plane = bsz * width;
-  const S* xr = x + row * width;
-  for (int m = 0; m < n1; ++m) {
-    T part = T(0);
-    for (int w = lane; w < width; w += 32)
-      for (int i = 0; i <= m; ++i)
-        part = fmadd(ld(xr + i * plane + w), ld(xr + (m - i) * plane + w), part);
-    part = warp_sum(part) / T(width);
-    if (lane == 0) ms[m] = m == 0 ? part + eps : part;
+  const int rpw = 32 / group, r = lane / group, gl = lane % group;   // row of the warp's
+  const int64_t plane = bsz * width, groups = (bsz + rpw - 1) / rpw;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * nw;
+  const int chunks = (width + V - 1) / V, gp = group + 1;
+  const int64_t tile = tile_bytes(static_cast<int64_t>(n1) * width, sizeof(S));
+  unsigned char* base =
+      smem_raw + (warp * rpw + r) * rms_slot_bytes(n1, width, group, Staged, sizeof(S), sizeof(T));
+  S* xs = reinterpret_cast<S*>(base);       // [n1][width] when staged
+  T* ms = reinterpret_cast<T*>(base + (Staged ? tile : 0));   // [n1]
+  T* scr = ms + n1;                         // [chunk][group + 1], then inv [n1]
+
+  // the coefficients of row r of the warp's g-th rows; the caller commits
+  auto stage = [&](int64_t g) {
+    const int64_t row = g * rpw + r;
+    if (row >= bsz) return;
+    const S* xr = x + row * width;
+    for (int c = 0; c < n1; ++c)
+      for (int ch = gl; ch < chunks; ch += group) {
+        if constexpr (V > 1) {
+          cp_async_16(xs + c * width + ch * V, xr + c * plane + ch * V, true);
+        } else {
+          stage_copy(xs + c * width + ch, xr + c * plane + ch);
+        }
+      }
+  };
+
+  int64_t g = static_cast<int64_t>(blockIdx.x) * nw + warp;
+  if constexpr (Staged) {
+    if (g < groups) stage(g);
   }
-  __syncwarp();
-  if (lane == 0) {
-    inv[0] = T(1) / dev_sqrt(ms[0]);
-    for (int m = 1; m < n1; ++m) {
-      T acc = T(0);
-      for (int j = 1; j <= m; ++j) acc += (T(0.5) * T(j) - T(m)) * ms[j] * inv[m - j];
-      inv[m] = acc / (T(m) * ms[0]);
+  for (; g < groups; g += stride) {
+    if constexpr (Staged) {
+      cp_async_wait_all();
+      __syncwarp();
     }
-  }
-  __syncwarp();
-  S* outr = out + row * width;
-  for (int w = lane; w < width; w += 32) {
-    const T g = ld(gamma + w);
-    for (int m = 0; m < n1; ++m) {
-      T acc = T(0);
-      for (int j = 0; j <= m; ++j) acc = fmadd(ld(xr + (m - j) * plane + w), inv[j], acc);
-      st(outr + m * plane + w, acc * g);
+    const int64_t row = g * rpw + r;
+    const bool ok = row < bsz;   // lanes past the last row still take the warp's syncs
+    const S* xr = x + (ok ? row : 0) * width;
+    auto at_col = [&](int col) {
+      return [=](int c, T(&dst)[V]) {
+        if constexpr (Staged) ld_chunk<V>(dst, xs + c * width + col);
+        else ld_chunk<V>(dst, xr + c * plane + col);
+      };
+    };
+
+    // the mean-square jet: each lane's partial of kRmsChunk coefficients
+    // at a time, then one sweep over the row's lanes
+    for (int m0 = 0; m0 < n1; m0 += kRmsChunk) {
+      const int mc = min(kRmsChunk, n1 - m0);
+      if (ok) {
+        for (int mt = m0; mt < m0 + mc; mt += kRmsTile) {
+          T acc[kRmsTile][V];
+#pragma unroll
+          for (int mm = 0; mm < kRmsTile; ++mm)
+#pragma unroll
+            for (int q = 0; q < V; ++q) acc[mm][q] = T(0);
+          for (int ch = gl; ch < chunks; ch += group)
+            cauchy_chunks<V>(acc, at_col(ch * V), static_cast<const T*>(nullptr), mt, n1);
+#pragma unroll
+          for (int mm = 0; mm < kRmsTile; ++mm) {
+            if (mt + mm < m0 + mc) {
+              T part = acc[mm][0];
+#pragma unroll
+              for (int q = 1; q < V; ++q) part += acc[mm][q];
+              scr[(mt + mm - m0) * gp + gl] = part;
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (ok) {
+        for (int mm = gl; mm < mc; mm += group) {
+          T s = T(0);
+          for (int l = 0; l < group; ++l) s += scr[mm * gp + l];
+          s /= T(width);
+          ms[m0 + mm] = m0 + mm == 0 ? s + eps : s;
+        }
+      }
+      __syncwarp();   // ms complete; the scratch is free for the next chunk
+    }
+
+    // the rsqrt jet: every lane of the row runs the recurrence and writes
+    // the same values, so each reads only what it wrote itself
+    T* inv = scr;
+    if (ok) {
+      const T ms0 = ms[0], r0 = T(1) / ms0;
+      inv[0] = T(1) / dev_sqrt(ms0);
+      for (int m = 1; m < n1; ++m) {
+        T acc = T(0), c = T(0.5) - T(m);   // c = 0.5 j - m, exact as it steps
+        for (int j = 1; j <= m; ++j, c += T(0.5)) acc += c * ms[j] * inv[m - j];
+        inv[m] = acc * rcp(T(m)) * r0;
+      }
+      S* outr = out + row * width;
+      for (int ch = gl; ch < chunks; ch += group) {
+        const int col = ch * V;
+        T gv[V];
+#pragma unroll
+        for (int q = 0; q < V; ++q) gv[q] = ld(gamma + col + q);
+        for (int mt = 0; mt < n1; mt += kRmsTile) {
+          T acc[kRmsTile][V];
+#pragma unroll
+          for (int mm = 0; mm < kRmsTile; ++mm)
+#pragma unroll
+            for (int q = 0; q < V; ++q) acc[mm][q] = T(0);
+          cauchy_chunks<V>(acc, at_col(col), inv, mt, n1);
+#pragma unroll
+          for (int mm = 0; mm < kRmsTile; ++mm) {
+            if (mt + mm < n1) {
+#pragma unroll
+              for (int q = 0; q < V; ++q) acc[mm][q] *= gv[q];
+              st_chunk<V>(outr + (mt + mm) * plane + col, acc[mm]);
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();   // done with the rows' copies, ms and inv: the next rows overwrite them
+    if constexpr (Staged) {
+      if (g + stride < groups) stage(g + stride);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K4: a warp per (row, query), lanes over the head dims
+// K4: short T, a group of lanes per (row, query); long T, a warp per query
+// with shared key tiles; else a warp per query reading keys from L2
 // ---------------------------------------------------------------------------
+
+constexpr int kTile = 4;         // K4: coefficients a lane accumulates in registers at a time
+constexpr int kKeyPitch = 33;    // K4 long T: words between the score (e-jet) rows of a warp's keys
+constexpr int kProjTiles = 4;    // K4 short T, f64 projection: 8-column tiles a warp takes at once
+constexpr int kProjRows = 4;     // K4 short T, f32 projection: rows a thread accumulates at once
+constexpr int kProjCols = 4;     // and columns
 
 __device__ __forceinline__ int keep_lo(int qi, int mask, int window) {
   return mask == kMaskLocal ? max(0, qi - window + 1) : 0;
@@ -604,8 +839,432 @@ __device__ __forceinline__ int keep_hi(int qi, int t, int mask) {
   return mask == kMaskNone ? t : qi + 1;
 }
 
+// acc[mm] += sum_{i <= m} a_i b_{m-i} for m = m0 + mm < n1 (a_i at a[i sa],
+// b_j at b[j sb], either of the storage or the compute type).  A window of
+// kTile b's slides down as i grows: each step loads one a and one b for
+// kTile multiply-adds.  Lanes m >= n1 gather terms that are never stored.
+template <typename T, typename A, typename B>
+__device__ __forceinline__ void cauchy_tile(T (&acc)[kTile], const A* a, int sa, const B* b,
+                                            int sb, int m0, int n1) {
+  T w[kTile];
+#pragma unroll
+  for (int mm = 0; mm < kTile; ++mm) w[mm] = m0 + mm < n1 ? T(ld(b + (m0 + mm) * sb)) : T(0);
+  const int top = min(m0 + kTile, n1);
+  for (int i = 0; i < top; ++i) {
+    const T ai = ld(a + i * sa);
+#pragma unroll
+    for (int mm = 0; mm < kTile; ++mm) acc[mm] = fmadd(ai, w[mm], acc[mm]);
+#pragma unroll
+    for (int mm = kTile - 1; mm > 0; --mm) w[mm] = w[mm - 1];
+    w[0] = m0 - i - 1 >= 0 ? T(ld(b + (m0 - i - 1) * sb)) : T(0);
+  }
+}
+
+// The e-jet of one score jet s (stride ss) for the max mx into e (stride es).
+template <typename T>
+__device__ __forceinline__ void exp_jet(const T* s, int ss, T mx, T* e, int es, int n1) {
+  e[0] = dev_exp(s[0] - mx);
+  for (int m = 1; m < n1; ++m) {
+    T acc = T(0), tj = T(0);
+    for (int j = 1; j <= m; ++j) acc += (tj += T(1)) * s[j * ss] * e[(m - j) * es];
+    e[m * es] = acc * rcp(T(m));
+  }
+}
+
+// o = a / tot as jets over a in place (a_m at a[m sa]), tot_0 floored at 1e-37.
+template <typename T>
+__device__ __forceinline__ void jet_divide(T* a, int sa, const T* tot, int n1) {
+  const T inv0 = T(1) / (tot[0] > T(1e-37) ? tot[0] : T(1e-37));
+  for (int m = 0; m < n1; ++m) {
+    T r = a[m * sa];
+    for (int j = 1; j <= m; ++j) r -= tot[j] * a[(m - j) * sa];
+    a[m * sa] = r * inv0;
+  }
+}
+
+__host__ __device__ constexpr int os_pitch(int hd) { return hd % 2 ? hd : hd + 1; }
+__host__ __device__ inline int pow2_ceil(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+// Bytes of K4's short-T block (jet_attention.flash_short_bytes): wo (heads
+// Dh x Dm) and the rows' output jets for the projection (rows x T x n1,
+// padded to 8, at an odd pitch over heads x Dh) in the compute type; then
+// every (row, head)'s q, k and v (3 x n1 x T x Dh of the storage type,
+// each padded to 16 bytes); then per (row, head) its score and e-jets (T
+// queries x T keys x n1 each) and totals (T x n1).
+__host__ __device__ inline int64_t flash_short_bytes(int n1, int heads, int t, int dh, int dm,
+                                                     int rows, int item_s, int item_t) {
+  const int64_t mrows = (static_cast<int64_t>(rows) * t * n1 + 7) / 8 * 8;
+  const int hd = heads * dh;
+  const int64_t units = static_cast<int64_t>(rows) * heads;
+  return tile_bytes(static_cast<int64_t>(hd) * dm, item_t) +
+         tile_bytes(mrows * os_pitch(hd), item_t) + units * tile_bytes(3LL * n1 * t * dh, item_s) +
+         tile_bytes(units * (2LL * t * t * n1 + static_cast<int64_t>(t) * n1), item_t);
+}
+
+// Short T (T <= 4).  A persistent block walks groups of `rows` batch rows
+// with all their heads: one (row, head) a team of lanes, the row's T
+// queries a group of `group` lanes each (a power of two; the team T
+// groups, padded to a power of two), 32 / team teams a warp.  A team copies
+// its q, k and v (n1 x T x Dh each, contiguous per coefficient: 16 bytes at
+// a time where `wide`) into shared memory by cp.async in the storage type,
+// the next rows' as soon as these are computed, under the projection.  A
+// group's lanes then take the head dims gl, gl + group, ...: a key's score
+// partials kTile coefficients at a time from a sliding window, one
+// butterfly over the group per coefficient; the T scores kept, so the max
+// and every e-jet read the same s_0; the e-jets a key a lane; totals, value
+// contraction (the same sliding window) and the jet division on the lane's
+// dims, into the block's output jets.  Then the block projects them onto
+// wo, staged once: f64 on the tensor cores (mma.sync m8n8k4), f32 on FMAs.
+template <typename S>
+__global__ void jet_flash_attention_rt_short_kernel(
+    const S* __restrict__ q, const S* __restrict__ k, const S* __restrict__ v,
+    const S* __restrict__ wo, S* __restrict__ out, int64_t bsz, int heads, int t, int dh, int dm,
+    int n1, typename Compute<S>::T scale, int mask, int window, int group, int rows, int wide) {
+  using T = typename Compute<S>::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int team = pow2_ceil(t) * group, tpw = 32 / team;
+  const int unit = warp * tpw + lane / team, tl = lane % team;   // (row, head) of the block
+  const int qi = tl / group, gl = tl - qi * group, slot = unit / heads, h = unit - slot * heads;
+  const unsigned gmask = (group == 32 ? 0xffffffffu : ((1u << group) - 1u))
+                         << (lane & ~(group - 1));
+  const int units = rows * heads, seg = t * dh, hd = heads * dh, op = os_pitch(hd);
+  const int64_t plane = bsz * heads * seg, groups = (bsz + rows - 1) / rows;
+  const int64_t mrows = static_cast<int64_t>(rows) * t * n1, mpad = (mrows + 7) / 8 * 8;
+  const int64_t xbytes = tile_bytes(3LL * n1 * seg, sizeof(S));
+  T* ws = reinterpret_cast<T*>(smem_raw);   // [hd][dm]
+  T* os = reinterpret_cast<T*>(smem_raw + tile_bytes(static_cast<int64_t>(hd) * dm, sizeof(T)));
+  unsigned char* xbase = reinterpret_cast<unsigned char*>(os) + tile_bytes(mpad * op, sizeof(T));
+  T* sc = reinterpret_cast<T*>(xbase + units * xbytes) +
+          static_cast<int64_t>(unit) * (2 * t * t * n1 + t * n1);   // [query][key][n1]
+  T* ej = sc + t * t * n1;                  // [query][key][n1]
+  T* tot = ej + t * t * n1;                 // [query][n1]
+  const int lo = keep_lo(qi, mask, window), hi = keep_hi(qi, t, mask);
+
+  S* xq = reinterpret_cast<S*>(xbase + static_cast<int64_t>(unit) * xbytes);   // [n1][t][dh]
+  const S* xk = xq + n1 * seg;              // xq, xk, xv: [n1][t][dh]
+  const S* xv = xk + n1 * seg;
+
+  // the team's q, k, v of the g-th rows: rows which * n1 + c of seg
+  // elements each
+  auto stage = [&](int64_t g) {
+    const int64_t b = g * rows + slot;
+    if (unit >= units || b >= bsz) return;
+    const int64_t head = (b * heads + h) * seg;
+    constexpr int kv = 16 / sizeof(S);      // elements of a 16-byte copy
+    const int step = wide ? kv : 1, pieces = seg / step;
+    for (int idx = tl; idx < 3 * n1 * pieces; idx += team) {
+      const int row = idx / pieces, e = (idx - row * pieces) * step;
+      const int which = row / n1, c = row - which * n1;
+      const S* src = (which == 0 ? q : which == 1 ? k : v) + c * plane + head + e;
+      if (wide) {
+        cp_async_16(xq + row * seg + e, src, true);
+      } else {
+        stage_copy(xq + row * seg + e, src);
+      }
+    }
+  };
+
+  for (int idx = tid; idx < hd * dm; idx += blockDim.x) stage_elem(ws + idx, wo + idx, wo, true);
+  int64_t g = blockIdx.x;
+  if (g < groups) stage(g);
+  for (; g < groups; g += gridDim.x) {
+    cp_async_wait_all();
+    __syncthreads();   // wo and every team's q, k, v of these rows in place
+    const int64_t b0 = g * rows, b = b0 + slot;
+    const bool q_ok = unit < units && b < bsz && qi < t;
+
+    if (q_ok) {
+      const S* qv = xq + qi * dh;
+      for (int j = lo; j < hi; ++j) {
+        const S* kk = xk + j * dh;
+        for (int m0 = 0; m0 < n1; m0 += kTile) {
+          T acc[kTile];
+#pragma unroll
+          for (int mm = 0; mm < kTile; ++mm) acc[mm] = T(0);
+          for (int d = gl; d < dh; d += group) cauchy_tile(acc, qv + d, seg, kk + d, seg, m0, n1);
+#pragma unroll
+          for (int mm = 0; mm < kTile; ++mm) {
+            for (int off = group >> 1; off > 0; off >>= 1)
+              acc[mm] += __shfl_xor_sync(gmask, acc[mm], off);
+            if (gl == 0 && m0 + mm < n1) sc[(qi * t + j) * n1 + m0 + mm] = acc[mm] * scale;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (q_ok) {
+      const T* sq = sc + qi * t * n1;
+      T mx = sq[lo * n1];
+      for (int j = lo + 1; j < hi; ++j) mx = sq[j * n1] > mx ? sq[j * n1] : mx;
+      for (int j = lo + gl; j < hi; j += group)
+        exp_jet(sq + j * n1, 1, mx, ej + (qi * t + j) * n1, 1, n1);
+    }
+    __syncwarp();
+    if (q_ok) {
+      const T* eq = ej + qi * t * n1;
+      for (int m = gl; m < n1; m += group) {
+        T s = T(0);
+        for (int j = lo; j < hi; ++j) s += eq[j * n1 + m];
+        tot[qi * n1 + m] = s;
+      }
+    }
+    __syncwarp();
+    if (q_ok) {
+      const T* eq = ej + qi * t * n1;
+      T* orow = os + static_cast<int64_t>(slot * t + qi) * n1 * op + h * dh;   // [n1][op]
+      for (int d = gl; d < dh; d += group) {
+        for (int m0 = 0; m0 < n1; m0 += kTile) {
+          T acc[kTile];
+#pragma unroll
+          for (int mm = 0; mm < kTile; ++mm) acc[mm] = T(0);
+          for (int j = lo; j < hi; ++j)
+            cauchy_tile(acc, eq + j * n1, 1, xv + j * dh + d, seg, m0, n1);
+#pragma unroll
+          for (int mm = 0; mm < kTile; ++mm)
+            if (m0 + mm < n1) orow[(m0 + mm) * op + d] = acc[mm];
+        }
+        jet_divide(orow + d, op, tot + qi * n1, n1);
+      }
+    }
+    __syncthreads();   // os complete; q, k, v are free for the next rows
+    if (g + gridDim.x < groups) stage(g + gridDim.x);
+
+    // projection: rows (slot, query, m) of os x wo -> out[m][b0 + slot][query][:];
+    // rows past the batch and the padding are computed, never stored.  The
+    // next group's compute rewrites os only after its first __syncthreads
+    const int64_t out_plane = bsz * t * dm;
+    if constexpr (std::is_same<T, double>::value) {
+      // lane l holds A[l/4][l%4], B[l%4][l/4] and C[l/4][2 (l%4) + {0, 1}]
+      const int gr = lane >> 2, gc = lane & 3;
+      const int m_tiles = static_cast<int>(mpad / 8);
+      const int n_groups = (dm + 8 * kProjTiles - 1) / (8 * kProjTiles);
+      for (int tile = warp; tile < m_tiles * n_groups; tile += nwarps) {
+        const int mt = tile / n_groups, n0 = (tile - mt * n_groups) * 8 * kProjTiles;
+        double c[kProjTiles][2];
+#pragma unroll
+        for (int j = 0; j < kProjTiles; ++j) c[j][0] = c[j][1] = 0.0;
+        for (int k0 = 0; k0 < hd; k0 += 4) {
+          const int kk = k0 + gc;
+          const double a = kk < hd ? os[(mt * 8 + gr) * static_cast<int64_t>(op) + kk] : 0.0;
+#pragma unroll
+          for (int j = 0; j < kProjTiles; ++j) {
+            const int nb = n0 + 8 * j + gr;
+            const double bv = kk < hd && nb < dm ? ws[kk * dm + nb] : 0.0;
+            asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "
+                "{%0, %1};\n"
+                : "+d"(c[j][0]), "+d"(c[j][1])
+                : "d"(a), "d"(bv));
+          }
+        }
+        const int64_t row = mt * 8 + gr;
+        const int item = static_cast<int>(row / n1), m = static_cast<int>(row - item * n1);
+        const int ir = item / t, iq = item - ir * t;
+        if (row < mrows && b0 + ir < bsz) {
+          S* orow_out = out + m * out_plane + ((b0 + ir) * t + iq) * dm;
+#pragma unroll
+          for (int j = 0; j < kProjTiles; ++j) {
+            const int n = n0 + 8 * j + 2 * gc;
+            if (n < dm) st(orow_out + n, c[j][0]);
+            if (n + 1 < dm) st(orow_out + n + 1, c[j][1]);
+          }
+        }
+      }
+    } else {
+      // a warp is 4 row groups x 8 column lanes; a thread accumulates
+      // kProjRows rows x kProjCols columns (n = n0 + cl + 8 j)
+      const int rgl = lane >> 3, cl = lane & 7, row_groups = nwarps * 4;
+      for (int n0 = 0; n0 < dm; n0 += 8 * kProjCols) {
+        for (int64_t row0 = (warp * 4 + rgl) * kProjRows; row0 < mrows;
+             row0 += row_groups * kProjRows) {
+          T accp[kProjRows][kProjCols];
+#pragma unroll
+          for (int rr = 0; rr < kProjRows; ++rr)
+#pragma unroll
+            for (int j = 0; j < kProjCols; ++j) accp[rr][j] = T(0);
+          const T* orow = os + row0 * op;   // rows past mrows exist (the buffer is padded)
+          for (int kk = 0; kk < hd; ++kk) {
+            T wv[kProjCols];
+#pragma unroll
+            for (int j = 0; j < kProjCols; ++j) {
+              const int n = n0 + cl + 8 * j;
+              wv[j] = n < dm ? ws[kk * dm + n] : T(0);
+            }
+#pragma unroll
+            for (int rr = 0; rr < kProjRows; ++rr) {
+              const T ov = orow[rr * op + kk];
+#pragma unroll
+              for (int j = 0; j < kProjCols; ++j) accp[rr][j] = fmadd(ov, wv[j], accp[rr][j]);
+            }
+          }
+#pragma unroll
+          for (int rr = 0; rr < kProjRows; ++rr) {
+            const int64_t row = row0 + rr;
+            const int item = static_cast<int>(row / n1), m = static_cast<int>(row - item * n1);
+            const int ir = item / t, iq = item - ir * t;
+            if (row >= mrows || b0 + ir >= bsz) continue;
+            S* orow_out = out + m * out_plane + ((b0 + ir) * t + iq) * dm;
+#pragma unroll
+            for (int j = 0; j < kProjCols; ++j) {
+              const int n = n0 + cl + 8 * j;
+              if (n < dm) st(orow_out + n, accp[rr][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Words of K4's long-T block (jet_attention.flash_long_words): the key and
+// value tiles (n1 x kt keys x (Dh + 1)), then per warp its query's jet and
+// value accumulator (n1 x Dh each), the tile's score and e-jets (n1 x
+// kKeyPitch each, a key a lane), the totals (n1) and the projected output
+// (n1 x Dm).
+__host__ __device__ inline int64_t flash_long_words(int n1, int dh, int dm, int warps, int kt) {
+  return 2LL * n1 * kt * (dh + 1) +
+         static_cast<int64_t>(warps) * n1 * (2LL * dh + 2 * kKeyPitch + 1 + dm);
+}
+
+// Long T.  A block of W warps takes W consecutive queries of one batch row.
+// Per head each tile of kt keys, all n1 coefficients of K and V, is staged
+// once by cp.async into shared rows padded to Dh + 1 words.  A warp's lanes
+// take the tile's keys: the score jet over every head dim (the sliding
+// window), the online max with the alpha rescale (alpha is exactly 0 on
+// the first kept key), the e-jet; then its lanes take the totals by
+// coefficient and the value contraction by (kTile coefficients, dim).
+// After the keys the jet division, and the head's share of the projection
+// accumulated in shared memory, a lane a (coefficient, output column).
+template <typename S>
+__global__ void jet_flash_attention_rt_long_kernel(
+    const S* __restrict__ q, const S* __restrict__ k, const S* __restrict__ v,
+    const S* __restrict__ wo, S* __restrict__ out, int64_t bsz, int heads, int t, int dh, int dm,
+    int n1, typename Compute<S>::T scale, int mask, int window, int kt) {
+  using T = typename Compute<S>::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nw = blockDim.x >> 5;
+  const int qblocks = (t + nw - 1) / nw;
+  const int64_t b = blockIdx.x / qblocks;
+  const int q0 = static_cast<int>(blockIdx.x % qblocks) * nw, qi = q0 + warp;
+  const bool active = qi < t;
+  const int dp = dh + 1, kp = kKeyPitch;
+  T* ks = reinterpret_cast<T*>(smem_raw);   // [n1][kt][dp]
+  T* vs = ks + n1 * kt * dp;
+  T* qs = vs + n1 * kt * dp + static_cast<int64_t>(warp) * n1 * (2 * dh + 2 * kp + 1 + dm);
+  T* as = qs + n1 * dh;                     // [n1][dh]
+  T* sc = as + n1 * dh;                     // [n1][kp]
+  T* ec = sc + n1 * kp;                     // [n1][kp]
+  T* tot = ec + n1 * kp;                    // [n1]
+  T* rs = tot + n1;                         // [n1][dm]
+  const int seg = t * dh;
+  const int64_t plane = bsz * heads * seg;
+  const T neg = T(kMaskNeg);
+  const int lo = keep_lo(qi, mask, window), hi = keep_hi(qi, t, mask);
+  const int blo = keep_lo(q0, mask, window);               // the block's keys
+  const int bhi = keep_hi(min(q0 + nw, t) - 1, t, mask);
+  const int tiles = (n1 + kTile - 1) / kTile;
+  for (int idx = lane; idx < n1 * dm; idx += 32) rs[idx] = T(0);
+
+  for (int h = 0; h < heads; ++h) {
+    const int64_t head = (b * heads + h) * seg;
+    if (active) {
+      for (int idx = lane; idx < n1 * dh; idx += 32) {
+        const int i = idx / dh, d = idx - i * dh;
+        qs[idx] = ld(q + i * plane + head + static_cast<int64_t>(qi) * dh + d);
+        as[idx] = T(0);
+      }
+      for (int m = lane; m < n1; m += 32) tot[m] = T(0);
+    }
+    T m_run = neg;
+    for (int k0 = blo; k0 < bhi; k0 += kt) {
+      const int nk = min(kt, bhi - k0);
+      __syncthreads();   // every warp is done with the previous tile
+      for (int idx = tid; idx < n1 * nk * dh; idx += blockDim.x) {
+        const int row = idx / dh, d = idx - row * dh;   // row = c * nk + key
+        const int c = row / nk, key = row - c * nk;
+        const int64_t src = c * plane + head + static_cast<int64_t>(k0 + key) * dh + d;
+        stage_elem(ks + (c * kt + key) * dp + d, k + src, k, true);
+        stage_elem(vs + (c * kt + key) * dp + d, v + src, v, true);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      const int j0 = max(lo, k0), j1 = min(hi, k0 + nk);
+      if (!active || j0 >= j1) continue;   // warp-uniform
+      const int key = k0 + lane;
+      const bool kept = key >= j0 && key < j1;
+      if (kept) {
+        for (int m0 = 0; m0 < n1; m0 += kTile) {
+          T acc[kTile];
+#pragma unroll
+          for (int mm = 0; mm < kTile; ++mm) acc[mm] = T(0);
+          for (int d = 0; d < dh; ++d)
+            cauchy_tile(acc, qs + d, dh, ks + lane * dp + d, kt * dp, m0, n1);
+#pragma unroll
+          for (int mm = 0; mm < kTile; ++mm)
+            if (m0 + mm < n1) sc[(m0 + mm) * kp + lane] = acc[mm] * scale;
+        }
+      }
+      const T s0 = kept ? sc[lane] : neg;
+      const T top = warp_max(s0), m_new = top > m_run ? top : m_run;
+      const T alpha = dev_exp(m_run - m_new);
+      if (kept) exp_jet(sc + lane, kp, m_new, ec + lane, kp, n1);
+      __syncwarp();
+      for (int m = lane; m < n1; m += 32) {
+        T r = T(0);
+        for (int kk = j0 - k0; kk < j1 - k0; ++kk) r += ec[m * kp + kk];
+        tot[m] = alpha * tot[m] + r;
+      }
+      for (int idx = lane; idx < tiles * dh; idx += 32) {
+        const int mt = idx / dh, d = idx - mt * dh, m0 = mt * kTile;
+        T acc[kTile];
+#pragma unroll
+        for (int mm = 0; mm < kTile; ++mm)
+          acc[mm] = m0 + mm < n1 ? alpha * as[(m0 + mm) * dh + d] : T(0);
+        for (int kk = j0 - k0; kk < j1 - k0; ++kk)
+          cauchy_tile(acc, ec + kk, kp, vs + kk * dp + d, kt * dp, m0, n1);
+#pragma unroll
+        for (int mm = 0; mm < kTile; ++mm)
+          if (m0 + mm < n1) as[(m0 + mm) * dh + d] = acc[mm];
+      }
+      m_run = m_new;
+    }
+    if (active) {
+      __syncwarp();   // as and tot complete
+      for (int d = lane; d < dh; d += 32) jet_divide(as + d, dh, tot, n1);
+      __syncwarp();
+      for (int idx = lane; idx < n1 * dm; idx += 32) {
+        const int m = idx / dm, n = idx - m * dm;
+        T acc = rs[idx];
+        for (int d = 0; d < dh; ++d)
+          acc = fmadd(as[m * dh + d], ld(wo + (static_cast<int64_t>(h) * dh + d) * dm + n), acc);
+        rs[idx] = acc;
+      }
+      __syncwarp();   // qs, as and tot are rewritten for the next head
+    }
+  }
+  if (!active) return;
+  const int64_t out_plane = bsz * t * dm;
+  S* outr = out + (b * t + qi) * dm;
+  for (int idx = lane; idx < n1 * dm; idx += 32) {
+    const int m = idx / dm, n = idx - m * dm;
+    st(outr + m * out_plane + n, rs[idx]);
+  }
+}
+
+// The smallest block, for what neither geometry above fits: a warp per
+// (row, query), lanes over the head dims in steps of 32 (any Dh), per head
+// two passes over the kept keys read from device memory (the max of s_0,
+// then the e-jets, totals and value contraction with that max), the jet
+// division, and the head's share of the projection accumulated in shared
+// memory.  Its score coefficients are warp sums, one each, the same bits
+// in both passes.
+
 // scale sum_{i <= m} q_i . k_{m-i} for the key row kr (a plane apart per
-// coefficient), the query in shared memory; the same bits in every pass
+// coefficient), the query in shared memory
 template <typename S, typename T>
 __device__ __forceinline__ T flash_score(const T* qs, const S* kr, int64_t plane, int dh, int m,
                                          int lane, T scale) {
@@ -815,6 +1474,8 @@ cudaError_t allow_smem(K kernel, int64_t smem) {
 
 int64_t blocks_of(int64_t items, int per_block) { return (items + per_block - 1) / per_block; }
 
+bool bad_warps(int warps) { return warps < 1 || warps > kMaxWarps; }
+
 // A persistent grid: as many blocks as the SMs hold at once, at most one a
 // tile.
 template <typename K>
@@ -872,38 +1533,101 @@ cudaError_t jet_dense_rt(const void* x, const void* w, const void* bias, void* o
   return cudaGetLastError();
 }
 
-template <typename S>
-cudaError_t jet_rms_norm_rt(const void* x, const void* gamma, void* out, int64_t bsz, int width,
-                            int n1, double eps, int warps, cudaStream_t stream) {
+template <typename S, int V, bool Staged>
+cudaError_t jet_rms_norm_rt_as(const void* x, const void* gamma, void* out, int64_t bsz,
+                               int width, int n1, double eps, int group, int warps,
+                               cudaStream_t stream) {
   using T = typename Compute<S>::T;
-  const int64_t smem = 2LL * n1 * warps * sizeof(T);
-  const int64_t blocks = blocks_of(bsz, warps);
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = jet_rms_norm_rt_kernel<S>;
-  const cudaError_t err = allow_smem(kernel, smem);
+  const int rpw = 32 / group;
+  const int64_t smem =
+      rms_slot_bytes(n1, width, group, Staged, sizeof(S), sizeof(T)) * rpw * warps;
+  auto kernel = jet_rms_norm_rt_kernel<S, V, Staged>;
+  unsigned grid = 0;
+  const cudaError_t err =
+      persistent_grid(kernel, warps * 32, smem, blocks_of(blocks_of(bsz, rpw), warps), &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
-      static_cast<const S*>(x), static_cast<const S*>(gamma), static_cast<S*>(out), bsz, width,
-      n1, static_cast<T>(eps));
+  kernel<<<grid, warps * 32, smem, stream>>>(static_cast<const S*>(x),
+                                             static_cast<const S*>(gamma), static_cast<S*>(out),
+                                             bsz, width, n1, static_cast<T>(eps), group);
   return cudaGetLastError();
 }
 
 template <typename S>
+cudaError_t jet_rms_norm_rt(const void* x, const void* gamma, void* out, int64_t bsz, int width,
+                            int n1, double eps, int vec, int group, int warps, bool staged,
+                            cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(S);
+  if (vec == kV) {
+    if (width % kV || ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15))
+      return cudaErrorInvalidValue;
+    return staged ? jet_rms_norm_rt_as<S, kV, true>(x, gamma, out, bsz, width, n1, eps, group,
+                                                    warps, stream)
+                  : jet_rms_norm_rt_as<S, kV, false>(x, gamma, out, bsz, width, n1, eps, group,
+                                                     warps, stream);
+  }
+  if (vec != 1) return cudaErrorInvalidValue;
+  return staged ? jet_rms_norm_rt_as<S, 1, true>(x, gamma, out, bsz, width, n1, eps, group, warps,
+                                                 stream)
+                : jet_rms_norm_rt_as<S, 1, false>(x, gamma, out, bsz, width, n1, eps, group,
+                                                  warps, stream);
+}
+
+// group > 0: the short-T kernel, `rows` batch rows a block (all their
+// heads, 32 / team (row, head) pairs a warp); else, with
+// key_tile > 0, the long-T kernel, `rows` queries (warps) a block; else
+// the smallest block, `rows` warps.
+template <typename S>
 cudaError_t jet_flash_attention_rt(const void* q, const void* k, const void* v, const void* wo,
                                    void* out, int64_t bsz, int heads, int t, int dh, int dm,
-                                   int n1, double scale, int mask, int window, int warps,
-                                   cudaStream_t stream) {
+                                   int n1, double scale, int mask, int window, int group,
+                                   int rows, int key_tile, cudaStream_t stream) {
   using T = typename Compute<S>::T;
-  const int64_t smem = flash_words(n1, dh, dm) * warps * static_cast<int64_t>(sizeof(T));
-  const int64_t blocks = blocks_of(bsz * t, warps);
+  const S* qs = static_cast<const S*>(q);
+  const S* ks = static_cast<const S*>(k);
+  const S* vs = static_cast<const S*>(v);
+  const S* ws = static_cast<const S*>(wo);
+  S* os = static_cast<S*>(out);
+  const T sc = static_cast<T>(scale);
+  if (group > 0) {
+    const int team = pow2_ceil(t) * group;
+    if (t > 4 || (group & (group - 1)) || team > 32) return cudaErrorInvalidValue;
+    const int64_t warps = blocks_of(static_cast<int64_t>(rows) * heads, 32 / team);
+    if (warps > kMaxWarps) return cudaErrorInvalidValue;
+    const int wide = (t * dh * sizeof(S)) % 16 == 0 &&
+                     !((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v)) & 15);
+    const int64_t smem =
+        flash_short_bytes(n1, heads, t, dh, dm, rows, sizeof(S), sizeof(T));
+    auto kernel = jet_flash_attention_rt_short_kernel<S>;
+    unsigned grid = 0;
+    const cudaError_t err = persistent_grid(kernel, static_cast<int>(warps) * 32, smem,
+                                            blocks_of(bsz, rows), &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, static_cast<unsigned>(warps) * 32, smem, stream>>>(
+        qs, ks, vs, ws, os, bsz, heads, t, dh, dm, n1, sc, mask, window, group, rows, wide);
+    return cudaGetLastError();
+  }
+  if (bad_warps(rows)) return cudaErrorInvalidValue;
+  if (key_tile > 0) {
+    if (key_tile > 32) return cudaErrorInvalidValue;
+    const int64_t smem = flash_long_words(n1, dh, dm, rows, key_tile) * int64_t{sizeof(T)};
+    const int64_t blocks = bsz * ((t + rows - 1) / rows);
+    if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+    auto kernel = jet_flash_attention_rt_long_kernel<S>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(blocks), rows * 32, smem, stream>>>(
+        qs, ks, vs, ws, os, bsz, heads, t, dh, dm, n1, sc, mask, window, key_tile);
+    return cudaGetLastError();
+  }
+  const int64_t smem = flash_words(n1, dh, dm) * rows * int64_t{sizeof(T)};
+  const int64_t blocks = blocks_of(bsz * t, rows);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   auto kernel = jet_flash_attention_rt_kernel<S>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
-      static_cast<const S*>(q), static_cast<const S*>(k), static_cast<const S*>(v),
-      static_cast<const S*>(wo), static_cast<S*>(out), bsz, heads, t, dh, dm, n1,
-      static_cast<T>(scale), mask, window);
+  kernel<<<static_cast<unsigned>(blocks), rows * 32, smem, stream>>>(
+      qs, ks, vs, ws, os, bsz, heads, t, dh, dm, n1, sc, mask, window);
   return cudaGetLastError();
 }
 
@@ -923,8 +1647,6 @@ cudaError_t jet_attention_scores_rt(const void* q, const void* k, void* out, int
   return cudaGetLastError();
 }
 
-bool bad_warps(int warps) { return warps < 1 || warps > kMaxWarps; }
-
 }  // namespace
 
 // Each returns a cudaError_t: the launch's cudaGetLastError(), or
@@ -935,8 +1657,11 @@ bool bad_warps(int warps) { return warps < 1 || warps > kMaxWarps; }
 // float64, n_ints and n_reals long.  The wrappers (tanh_jet.py,
 // jet_dense.py, jet_attention.py) choose the geometry so the block fits: K2
 // units of 32 elements, K1 rows and kc, the warps and whether the table is
-// staged in shared memory (act_jet_geometry, jet_dense_geometry); the caller
-// makes the tensors' device current.
+// staged in shared memory (act_jet_geometry, jet_dense_geometry); K3 the
+// vector width (1, or 16 bytes where rows are 16-byte aligned), lanes a
+// row, warps and whether rows are staged (rms_norm_geometry); K4 the kernel
+// and its tiles (flash_geometry).  The caller makes the tensors' device
+// current.
 extern "C" int act_jet_rt_launch(const void* x, void* out, int64_t n_elem, int n1, int act,
                                  int dtype, const void* tab, const void* reals, int n_ints,
                                  int n_reals, int units, int warps, int staged, void* stream) {
@@ -985,24 +1710,33 @@ extern "C" int jet_dense_rt_launch(const void* x, const void* w, const void* bia
 }
 
 extern "C" int jet_rms_norm_rt_launch(const void* x, const void* gamma, void* out, int64_t bsz,
-                                      int width, int n1, int dtype, double eps, int warps,
-                                      void* stream) {
-  if (bsz < 0 || width < 1 || n1 < 1 || bad_warps(warps)) return cudaErrorInvalidValue;
+                                      int width, int n1, int dtype, double eps, int vec,
+                                      int group, int warps, int staged, void* stream) {
+  if (bsz < 0 || width < 1 || n1 < 1 || group < 1 || group > 32 || (group & (group - 1)) ||
+      bad_warps(warps))
+    return cudaErrorInvalidValue;
   if (bsz == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return jet_rms_norm_rt<float>(x, gamma, out, bsz, width, n1, eps, warps, s);
-  if (dtype == kF64) return jet_rms_norm_rt<double>(x, gamma, out, bsz, width, n1, eps, warps, s);
+  const bool stage = staged != 0;
+  if (dtype == kF32)
+    return jet_rms_norm_rt<float>(x, gamma, out, bsz, width, n1, eps, vec, group, warps, stage,
+                                  s);
+  if (dtype == kF64)
+    return jet_rms_norm_rt<double>(x, gamma, out, bsz, width, n1, eps, vec, group, warps, stage,
+                                   s);
   if (dtype == kBF16)
-    return jet_rms_norm_rt<__nv_bfloat16>(x, gamma, out, bsz, width, n1, eps, warps, s);
+    return jet_rms_norm_rt<__nv_bfloat16>(x, gamma, out, bsz, width, n1, eps, vec, group, warps,
+                                          stage, s);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int jet_flash_attention_rt_launch(const void* q, const void* k, const void* v,
                                              const void* wo, void* out, int64_t bsz, int heads,
                                              int t, int dh, int dm, int n1, int dtype,
-                                             double scale, int mask, int window, int warps,
-                                             void* stream) {
-  if (bsz < 0 || heads < 1 || t < 1 || dh < 1 || dm < 1 || n1 < 1 || bad_warps(warps))
+                                             double scale, int mask, int window, int group,
+                                             int rows, int key_tile, void* stream) {
+  if (bsz < 0 || heads < 1 || t < 1 || dh < 1 || dm < 1 || n1 < 1 || group < 0 || rows < 1 ||
+      key_tile < 0)
     return cudaErrorInvalidValue;
   if (mask < kMaskNone || mask > kMaskLocal || (mask == kMaskLocal && window < 1))
     return cudaErrorInvalidValue;
@@ -1010,13 +1744,13 @@ extern "C" int jet_flash_attention_rt_launch(const void* q, const void* k, const
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return jet_flash_attention_rt<float>(q, k, v, wo, out, bsz, heads, t, dh, dm, n1, scale,
-                                         mask, window, warps, s);
+                                         mask, window, group, rows, key_tile, s);
   if (dtype == kF64)
     return jet_flash_attention_rt<double>(q, k, v, wo, out, bsz, heads, t, dh, dm, n1, scale,
-                                          mask, window, warps, s);
+                                          mask, window, group, rows, key_tile, s);
   if (dtype == kBF16)
     return jet_flash_attention_rt<__nv_bfloat16>(q, k, v, wo, out, bsz, heads, t, dh, dm, n1,
-                                                 scale, mask, window, warps, s);
+                                                 scale, mask, window, group, rows, key_tile, s);
   return cudaErrorInvalidValue;
 }
 

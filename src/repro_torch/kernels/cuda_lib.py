@@ -59,12 +59,14 @@ _SIGNATURES = {
     # n_reals, rows, kc, warps, staged, stream
     "jet_dense_rt_launch": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
-    # x, gamma, out, bsz, width, n1, dtype, eps, warps, stream
-    "jet_rms_norm_rt_launch": (_P, _P, _P, _I64, _I, _I, _I, _D, _I, _P),
+    # x, gamma, out, bsz, width, n1, dtype, eps, vec, group, warps, staged,
+    # stream
+    "jet_rms_norm_rt_launch": (_P, _P, _P, _I64, _I, _I, _I, _D, _I, _I, _I, _I,
+                               _P),
     # q, k, v, wo, out, bsz, heads, t, dh, dm, n1, dtype, scale, mask,
-    # window, warps, stream
+    # window, group, rows, key_tile, stream
     "jet_flash_attention_rt_launch": (_P, _P, _P, _P, _P, _I64, _I, _I, _I,
-                                      _I, _I, _I, _D, _I, _I, _I, _P),
+                                      _I, _I, _I, _D, _I, _I, _I, _I, _I, _P),
     # q, k, out, bsz, t, d, n1, dtype, scale, warps, stream
     "jet_attention_scores_rt_launch": (_P, _P, _P, _I64, _I, _I, _I, _I, _D,
                                        _I, _P),

@@ -26,9 +26,11 @@ Their plain versions are :func:`repro_torch.kernels.ref.jet_rms_norm_ref`,
 take contiguous float32, float64 and bfloat16 tensors of any order: the
 templated kernels above run float32/float64 up to N1 = ``TEMPLATE_N1``
 (K4 also up to head dim ``_TEMPLATE_HEAD_DIM``); everything else runs the
-run-time-order kernels of csrc/jet_runtime.cu, a warp per row (K3) or per
-query (K4, K5) with its jets in shared memory.  A wrapper refuses only a
-launch whose block does not fit in shared memory, naming the bytes.
+run-time-order kernels of csrc/jet_runtime.cu with their jets in shared
+memory: K3 a group of lanes a row (:func:`rms_norm_geometry`), K4 the
+templates' two geometries (:func:`flash_geometry`), K5 a warp a query.
+A wrapper refuses only a launch whose block does not fit in shared
+memory, naming the bytes.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 
 from . import cuda_lib
 from .cuda_lib import LaunchCounter
-from .tanh_jet import (DTYPE_CODES, SMEM_LIMIT, check_cuda_tensor, check_depth,
+from .tanh_jet import (_SMS, DTYPE_CODES, SMEM_LIMIT, check_cuda_tensor, check_depth,
                        check_fits, compute_itemsize, runtime_path)
 
 MASK_CODES = {"none": 0, "causal": 1, "local": 2}
@@ -55,6 +57,8 @@ _SCORES_MAX_SPLIT = 8         # warps a query's keys are split between (16 lost 
 _SCORES_BLOCKS_WANTED = 128   # ~ one block on each of the 132 SMs
 _SMEM_LIMIT = SMEM_LIMIT      # shared memory a block can use on Hopper
 _RT_WARPS = 8                 # csrc/jet_runtime.cu: warps of a K3/K4/K5 block, at most
+_RMS_CHUNK = 32               # csrc/jet_runtime.cu: kRmsChunk
+_KEY_PITCH = 33               # csrc/jet_runtime.cu: kKeyPitch
 _SM_SMEM = 233472             # shared memory of one SM; each block reserves 1 KB of it
 
 RMS_NORM_LAUNCHES = LaunchCounter("jet_rms_norm")
@@ -68,19 +72,75 @@ def _same_device(*ts: torch.Tensor) -> None:
                          f"{[str(t.device) for t in ts]}")
 
 
+def _pow2_ceil(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
 def runtime_warps(words_per_warp: int, dtype: torch.dtype) -> tuple[int, int]:
-    """(warps, shared bytes) of a K3/K4/K5 run-time-order block whose warps
-    each keep ``words_per_warp`` words: up to 8 warps, fewer where they do
-    not fit; one warp that does not fit leaves ``smem`` over the limit."""
+    """(warps, shared bytes) of a run-time-order block whose warps each keep
+    ``words_per_warp`` words (K5, and K4's smallest block): up to 8 warps,
+    fewer where they do not fit; one warp that does not fit leaves ``smem``
+    over the limit."""
     per_warp = words_per_warp * compute_itemsize(dtype)
     warps = max(1, min(_RT_WARPS, _SMEM_LIMIT // per_warp))
     return warps, warps * per_warp
 
 
-def rms_norm_runtime_words(n1: int) -> int:
-    """Words a K3 run-time-order warp keeps: the row's mean-square jet and
-    its rsqrt jet (csrc/jet_runtime.cu)."""
-    return 2 * n1
+class RmsGeometry(NamedTuple):
+    """K3's run-time-order block (csrc/jet_runtime.cu): ``vec`` elements a
+    lane loads at once (16 bytes of the stack where rows are 16-byte
+    aligned, else 1), ``group`` lanes a row (32 / group rows a warp),
+    ``warps``, whether the rows' coefficients are ``staged`` in shared
+    memory (else read from device memory), and the block's shared bytes."""
+    vec: int
+    group: int
+    warps: int
+    staged: bool
+    smem: int
+
+
+def _tile_bytes(words: int, item: int) -> int:
+    """``words`` words of ``item`` bytes, rounded up to 16 bytes
+    (csrc/jet_runtime.cu::tile_bytes)."""
+    return -(-words * item // 16) * 16
+
+
+def rms_norm_slot_bytes(n1: int, width: int, group: int, staged: bool, item_s: int,
+                        item_t: int) -> int:
+    """Bytes of one K3 row slot (csrc/jet_runtime.cu::rms_slot_bytes): when
+    ``staged`` the row's coefficients (``item_s`` bytes each, padded to 16
+    bytes), then its mean-square jet and the reduction's scratch (up to 32
+    coefficients x (group + 1) lanes) that the rsqrt jet reuses, ``item_t``
+    bytes each."""
+    chunk = min(n1, _RMS_CHUNK)
+    return (_tile_bytes(n1 * width, item_s) if staged else 0) \
+        + _tile_bytes(n1 + max(n1, chunk * (group + 1)), item_t)
+
+
+def rms_norm_geometry(n1: int, bsz: int, width: int, dtype: torch.dtype,
+                      aligned: bool = True) -> RmsGeometry:
+    """The block the K3 launcher runs (a persistent grid of them): lanes
+    over 16-byte chunks of a row where ``aligned`` (the stack's rows start
+    on 16 bytes), a power-of-two group of lanes covering the row, several
+    rows a warp where the row is short, the rows staged in shared memory;
+    up to 8 warps, halved while the grid covers the SMs less than twice.
+    A row that no warp can stage is read from device memory by a warp of
+    its own (32 lanes): that block keeps 2 n1 words a row from n1 = 1056
+    on, and past the limit ``smem`` exceeds it and the wrapper refuses."""
+    item = compute_itemsize(dtype)
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // size if aligned and width * size % 16 == 0 else 1
+    group = min(32, _pow2_ceil(-(-width // vec)))
+    rpw = 32 // group
+    warp = rpw * rms_norm_slot_bytes(n1, width, group, True, size, item)
+    warps = min(_RT_WARPS, _SMEM_LIMIT // warp)
+    if warps >= 1:
+        while warps > 1 and -(-bsz // (warps * rpw)) < 2 * _SMS:
+            warps //= 2
+        return RmsGeometry(vec, group, warps, True, warps * warp)
+    warp = rms_norm_slot_bytes(n1, width, 32, False, size, item)
+    warps = max(1, min(_RT_WARPS, _SMEM_LIMIT // warp))
+    return RmsGeometry(vec, 32, warps, False, warps * warp)
 
 
 def jet_rms_norm_cuda(coeffs: torch.Tensor, gamma: torch.Tensor,
@@ -95,11 +155,13 @@ def jet_rms_norm_cuda(coeffs: torch.Tensor, gamma: torch.Tensor,
         raise ValueError(f"gamma shape {tuple(gamma.shape)} != ({width},)")
     out = torch.empty_like(coeffs)
     if runtime_path(n1, coeffs.dtype):
-        warps, smem = runtime_warps(rms_norm_runtime_words(n1), coeffs.dtype)
-        check_fits("jet_rms_norm", smem, f"order {n1 - 1} ({warps} warps)")
+        geo = rms_norm_geometry(n1, bsz, width, coeffs.dtype,
+                                coeffs.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+        check_fits("jet_rms_norm", geo.smem, f"order {n1 - 1} ({geo.warps} warps)")
         cuda_lib.launch("jet_rms_norm_rt_launch", coeffs.device, coeffs.data_ptr(),
                         gamma.data_ptr(), out.data_ptr(), bsz, width, n1,
-                        DTYPE_CODES[coeffs.dtype], float(eps), warps)
+                        DTYPE_CODES[coeffs.dtype], float(eps), geo.vec, geo.group,
+                        geo.warps, int(geo.staged))
     else:
         cuda_lib.launch("jet_rms_norm_launch", coeffs.device, coeffs.data_ptr(),
                         gamma.data_ptr(), out.data_ptr(), bsz, width, n1,
@@ -109,15 +171,18 @@ def jet_rms_norm_cuda(coeffs: torch.Tensor, gamma: torch.Tensor,
 
 
 class FlashGeometry(NamedTuple):
-    """K4's tiling for one launch (csrc/jet_flash_attention.cu).
+    """K4's tiling for one launch.
 
-    ``group > 0``: the short-T kernel, ``group`` lanes per (row, query) over
-    the head dims, ``rows`` batch rows per block.  ``group == 0``: the
-    long-T kernel, ``rows`` queries (warps) per block, key tiles of
-    ``key_tile``.  ``dpl`` head dims per lane; ``smem`` the block's dynamic
-    shared memory in bytes.  ``dpl == 0``: the run-time-order kernel
-    (csrc/jet_runtime.cu), a warp per query whose lanes stride over any
-    head dim, ``rows`` warps a block."""
+    ``dpl > 0``: the templates (csrc/jet_flash_attention.cu), ``dpl`` head
+    dims a lane; ``group > 0`` the short-T kernel, ``group`` lanes per
+    (row, query), ``rows`` batch rows per block; ``group == 0`` the long-T
+    kernel, ``rows`` queries (warps) per block, key tiles of ``key_tile``.
+    ``dpl == 0``: the run-time-order kernels (csrc/jet_runtime.cu), the
+    same fields: short T with ``group`` lanes a (row, query) and ``rows``
+    rows a block, long T with ``rows`` warps and ``key_tile`` keys; with
+    neither (``group == key_tile == 0``) the smallest block, a warp per
+    query whose lanes stride over any head dim, ``rows`` warps.  ``smem``
+    the block's dynamic shared memory in bytes."""
     group: int
     rows: int
     key_tile: int
@@ -129,22 +194,85 @@ class FlashGeometry(NamedTuple):
         return self.dpl == 0
 
 
-def _pow2_ceil(v: int) -> int:
-    return 1 << max(0, (v - 1).bit_length())
-
-
 def os_pitch(hd: int) -> int:
-    """Words between the output-jet rows the short-T kernel keeps in shared
-    memory for its projection: odd, so a warp's row groups hit distinct
+    """Words between the output-jet rows the short-T kernels keep in shared
+    memory for their projection: odd, so a warp's row groups hit distinct
     banks (csrc/jet_flash_attention.cu::os_pitch)."""
     return hd if hd % 2 else hd + 1
 
 
 def flash_runtime_words(n1: int, head_dim: int, dm: int) -> int:
-    """Words a K4 run-time-order warp keeps (csrc/jet_runtime.cu): the
-    query jet and the value accumulator of one head, the projected output
-    jet, and the score, e-jet and total of the current key."""
+    """Words a warp of K4's smallest run-time block keeps
+    (csrc/jet_runtime.cu::flash_words): the query jet and the value
+    accumulator of one head, the projected output jet, and the score,
+    e-jet and total of the current key."""
     return 2 * n1 * head_dim + n1 * dm + 3 * n1
+
+
+def flash_short_bytes(n1: int, heads: int, t: int, dh: int, dm: int, rows: int,
+                      dtype: torch.dtype) -> int:
+    """Bytes of a run-time short-T K4 block of ``rows`` batch rows
+    (csrc/jet_runtime.cu::flash_short_bytes): wo and the rows' output jets
+    (rows x T x n1 padded to 8, at an odd pitch over heads x Dh) in the
+    compute type; every (row, head)'s q, k, v (3 n1 T Dh of the storage
+    type, each padded to 16 bytes); per (row, head) its score and e-jets
+    (2 T^2 n1) and totals (T n1)."""
+    item_t = compute_itemsize(dtype)
+    item_s = torch.empty((), dtype=dtype).element_size()
+    hd, units = heads * dh, rows * heads
+    mrows = -(-rows * t * n1 // 8) * 8
+    return (_tile_bytes(hd * dm, item_t) + _tile_bytes(mrows * os_pitch(hd), item_t)
+            + units * _tile_bytes(3 * n1 * t * dh, item_s)
+            + _tile_bytes(units * (2 * t * t * n1 + t * n1), item_t))
+
+
+def flash_long_words(n1: int, dh: int, dm: int, warps: int, tile: int) -> int:
+    """Words of a run-time long-T K4 block (csrc/jet_runtime.cu::
+    flash_long_words): the key and value tiles (n1 x tile x (Dh + 1)), then
+    per warp the query jet and accumulator (n1 Dh each), the tile's score
+    and e-jets (n1 x 33 each), totals (n1) and projected output (n1 Dm)."""
+    return 2 * n1 * tile * (dh + 1) + warps * n1 * (2 * dh + 2 * _KEY_PITCH + 1 + dm)
+
+
+def _flash_runtime_geometry(n1: int, heads: int, t: int, dh: int, dm: int,
+                            dtype: torch.dtype) -> FlashGeometry:
+    """The run-time-order K4 block: short T (<= SHORT_T_MAX) takes groups of
+    lanes a power of two covering Dh at 8 bytes of the compute type a lane
+    (one f64 dim, two f32 ones; at most 32 / T rounded up to a power of
+    two), a (row, head)'s T groups a team in one warp, as many rows as
+    fill ``_RT_WARPS`` warps with all their heads, halved until the
+    block fits; long T
+    takes 8 queries a block and 32-key tiles, shrinking the tile to 8, then
+    the warps, then the tile again until it fits.  Where neither fits, the
+    smallest block (:func:`flash_runtime_words` a warp), which admits what
+    the wrapper admitted before either existed."""
+    item = compute_itemsize(dtype)
+    if t <= SHORT_T_MAX:
+        tp = _pow2_ceil(t)
+        group = min(_pow2_ceil(-(-dh * item // 8)), 32 // tp)   # 8 bytes of dims a lane
+        tpw = 32 // (tp * group)              # (row, head) teams a warp
+        rows = max(1, _RT_WARPS * tpw // heads)
+        while rows > 1 and flash_short_bytes(n1, heads, t, dh, dm, rows, dtype) > _SMEM_LIMIT:
+            rows //= 2
+        smem = flash_short_bytes(n1, heads, t, dh, dm, rows, dtype)
+        if smem <= _SMEM_LIMIT and -(-rows * heads // tpw) <= _RT_WARPS:
+            return FlashGeometry(group, rows, 0, 0, smem)
+    else:
+        warps, tile = _RT_WARPS, _LONG_TILE
+
+        def long_smem() -> int:
+            return flash_long_words(n1, dh, dm, warps, tile) * item
+
+        while long_smem() > _SMEM_LIMIT and tile > 8:
+            tile //= 2
+        while long_smem() > _SMEM_LIMIT and warps > 1:
+            warps //= 2
+        while long_smem() > _SMEM_LIMIT and tile > 1:
+            tile //= 2
+        if long_smem() <= _SMEM_LIMIT:
+            return FlashGeometry(0, warps, tile, 0, long_smem())
+    warps, smem = runtime_warps(flash_runtime_words(n1, dh, dm), dtype)
+    return FlashGeometry(0, warps, 0, 0, smem)
 
 
 def flash_geometry(n1: int, heads: int, t: int, head_dim: int,
@@ -153,19 +281,18 @@ def flash_geometry(n1: int, heads: int, t: int, head_dim: int,
     shared-memory formulas, csrc/jet_flash_attention.cu::short_smem_words
     and ::long_smem_words, in bytes).  Orders past the templates, bfloat16
     and head dims past ``_TEMPLATE_HEAD_DIM`` take the run-time-order
-    kernel, whose block of up to 8 warps keeps :func:`flash_runtime_words`
-    a warp (``dm``, the projection's width, counts only there).  Short T
+    kernels (:func:`_flash_runtime_geometry`; ``dm``, the projection's
+    width, counts only there).  Short T
     (<= SHORT_T_MAX, and no more queries than a block has lane groups)
     gives each query a group of
     lanes, 4 head dims a lane, and packs as many batch rows into a
     128-thread block as it has groups; its shared memory holds the rows'
     output jets for the projection.  Long T takes 8 queries a block and
-    32-key tiles, shrinking the tile to 8 keys, then the warps, then the
+    32-key tiles, shrinking the tile to 8, then the warps, then the
     tile again until the block fits ``_SMEM_LIMIT``.  Past that the
     returned ``smem`` exceeds the limit and the wrapper refuses."""
     if runtime_path(n1, dtype) or head_dim > _TEMPLATE_HEAD_DIM:
-        warps, smem = runtime_warps(flash_runtime_words(n1, head_dim, dm), dtype)
-        return FlashGeometry(0, warps, 0, 0, smem)
+        return _flash_runtime_geometry(n1, heads, t, head_dim, dm, dtype)
     item = torch.empty((), dtype=dtype).element_size()
     group = min(32, _pow2_ceil(-(-head_dim // 4)))
     groups = _SHORT_THREADS // group
@@ -232,7 +359,8 @@ def jet_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         cuda_lib.launch("jet_flash_attention_rt_launch", q.device, q.data_ptr(),
                         k.data_ptr(), v.data_ptr(), wo.data_ptr(), out.data_ptr(),
                         bsz, heads, t, dh, dm, n1, DTYPE_CODES[q.dtype],
-                        float(scale), MASK_CODES[mask], int(window), geo.rows)
+                        float(scale), MASK_CODES[mask], int(window), geo.group,
+                        geo.rows, geo.key_tile)
     else:
         cuda_lib.launch("jet_flash_attention_launch", q.device, q.data_ptr(),
                         k.data_ptr(), v.data_ptr(), wo.data_ptr(), out.data_ptr(),

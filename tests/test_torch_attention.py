@@ -296,12 +296,14 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tka.jet_rms_norm_cuda(cpu[:, 0, 0], torch.ones(4))
     # no order is capped on either device (parity at orders 10 and 12
-    # below); on the card the run-time-order kernels refuse only a warp
-    # whose jets do not fit a block: K4 keeps 2 n1 Dh + n1 Dm + 3 n1 words
-    # (and takes head dims past the templates' 128)
+    # below); on the card the run-time-order kernels refuse only what their
+    # smallest block cannot hold: a warp of 2 n1 Dh + n1 Dm + 3 n1 words
+    # (and they take head dims past the templates' 128).  Short T runs
+    # groups of lanes: T = 3 pads to a team of 4 groups of 8 lanes, one
+    # (row, head) a warp, two rows a block (four do not fit)
     geo = tka.flash_geometry(5, 2, 3, 160, torch.float32, 40)
-    assert geo.runtime and geo.rows == 8
-    assert geo.smem == 8 * (2 * 5 * 160 + 5 * 40 + 3 * 5) * 4
+    assert geo.runtime and (geo.group, geo.rows) == (8, 2)
+    assert geo.smem == tka.flash_short_bytes(5, 2, 3, 160, 40, 2, torch.float32)
     assert not tka.flash_geometry(5, 2, 3, 128, torch.float32, 40).runtime
     over = tka.flash_geometry(9, 1, 70, 1611, torch.float64, 4)
     assert over.rows == 1 and over.smem == (18 * 1611 + 36 + 27) * 8 > tka._SMEM_LIMIT
@@ -407,7 +409,8 @@ def test_coordinate_embedding_bias_only_on_coefficient_zero():
 
 TKW = dict(d_in=2, width=8, depth=2, d_out=1, n_heads=2)
 IMPLS = {"torch": "jnp", "cuda": "pallas"}
-REQUESTS = [("grid", 4), ("cross", (0, 1)), ("cross", (0, 0, 1, 1))]
+REQUESTS = [("grid", 4), ("cross", (0, 1)), ("cross", (0, 0, 1, 1)), ("grid", 10)]
+_TABLES = {}
 
 
 @pytest.fixture(scope="module")
@@ -428,11 +431,16 @@ def _request(engine, net, params, x, kind, arg):
 @pytest.mark.parametrize("impl", sorted(IMPLS))
 @pytest.mark.parametrize("kind,arg", REQUESTS)
 def test_transformer_tables_match_reference(trunk, impl, kind, arg):
+    """Each port impl against the reference's counterpart; grid(10), past
+    the kernels' templated orders, against the reference's jnp path (its
+    Pallas interpret mode adds only time there), computed once for both."""
     jnet, jp, tnet, tp, x = trunk
-    f = jax.jit(lambda p, xx: _request(JNTP(IMPLS[impl]), jnet, p, xx, kind, arg))
-    want = np.asarray(f(jp, jnp.asarray(x)))
+    ref_impl = "jnp" if arg == 10 else IMPLS[impl]
+    if (ref_impl, kind, arg) not in _TABLES:
+        f = jax.jit(lambda p, xx: _request(JNTP(ref_impl), jnet, p, xx, kind, arg))
+        _TABLES[ref_impl, kind, arg] = np.asarray(f(jp, jnp.asarray(x)))
     got = _request(NTPEngine(impl), tnet, tp, torch.tensor(x), kind, arg)
-    _close(got, want, TOL_TRUNK, keep=2 if kind == "grid" else 0)
+    _close(got, _TABLES[ref_impl, kind, arg], TOL_TRUNK, keep=2 if kind == "grid" else 0)
 
 
 @pytest.mark.parametrize("mask", MASKS[1:], ids=_mask_name)
@@ -513,3 +521,19 @@ def test_server_answers_transformer_requests(trunk):
         grid, cross = results[i]
         _close(grid, eng.grid(tnet, tp, x, 2), 1e-13, keep=2)
         _close(cross, eng.cross(tnet, tp, x, (0, 1)), 1e-13, keep=0)
+
+
+def test_server_answers_trunk_grid_past_the_templates(trunk):
+    """The served trunk's grid(10) (N1 = 11: the run-time-order K1, K3 and
+    K4 on the card) equals the direct ntp/cuda engine call (rtol 1e-13),
+    for two requests of different sizes in one bucket."""
+    _, _, tnet, tp, _ = trunk
+    rng = _rng(12)
+    xs = [torch.tensor(rng.uniform(-1, 1, size=(n, 2))) for n in (2, 5)]
+    eng = NTPEngine("cuda")
+    with DerivativeServer(tnet, tp, "ntp/cuda", device="cpu",
+                          flush_window_s=0.05) as srv:
+        tables = [srv.grid(x, 10) for x in xs]
+    for x, table in zip(xs, tables):
+        assert table.shape == (2, 11, x.shape[0], 1)
+        _close(table, eng.grid(tnet, tp, x, 10), 1e-13, keep=2)
