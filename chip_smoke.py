@@ -50,7 +50,11 @@ Phases, each failing loudly with a non-zero exit:
    K3 and K4 where their geometries split (RT_RMS_CHECKS, RT_FLASH_CHECKS:
    16-byte vectors, ragged and unaligned rows; short T at the trunk's
    grid(10) launch under every mask, T 1, 3, 4, head dims 160 and 256; long
-   T 70 and 1024) at the same gates;
+   T 70 and 1024) at the same gates; and the run-time K5 at its edges (T 1,
+   2, 3, 31, 33, 70 x D 1, 16, 64, f64 at orders 10, 12, 16, f32 at 10,
+   bfloat16 at 2 and 10; the whole-row and ring stagings, key splits of 1
+   and more, the smallest block at D 128 and at the largest D admitted,
+   all asserted) with its row sums;
 3. the served main paths, each with the launch counters zeroed just before
    it and read just after:
    a. a ``DerivativeServer`` on the ``pinn-pde`` DenseMLP (d_in 2, width 32,
@@ -109,16 +113,19 @@ Phases, each failing loudly with a non-zero exit:
 7. K1 at the shapes the training phases launched it most (recorded while
    they ran), beside its plain version and bound; 7b. the run-time-order
    kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
-   16 and on bfloat16 at the served shapes, K3 and K4 at the trunk's
-   grid(10) launches and K4 at long T, K1 beside its GEMM part alone
-   (``torch.matmul``), K3-K5 beside the same function at order 0 in one
-   library call (ORDER0_LIBRARY);
+   16 and on bfloat16 at the served shapes, K5 at RT_SCORES_TIMED (the
+   tiled kernel asserted), K3 and K4 at the trunk's grid(10) launches, K1
+   at every distinct shape the trunk's grid(10) call hands its launcher
+   (recorded at the launcher), and K4 at long T, K1 beside its GEMM part
+   alone (``torch.matmul``), K3-K5 beside the same function at order 0 in
+   one library call (ORDER0_LIBRARY);
 8. only with ``--against DIR`` (another checkout, e.g. the parent commit
    unpacked with ``git archive``): that checkout's K1-K5 against
    this tree's in turns (other, this, this, other) at the served shapes,
    K4 and K5 at the memory row, K5 at the phase-4 f64 shapes, the
    run-time-order K3 and K4 at phase 7b's shapes (RT_RMS_SHAPES,
-   RT_FLASH_SHAPES), the run-time K1 at the Burgers k = 4 layers and K1/K2
+   RT_FLASH_SHAPES), the run-time K5 at RT_SCORES_TIMED, the run-time K1 at
+   the Burgers k = 4 layers and K1/K2
    at the served layer at orders 10 and 16 and on bfloat16 at order 4
    (RUNTIME_TURNS), the DenseMLP's ``grid(10)`` engine call with either
    tree's K1, the trunk's ``grid(10)`` engine call with either tree's K3
@@ -220,6 +227,12 @@ RT_RMS_SHAPES = ((11, 2048, 32, "float64"), (11, 16384, 32, "float64"),
 RT_FLASH_SHAPES = ((11, 1024, 2, 2, 16, 32, "float64"), (11, 8192, 2, 2, 16, 32, "float64"),
                    (17, 8192, 2, 2, 16, 32, "float64"), (5, 8192, 2, 2, 16, 32, "bfloat16"),
                    (11, 2, 2, 1024, 8, 16, "float64"))
+# the run-time K5 timed in phase 7b and in phase 8's turns (N1, B, T, D,
+# dtype): the memory comparison's (B*H, T, Dh) at orders 10 and 16, the
+# memory rows' own launch (order 2) on bfloat16, and a one-wave T = 256;
+# each must take the tiled kernel
+RT_SCORES_TIMED = ((11, 4, 1024, 8, "float64"), (17, 4, 1024, 8, "float64"),
+                   (3, 4, 1024, 8, "bfloat16"), (11, 4, 256, 8, "float64"))
 
 # Edge shapes of phase 2 for the tiled kernels, orders 0, 4 and 8 (N1 1, 5,
 # 9), f32 and f64.  K1 (rows, din, dout): rows that are no multiple of a
@@ -367,7 +380,7 @@ KERNEL_SYMBOLS = ("jet_dense_kernel", "act_jet_kernel", "jet_rms_norm_kernel",
                   "jet_attention_scores_kernel", "jet_dense_rt_kernel", "act_jet_rt_kernel",
                   "jet_rms_norm_rt_kernel", "jet_flash_attention_rt_kernel",
                   "jet_flash_attention_rt_short_kernel", "jet_flash_attention_rt_long_kernel",
-                  "jet_attention_scores_rt_kernel")
+                  "jet_attention_scores_rt_kernel", "jet_attention_scores_rt_tiled_kernel")
 DTYPE_MANGLED = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}
 ACT_NAMES = {0: "none", 1: "tanh", 2: "sigmoid", 3: "sin"}
 
@@ -1025,6 +1038,127 @@ def check_runtime_attention(gen, report: dict, worst: dict) -> None:
         dict(zip(("kernel", "dtype", "variant", "shape", "orders", "err"), r)) for r in rows]
 
 
+# Phase 2e, the run-time K5 (csrc/jet_runtime.cu) where its geometry splits:
+# (B, T, D) at SCORES_EDGE_T x SCORES_EDGE_D take the tiled kernel (between
+# them the whole row in one stage and a ring of two, a key split of 1 and
+# of several warps: asserted), (2, 70, 128) the smallest block, and at
+# order 10 f64 the largest head dim admitted (T 3, the smallest block) and
+# one more, refused.  Orders: f64 RT_SCORES_F64_ORDERS, f32 10, bfloat16 2
+# and 10.
+RT_SCORES_F64_ORDERS = (10, 12, 16)
+RT_SCORES_SMALLEST = ((2, 70, 128),)
+
+
+def scores_kernel_kind(geo) -> str:
+    """Which run-time K5 kernel a geometry runs (see ``ScoresGeometry``)."""
+    if geo.smallest:
+        return "smallest block"
+    return "tiled " + ("whole row" if geo.whole else "ring")
+
+
+def holds_row_sums_scaled(got, scale, what: str) -> float:
+    """K5's row sums in f64 above the templates' orders: |sum_keys p_m -
+    [m == 0]| within TOL_SCALED of the sum over the keys of p_m's abs-sum
+    conditioning scale (the rounding of any order of evaluation of each
+    p_m is relative to its scale, so the sum's is relative to their sum)."""
+    sums = got.double().sum(-1)
+    sums[0] -= 1.0
+    mass = scale.double().sum(-1).clamp_min(1e-300)
+    e = float((sums.abs() / mass).max())
+    require(e <= TOL_SCALED, f"{what}: rows sum off by {e:.3e} of their scale > "
+                             f"{TOL_SCALED:.0e}")
+    return e
+
+
+def check_runtime_scores(gen, report: dict, worst: dict) -> None:
+    """Phase 2e: the run-time K5 against its plain version at the edges of
+    its geometry (RT_SCORES_*), f64 within TOL_SCALED of the abs-sum scale
+    (rows summing to 1 / 0 within TOL_SCALED of their scale), f32 by
+    ``holds`` (row sums by ``holds_row_sums``), bfloat16 within BF16_ULPS of
+    the f32 plain version (row sums within F32_DRIFT times those of the
+    plain version rounded to bfloat16); the kernels and stagings asserted;
+    the largest head dim admitted at order 10 f64 runs, one more is
+    refused."""
+    import torch
+    from repro_torch.kernels import jet_attention as ka
+    from repro_torch.kernels import ref
+
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    d_max = max(d for d in range(1, 4096)
+                if ka.scores_runtime_geometry(11, 3, d, f64, 1).smem <= ka._SMEM_LIMIT)
+    over = torch.zeros((11, 1, 3, d_max + 1), dtype=f64, device=DEVICE)
+    try:
+        ka.jet_attention_scores_cuda(over, over, 0.1)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, f"run-time jet_attention_scores admitted head dim {d_max + 1} at order "
+                     f"10 f64, past the largest that fits ({d_max})")
+    edges = [(bsz, t, d) for t, bsz in SCORES_EDGE_T.items() for d in SCORES_EDGE_D]
+    cases = [(f64, shape, RT_SCORES_F64_ORDERS) for shape in edges + list(RT_SCORES_SMALLEST)]
+    cases += [(f64, (1, 3, d_max), (10,))]
+    cases += [(f32, shape, (10,)) for shape in edges] + [(bf16, shape, (2, 10)) for shape in edges]
+    rows, seen = [], set()
+    for dt, (bsz, t, d), orders in cases:
+        scale = d ** -0.5
+
+        def plain(a, b, scale=scale):
+            return ref.jet_attention_scores_ref(a, b, scale)
+
+        e_max, rs_max, kinds = 0.0, 0.0, set()
+        for n in orders:
+            q, k = ((0.6 * torch.randn((n + 1, bsz, t, d), generator=gen, device=DEVICE,
+                                       dtype=f64)).to(dt) for _ in range(2))
+            geo = ka.scores_runtime_geometry(n + 1, t, d, dt, bsz)
+            kinds.add(scores_kernel_kind(geo))
+            seen.add((scores_kernel_kind(geo), geo.split > 1 and not geo.smallest))
+            got = ka.jet_attention_scores_cuda(q, k, scale)
+            torch.cuda.synchronize()
+            what = f"jet_attention_scores run-time {dt} order {n} ({bsz}, {t}, {d}) {tuple(geo)}"
+            if dt == bf16:
+                want = plain(q.float(), k.float())
+                e = bf16_ulps(got, want)
+                require(e <= BF16_ULPS, f"{what}: {e:.2f} bf16 ulps of the plane max > "
+                                        f"{BF16_ULPS}")
+                rs, rs_plain = row_sum_dev(got), row_sum_dev(want.to(bf16))
+                require(rs <= F32_DRIFT * max(rs_plain, TOL_F32),
+                        f"{what}: rows sum off by {rs:.3e} of their mass, the plain version "
+                        f"rounded to bfloat16 {rs_plain:.3e}")
+            elif dt == f64:
+                want = plain(q, k)
+                sc = abs_sum(plain, q, k)
+                e = scaled_err(got, want, sc)
+                require(e <= TOL_SCALED, f"{what}: error {e:.3e} of the conditioning scale > "
+                                         f"{TOL_SCALED:.0e}")
+                rs = holds_row_sums_scaled(got, sc, what)
+                worst["jet_attention_scores"] = max(worst["jet_attention_scores"],
+                                                    float((got - want).abs().max()))
+            else:
+                want = plain(q, k)
+                e = holds(got, want, plain, (q, k), dt, n, what)
+                rs = holds_row_sums(got, want, dt, n, what)
+            if t == 1:
+                require(bool((got[0].float() == 1).all()) and bool((got[1:].float() == 0).all()),
+                        f"{what}: one key's probabilities are not exactly (1, 0, ..., 0)")
+            e_max, rs_max = max(e_max, e), max(rs_max, rs)
+        rows.append((str(dt), (bsz, t, d), orders, "/".join(sorted(kinds)), e_max, rs_max))
+    for kind in ("tiled whole row", "tiled ring", "smallest block"):
+        require(any(k == kind for k, _ in seen), f"the run-time K5 checks ran no {kind}")
+    for split in (True, False):
+        require((("tiled whole row", split) in seen) or (("tiled ring", split) in seen),
+                f"the run-time K5 checks ran no key split {'of several warps' if split else 'of 1'}")
+    for r in rows:
+        unit = "bf16 ulps" if r[0] == "torch.bfloat16" else (
+            "of the scale" if r[0] == "torch.float64" else "rel")
+        print(f"  run-time jet_attention_scores {r[0]:14s} {str(r[1]):14s} orders {str(r[2]):12s} "
+              f"{r[3]:26s} err {r[4]:.2e} {unit}, row sums {r[5]:.2e}")
+    print(f"  largest head dim admitted at order 10 f64: {d_max} (ran); {d_max + 1} refused")
+    report["runtime_scores_checks"] = {
+        "largest_head_dim_order10_f64": d_max,
+        "cases": [dict(zip(("dtype", "shape", "orders", "kernels", "err", "row_sum_dev"), r))
+                  for r in rows]}
+
+
 def check_admitted_orders(gen, report: dict) -> None:
     """Phase 2, the largest order each wrapper admits at its served shape
     (float64), and the refusal one order past it, whose message names the
@@ -1081,8 +1215,8 @@ def check_admitted_orders(gen, report: dict) -> None:
             n1, 2, 32, dt).smem <= ka._SMEM_LIMIT),
         "jet_flash_attention": largest(lambda n1: ka.flash_smem_bytes(
             n1, 2, 2, 16, dt, 32) <= ka._SMEM_LIMIT),
-        "jet_attention_scores": largest(lambda n1: ka.runtime_warps(
-            ka.scores_runtime_words(n1, 8), dt)[1] <= ka._SMEM_LIMIT)}
+        "jet_attention_scores": largest(lambda n1: ka.scores_runtime_geometry(
+            n1, 16, 8, dt, 1).smem <= ka._SMEM_LIMIT)}
     calls = {
         "act_jet": lambda n1: act_jet_cuda(torch.zeros((n1, 1, 32), dtype=dt,
                                                        device=DEVICE), "tanh"),
@@ -1549,10 +1683,13 @@ def readout_scale(net, params, x, order: int):
 
 class LauncherCounts:
     """Counts the calls of each C launcher (``cuda_lib.launch``'s name)
-    while installed: which kernel source a wrapper took."""
+    while installed: which kernel source a wrapper took; and the shapes
+    the run-time K1 launcher received, (n1, rows, din, dout, activation
+    code, dtype code): launches (``dense_shapes``)."""
 
     def __init__(self):
         self.counts: dict = {}
+        self.dense_shapes: dict = {}
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -1563,6 +1700,9 @@ class LauncherCounts:
             self._fn(name, device, *args)
             with self._lock:
                 self.counts[name] = self.counts.get(name, 0) + 1
+                if name == "jet_dense_rt_launch":   # x, w, bias, out, bsz, din, dout, n1, act, dtype
+                    key = (args[7], args[4], args[5], args[6], args[8], args[9])
+                    self.dense_shapes[key] = self.dense_shapes.get(key, 0) + 1
 
         cuda_lib.launch = counted
         return self
@@ -2205,8 +2345,8 @@ def compare_turns(other: dict, gen, report: dict) -> dict:
     calls each, 20 for the long ones, 5 for K4 at long T): K1, K2 and K4 at
     the served shapes, K3 at (5, 16384, 32), K4 and K5 at the memory row
     (f32), K5 at SCORES_TIMED x SCORES_TIMED_ORDERS (f64), the
-    run-time-order K3 and K4 at RT_RMS_SHAPES and RT_FLASH_SHAPES, K1 and
-    K2 at RUNTIME_TURNS.  Outputs held to each other at TOL_F64 (f64), 4
+    run-time-order K3 and K4 at RT_RMS_SHAPES and RT_FLASH_SHAPES, K5 at
+    RT_SCORES_TIMED, K1 and K2 at RUNTIME_TURNS.  Outputs held to each other at TOL_F64 (f64), 4
     TOL_F32 (the f32 sums over 1024 keys) or BF16_ULPS (bfloat16)."""
     import torch
     from repro_torch.kernels.jet_attention import (jet_attention_scores_cuda,
@@ -2273,6 +2413,16 @@ def compare_turns(other: dict, gen, report: dict) -> dict:
                       .jet_flash_attention_cuda(q, k, v, wo, scale),
                       lambda q=qr, k=kr, v=vr, wo=wr, scale=scale:
                       jet_flash_attention_cuda(q, k, v, wo, scale)))
+    # the run-time K5 at RT_SCORES_TIMED (phase 7b's), the tiled kernel here
+    for n1, bsz, t, d, dname in RT_SCORES_TIMED:
+        rdt = getattr(torch, dname)
+        qr, kr = ((0.6 * torch.randn((n1, bsz, t, d), generator=gen, device=DEVICE,
+                                     dtype=torch.float64)).to(rdt) for _ in range(2))
+        tag = "bf16" if rdt == torch.bfloat16 else "f64"
+        cases.append((f"jet_attention_scores run-time ({n1}, {bsz}, {t}, {d}) {tag}",
+                      lambda q=qr, k=kr, d=d: other["jet_attention"].jet_attention_scores_cuda(
+                          q, k, d ** -0.5),
+                      lambda q=qr, k=kr, d=d: jet_attention_scores_cuda(q, k, d ** -0.5)))
     # the run-time-order K1 and K2 (csrc/jet_runtime.cu) at the shapes of
     # phase 7b: K1 at the Burgers k = 4 layers, both at the served layer at
     # orders 10 and 16 and on bfloat16 at order 4
@@ -2452,21 +2602,44 @@ def time_training_shapes(counts: dict, gen, report: dict) -> dict:
     return out
 
 
-def time_new_instantiations(gen, report: dict) -> dict:
+def trunk_k1_launches(net, params, gen) -> dict:
+    """{(n1, rows, din, dout, activation code, dtype code): launches} of K1
+    in one trunk ``grid(TRUNK_GRID_ORDER)`` engine call at 512 rows, as its
+    C launcher received them; they must be TRUNK_RT_LAUNCHERS' count."""
+    import torch
+    from repro_torch.core.engines import DerivativeEngine
+
+    x = torch.rand((512, net.d_in), generator=gen, device=DEVICE,
+                   dtype=torch.float64) * 2 - 1
+    engine = DerivativeEngine.from_spec("ntp/cuda")
+    with LauncherCounts() as took, torch.no_grad():
+        engine.grid(net, params, x, TRUNK_GRID_ORDER)
+    torch.cuda.synchronize()
+    want = TRUNK_RT_LAUNCHERS["jet_dense_rt_launch"]
+    require(sum(took.dense_shapes.values()) == want,
+            f"trunk grid({TRUNK_GRID_ORDER}) N=512: K1 launches {took.dense_shapes}, want {want}")
+    return took.dense_shapes
+
+
+def time_new_instantiations(gen, report: dict, trunk=None, trunk_params=None) -> dict:
     """Phase 7b: the run-time-order kernels (csrc/jet_runtime.cu), device
     time by CUDA events with the host off the clock and L2 warm
     (``device_time_ms``), beside the plain version (graph replay) and the
-    bound: K1 at the Burgers k = 4 layer shapes (f64, tanh); K1-K5 at
-    orders 10 and 16 at the served shapes of ``_kernel_cases`` (K5 at
-    (n+1, 4, 1024, 8) as phase 4 times it); each kernel on bfloat16 at its
-    served order-4 shape (K5 at the memory rows' order 2); K3 and K4 at
-    the trunk's grid(10) launches and K4 at long T.  K3-K5 beside their
-    order-0 library call (ORDER0_LIBRARY), K1 beside its GEMM part."""
+    bound: K1 at the Burgers k = 4 layer shapes (f64, tanh); K1-K4 at
+    orders 10 and 16 at the served shapes of ``_kernel_cases``; each
+    kernel on bfloat16 at its served order-4 shape; K5 at RT_SCORES_TIMED
+    (the tiled kernel asserted); K3 and K4 at the trunk's grid(10) launches
+    and K4 at long T; with ``trunk``, K1 at every distinct shape that the
+    trunk's grid(10) engine call at 512 rows hands its launcher.  K3-K5
+    beside their order-0 library call (ORDER0_LIBRARY), K1 beside its GEMM
+    part."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.jet_attention import (jet_attention_scores_cuda,
-                                                   jet_flash_attention_cuda, jet_rms_norm_cuda)
+                                                   jet_flash_attention_cuda, jet_rms_norm_cuda,
+                                                   scores_runtime_geometry)
     from repro_torch.kernels.jet_dense import jet_dense_cuda
+    from repro_torch.kernels.tanh_jet import DTYPE_CODES
 
     cases = []
     for n1, rows, din, dout in BURGERS_K4_SHAPES:
@@ -2484,14 +2657,17 @@ def time_new_instantiations(gen, report: dict) -> dict:
             for name, label, call, plain, args in _kernel_cases(gen, n, dt, served_only=True):
                 if name != "jet_attention_scores":
                     cases.append((name, f"{label} {dt}", call, plain, args))
-            n5 = n if dt == torch.float64 else SCORES_MEMORY_ROW[1]
-            bsz, t, d = SCORES_TIMED[-1]
-            q, k = ((0.6 * torch.randn((n5 + 1, bsz, t, d), generator=gen, device=DEVICE,
-                                       dtype=torch.float64)).to(dt) for _ in range(2))
-            cases.append(("jet_attention_scores", f"({n5 + 1}, {bsz}, {t}, {d}) {dt}",
-                          lambda q=q, k=k, d=d: jet_attention_scores_cuda(q, k, d ** -0.5),
-                          lambda a, bb, d=d: ref.jet_attention_scores_ref(a, bb, d ** -0.5),
-                          (q, k)))
+    for n1, bsz, t, d, dname in RT_SCORES_TIMED:
+        dt = getattr(torch, dname)
+        geo = scores_runtime_geometry(n1, t, d, dt, bsz)
+        require(not geo.smallest, f"K5 ({n1}, {bsz}, {t}, {d}) {dt} took the smallest block")
+        q, k = ((0.6 * torch.randn((n1, bsz, t, d), generator=gen, device=DEVICE,
+                                   dtype=torch.float64)).to(dt) for _ in range(2))
+        cases.append(("jet_attention_scores",
+                      f"({n1}, {bsz}, {t}, {d}) {dt} {scores_kernel_kind(geo)} {tuple(geo[:4])}",
+                      lambda q=q, k=k, d=d: jet_attention_scores_cuda(q, k, d ** -0.5),
+                      lambda a, bb, d=d: ref.jet_attention_scores_ref(a, bb, d ** -0.5),
+                      (q, k)))
     # the trunk's grid(10) launches and K4 at long T (RT_RMS_SHAPES /
     # RT_FLASH_SHAPES beside the table shapes above)
     for n1, rows, width, dname in RT_RMS_SHAPES[:1]:
@@ -2509,12 +2685,25 @@ def time_new_instantiations(gen, report: dict) -> dict:
                       jet_flash_attention_cuda(q, k, v, wo, scale),
                       lambda a, bb, c, d, scale=scale:
                       ref.jet_flash_attention_ref(a, bb, c, d, scale), (q, k, v, wo)))
+    if trunk is not None:
+        codes = {code: dt for dt, code in DTYPE_CODES.items()}
+        for (n1, rows, din, dout, act, dcode), launches in sorted(
+                trunk_k1_launches(trunk, trunk_params, gen).items()):
+            dt, act = codes[dcode], None if ACT_NAMES[act] == "none" else ACT_NAMES[act]
+            x = 0.5 * torch.randn((n1, rows, din), generator=gen, device=DEVICE, dtype=dt)
+            w = torch.randn((din, dout), generator=gen, device=DEVICE, dtype=dt) / din ** 0.5
+            b = 0.1 * torch.randn((dout,), generator=gen, device=DEVICE, dtype=dt)
+            cases.append(("jet_dense", f"trunk grid({TRUNK_GRID_ORDER}) ({n1}, {rows}, {din})x("
+                                       f"{din}, {dout}) {act or 'none'} {dt}, {launches} a call",
+                          lambda x=x, w=w, b=b, act=act: jet_dense_cuda(x, w, b, act),
+                          lambda c, ww, bb, act=act: ref.jet_dense_ref(c, ww, bb, act),
+                          (x, w, b), act))
     out = {}
-    for name, label, call, plain, args in cases:
+    for name, label, call, plain, args, *act in cases:
         n1 = args[0].shape[0]
         ms, host = device_time_ms(call, 20, what=f"{name} {label}")
         plain_ms = graph_time_ms(lambda: plain(*args), reps=3)
-        nbytes, flops = kernel_cost(name, args, n1)
+        nbytes, flops = kernel_cost(name, args, n1, *act)
         dtype = str(args[0].dtype)
         bound = bound_ms(nbytes, flops, dtype)
         entry = out.setdefault(name, {})[label] = {
@@ -2991,6 +3180,8 @@ def main(argv=None) -> int:
                       worst)
     check_runtime_attention(torch.Generator(device=DEVICE).manual_seed(args.seed + 7), report,
                             worst)
+    check_runtime_scores(torch.Generator(device=DEVICE).manual_seed(args.seed + 8), report,
+                         worst)
     check_admitted_orders(torch.Generator(device=DEVICE).manual_seed(args.seed + 3), report)
 
     net = DenseMLP(d_in=2, width=32, depth=3, d_out=1, activation="tanh")
@@ -3049,7 +3240,7 @@ def main(argv=None) -> int:
     phase("7b", "the run-time-order kernels: K1 at the Burgers k = 4 shapes, K1-K5 at "
                 "orders 10 and 16 and on bfloat16")
     runtime_times = time_new_instantiations(
-        torch.Generator(device=DEVICE).manual_seed(args.seed + 5), report)
+        torch.Generator(device=DEVICE).manual_seed(args.seed + 5), report, trunk, trunk_params)
     if other is not None:
         phase("8", f"K1-K5 of {args.against} (other) against this tree's, in turns, and "
                    f"the engine calls of phases 3e and 3f")

@@ -89,9 +89,18 @@
 //   lane a key, an online max with the alpha rescale.
 // * K4's smallest block (what neither geometry fits): the first version's warp per
 //   (row, query), keys read from L2; the wrappers admit what it admits.
-// * K5 a warp per (row, query), lanes over keys, three passes (max, totals,
-//   probabilities), recomputing the score jet in each from one read of the
-//   key (its coefficients dim by dim).
+// * K5: its first version gave a warp a (row, query), re-read the row's
+//   keys from L2 for every query, a lane a key dim by dim, in three passes,
+//   and ran every recurrence's multiply-add on two shared loads.  Now the
+//   templated kernel's design with N1 an argument: a block of query groups
+//   x key splits, a warp on 8 queries x 8 keys, a lane on two pairs; key
+//   tiles staged once a block by cp.async (a ring, or the whole row); two
+//   passes (online max with rescaled totals, then p); the f64 score jet on
+//   the tensor cores (mma.sync m16n8k4) kScoresTile orders at a time from a
+//   sliding window of query coefficients, f32 on FMAs; the pairs' jets in
+//   shared memory, their e-jet and division recurrences kScoresTile orders
+//   at a time from sliding register windows.  The first version stays as
+//   the smallest block, for what no tiled block fits.
 // Dot products use explicit fused multiply-adds so that every pass
 // computes bit-identical scores.
 //
@@ -104,9 +113,12 @@
 // the serial e-jet, division and rsqrt recurrences through shared memory,
 // the projection), not bytes; at 8-16 times those rows the phases of
 // other warps overlap and they run at 1.9x (K3) and 4x (K4) their byte
-// bound at order 10.  K5 is a simple kernel that is right, not fast: it
-// re-reads keys per query from L2 and reduces each score coefficient
-// across the warp.
+// bound at order 10.  K5 (bound: the output's bytes at order 10, FP64
+// operations at 16) spends its time in the score tiles on the tensor cores
+// (both passes; ~1.2 x the products they need, the rest zero rows of the
+// windows) and the recurrences through shared memory, one block of 8
+// warps an SM at (11, 4, 1024, 8) f64, the pairs' jets filling shared
+// memory; PERF.md has its times against the bound.
 #include <cuda_bf16.h>
 
 #include <algorithm>
@@ -1368,8 +1380,507 @@ __global__ void jet_flash_attention_rt_kernel(const S* __restrict__ q, const S* 
 }
 
 // ---------------------------------------------------------------------------
-// K5: a warp per (row, query), lanes over keys
+// K5: query groups x 8-key tiles (the templated kernel's design with N1 an
+// argument); the smallest block, a warp per (row, query)
 // ---------------------------------------------------------------------------
+
+constexpr int kScoresTile = 4;       // K5: orders a lane keeps in registers at a time
+constexpr int kScoresMaxRing = 2;    // K5: key stages in shared memory, at most
+static_assert(kScoresTile == 4, "scores_tile_rt stacks the window's orders two by two");
+
+// One value for each of a lane's two (query, key) pairs: one shared load.
+template <typename T>
+struct alignas(2 * sizeof(T)) Pair {
+  T x, y;
+};
+
+template <typename T>
+__device__ __forceinline__ T lowest();
+template <>
+__device__ __forceinline__ float lowest<float>() {
+  return -3.402823466e38f;
+}
+template <>
+__device__ __forceinline__ double lowest<double>() {
+  return -1.7976931348623157e308;
+}
+
+__device__ __forceinline__ void st_pair(double* p, const Pair<double>& v) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v.x, v.y));
+}
+__device__ __forceinline__ void st_pair(float* p, const Pair<float>& v) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(v.x, v.y));
+}
+__device__ __forceinline__ void st_pair(__nv_bfloat16* p, const Pair<float>& v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+
+// D += A B on the f64 tensor cores, m16n8k4: lane l holds A[l/4][l%4] (a0)
+// and A[l/4 + 8][l%4] (a1), B[l%4][l/4], and D[l/4][2 (l%4) + {0, 1}] (d0,
+// d1) and D[l/4 + 8][2 (l%4) + {0, 1}] (d2, d3).
+__device__ __forceinline__ void mma_m16n8k4(double& d0, double& d1, double& d2, double& d3,
+                                            double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// Bytes of a tiled K5 block (jet_attention.scores_rt_smem_bytes), words
+// of the compute type (item_t bytes) but the keys, kept in the storage
+// type (item_s): the scaled queries [groups][n1][nch][32]; the key ring
+// [ring][n1][nch][split tiles][32]; per warp its lanes' score and e-jets
+// ([2][n1][32] pairs), totals [n1][32] and running maxima [32]; per group
+// its queries' totals [n1][8] and maxima [8]; 1/m for m < n1.
+__host__ __device__ inline int64_t scores_tiled_bytes(int n1, int nch, int groups, int split,
+                                                      int tiles, int ring, int item_s,
+                                                      int item_t) {
+  return static_cast<int64_t>(item_t) *
+             (static_cast<int64_t>(groups) * n1 * nch * 32 +
+              static_cast<int64_t>(groups) * split * (5 * n1 + 1) * 32 +
+              static_cast<int64_t>(groups) * (n1 + 1) * 8 + n1) +
+         static_cast<int64_t>(item_s) * ring * n1 * nch * split * tiles * 32;
+}
+
+// Bytes of one key copy: a 4-dim chunk, at most 16 (f64 two copies a
+// chunk, f32 one, bfloat16 one of 8 bytes).
+template <typename S>
+constexpr int kChunkCopy = 4 * sizeof(S) < 16 ? 4 * static_cast<int>(sizeof(S)) : 16;
+
+// Whether a row of d keys' dims splits into whole copies from k.
+template <typename S>
+__device__ __forceinline__ bool scores_vec(const S* k, int d) {
+  constexpr int kEw = kChunkCopy<S> / static_cast<int>(sizeof(S));
+  return d % kEw == 0 && (reinterpret_cast<uintptr_t>(k) & (kChunkCopy<S> - 1)) == 0;
+}
+
+// Keys key0 .. key0 + 8 ntb - 1 of the batch row kb, all n1 coefficients,
+// into one stage [n1][nch][ntb][8 keys][4 dims] of the storage type, by the
+// whole block; keys past t and dims past d are zero.  Where `vec`
+// (scores_vec) by cp.async copies of kChunkCopy bytes, neighbouring threads
+// on neighbouring pieces of a key row; else an element a thread,
+// neighbouring threads on neighbouring dims (cp.async for 4 and 8 bytes,
+// bfloat16 by a plain load).  The caller's next wait covers them.
+template <typename S>
+__device__ __forceinline__ void scores_stage_keys(S* buf, const S* kb, int64_t plane, int t,
+                                                  int d, int n1, int nch, int ntb, int key0,
+                                                  bool vec) {
+  const int cwords = nch * ntb * 32;   // one coefficient of the stage
+  if (vec) {
+    constexpr int kEw = kChunkCopy<S> / static_cast<int>(sizeof(S));   // elements a copy
+    constexpr int kPer = 4 / kEw;                                      // copies a chunk
+    const int units = ntb * 8 * nch * kPer;
+    for (int u = threadIdx.x; u < n1 * units; u += blockDim.x) {
+      const int c = u / units, rest = u - c * units;
+      const int h = rest % kPer, nc = rest / kPer;
+      const int n = nc / nch, ch = nc - n * nch;   // n: key within the stage
+      const int key = key0 + n, dd = ch * 4 + h * kEw;
+      S* dst = buf + c * cwords + (ch * ntb + (n >> 3)) * 32 + (n & 7) * 4 + h * kEw;
+      const bool ok = key < t && dd < d;
+      const S* src = ok ? kb + c * plane + static_cast<int64_t>(key) * d + dd : kb;
+      if constexpr (kChunkCopy<S> == 16) {
+        cp_async_16(dst, src, ok);
+      } else {
+        cp_async_elem(reinterpret_cast<uint2*>(dst), reinterpret_cast<const uint2*>(src), ok);
+      }
+    }
+    return;
+  }
+  const int units = ntb * 8 * nch * 4;
+  for (int u = threadIdx.x; u < n1 * units; u += blockDim.x) {
+    const int c = u / units, rest = u - c * units;
+    const int x = rest & 3, nc = rest >> 2;
+    const int n = nc / nch, ch = nc - n * nch;
+    const int key = key0 + n, dd = ch * 4 + x;
+    S* dst = buf + c * cwords + (ch * ntb + (n >> 3)) * 32 + (n & 7) * 4 + x;
+    const bool ok = key < t && dd < d;
+    const S* src = kb + c * plane + static_cast<int64_t>(key) * d + dd;
+    if constexpr (sizeof(S) >= 4) {
+      cp_async_elem(dst, ok ? src : kb, ok);
+    } else {
+      *reinterpret_cast<unsigned short*>(dst) =
+          ok ? *reinterpret_cast<const unsigned short*>(src) : static_cast<unsigned short>(0);
+    }
+  }
+}
+
+// The score jet of one 8 x 8 tile for the lane's pairs (query lane/4 of the
+// group, keys 2 (lane%4) + {0, 1} of the tile) into sj[m * 32]: s_0, then
+// m s_m, what the e-jet recurrence multiplies.  qg: the group's scaled
+// query fragments (coefficient i, 4-dim chunk ch at (i nch + ch) 32); kt:
+// the tile's key fragments (coefficient c, chunk ch at (c nch + ch)
+// kstride); dims past d are 0 in both.  kScoresTile orders m0 .. m0 + 3 at
+// a time in registers: along the key coefficients c a window of query
+// coefficients Q_{m0 + j - c} slides by one, so a step loads one key and
+// one query fragment.  f64 on the tensor cores: m16n8k4 stacks Q_{m - c}
+// over Q_{m + 1 - c} against K_c into s_m and s_{m+1} (a product whose two
+// query coefficients are both below 0, or whose orders are both past n1,
+// is skipped).  f32 on FMAs: a lane's query row and its two keys 4 dims a
+// load.  Both passes run the same instructions, so they see the same
+// bits.
+__device__ __forceinline__ void scores_tile_rt(const double* qg, const double* kt, int nch,
+                                               int kstride, int n1, int lane,
+                                               Pair<double>* sj) {
+  const int qc = nch * 32, kc = nch * kstride;
+  for (int m0 = 0; m0 < n1; m0 += kScoresTile) {
+    double acc[kScoresTile][2] = {};
+    const int top = min(m0 + kScoresTile, n1);
+    const bool upper = m0 + 2 < n1;   // the window's orders m0 + 2, m0 + 3 are wanted
+    for (int ch = 0; ch < nch; ++ch) {
+      const double* qp = qg + ch * 32 + lane;
+      const double* kp = kt + ch * kstride + lane;
+      double w[kScoresTile];
+#pragma unroll
+      for (int j = 0; j < kScoresTile; ++j) w[j] = m0 + j < n1 ? qp[(m0 + j) * qc] : 0.0;
+      for (int c = 0; c < top; ++c) {
+        const double kf = kp[c * kc];
+        if (c <= m0 + 1) mma_m16n8k4(acc[0][0], acc[0][1], acc[1][0], acc[1][1], w[0], w[1], kf);
+        if (upper) mma_m16n8k4(acc[2][0], acc[2][1], acc[3][0], acc[3][1], w[2], w[3], kf);
+#pragma unroll
+        for (int j = kScoresTile - 1; j > 0; --j) w[j] = w[j - 1];
+        w[0] = c < m0 ? qp[(m0 - c - 1) * qc] : 0.0;
+      }
+    }
+#pragma unroll
+    for (int mm = 0; mm < kScoresTile; ++mm) {
+      const int m = m0 + mm;
+      const double f = m > 0 ? static_cast<double>(m) : 1.0;
+      if (m < n1) sj[m * 32] = Pair<double>{acc[mm][0] * f, acc[mm][1] * f};
+    }
+  }
+}
+
+// 4 neighbouring elements of shared memory as floats, one load.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <typename KS>
+__device__ __forceinline__ void scores_tile_rt(const float* qg, const KS* kt, int nch,
+                                               int kstride, int n1, int lane, Pair<float>* sj) {
+  const int qc = nch * 32, kc = nch * kstride;
+  const int qo = (lane >> 2) * 4, ko = (lane & 3) * 8;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int m0 = 0; m0 < n1; m0 += kScoresTile) {
+    float acc[kScoresTile][2] = {};
+    const int top = min(m0 + kScoresTile, n1);
+    for (int ch = 0; ch < nch; ++ch) {
+      const float* qp = qg + ch * 32 + qo;
+      const KS* kp = kt + ch * kstride + ko;
+      float4 w[kScoresTile];
+#pragma unroll
+      for (int j = 0; j < kScoresTile; ++j) w[j] = m0 + j < n1 ? ld4(qp + (m0 + j) * qc) : zero;
+      for (int c = 0; c < top; ++c) {
+        const float4 k0 = ld4(kp + c * kc), k1 = ld4(kp + c * kc + 4);
+#pragma unroll
+        for (int mm = 0; mm < kScoresTile; ++mm) {
+          acc[mm][0] = fmaf(w[mm].x, k0.x, acc[mm][0]);
+          acc[mm][0] = fmaf(w[mm].y, k0.y, acc[mm][0]);
+          acc[mm][0] = fmaf(w[mm].z, k0.z, acc[mm][0]);
+          acc[mm][0] = fmaf(w[mm].w, k0.w, acc[mm][0]);
+          acc[mm][1] = fmaf(w[mm].x, k1.x, acc[mm][1]);
+          acc[mm][1] = fmaf(w[mm].y, k1.y, acc[mm][1]);
+          acc[mm][1] = fmaf(w[mm].z, k1.z, acc[mm][1]);
+          acc[mm][1] = fmaf(w[mm].w, k1.w, acc[mm][1]);
+        }
+#pragma unroll
+        for (int j = kScoresTile - 1; j > 0; --j) w[j] = w[j - 1];
+        w[0] = c < m0 ? ld4(qp + (m0 - c - 1) * qc) : zero;
+      }
+    }
+#pragma unroll
+    for (int mm = 0; mm < kScoresTile; ++mm) {
+      const int m = m0 + mm;
+      const float f = m > 0 ? static_cast<float>(m) : 1.0f;
+      if (m < n1) sj[m * 32] = Pair<float>{acc[mm][0] * f, acc[mm][1] * f};
+    }
+  }
+}
+
+// The e-jet of exp(s - shift) for the lane's pairs into ej[m * 32] (sj as
+// scores_tile_rt leaves it): e_0 = exp(s_0 - shift), e_m = (1/m)
+// sum_{j=1..m} (j s_j) e_{m-j} (inv[m] = 1/m), kScoresTile orders at a
+// time: the terms of the earlier orders' e from a window of j s_j that
+// slides by one (a load of e and one of j s_j for kScoresTile multiply-adds
+// a pair), then the window's own terms from registers.  With Acc, also
+// tot[m * 32] += e_m of the valid pairs, the first, then the second.
+template <bool Acc, typename T>
+__device__ __forceinline__ void scores_exp_jet(const Pair<T>* sj, Pair<T>* ej, T shift, int n1,
+                                               const T* inv, T* tot, bool v0, bool v1) {
+  const Pair<T> nil{T(0), T(0)};
+  auto keep = [&](int m, const Pair<T>& e) {
+    ej[m * 32] = e;
+    if constexpr (Acc) {
+      T s = tot[m * 32];
+      if (v0) s += e.x;
+      if (v1) s += e.y;
+      tot[m * 32] = s;
+    }
+  };
+  const Pair<T> s0 = sj[0];
+  keep(0, Pair<T>{dev_exp(s0.x - shift), dev_exp(s0.y - shift)});
+  Pair<T> lo[kScoresTile];   // j s_j for j = 1 .. kScoresTile - 1
+#pragma unroll
+  for (int j = 1; j < kScoresTile; ++j) lo[j] = j < n1 ? sj[j * 32] : nil;
+  auto js = [&](int j) { return j < n1 ? sj[j * 32] : nil; };
+  for (int m0 = 1; m0 < n1; m0 += kScoresTile) {
+    Pair<T> acc[kScoresTile];
+#pragma unroll
+    for (int mm = 0; mm < kScoresTile; ++mm) acc[mm] = nil;
+    Pair<T> w[kScoresTile];
+#pragma unroll
+    for (int mm = 0; mm < kScoresTile; ++mm) w[mm] = js(m0 + mm);
+    for (int i = 0; i < m0; ++i) {   // w[mm] = (j s_j) for j = m0 + mm - i
+      const Pair<T> e = ej[i * 32];
+#pragma unroll
+      for (int mm = 0; mm < kScoresTile; ++mm) {
+        acc[mm].x = fmadd(e.x, w[mm].x, acc[mm].x);
+        acc[mm].y = fmadd(e.y, w[mm].y, acc[mm].y);
+      }
+#pragma unroll
+      for (int mm = kScoresTile - 1; mm > 0; --mm) w[mm] = w[mm - 1];
+      if (i + 1 < m0) w[0] = sj[(m0 - i - 1) * 32];
+    }
+    Pair<T> ew[kScoresTile];
+#pragma unroll
+    for (int mm = 0; mm < kScoresTile; ++mm) {
+      const int m = m0 + mm;
+      if (m < n1) {
+        Pair<T> a = acc[mm];
+#pragma unroll
+        for (int ii = 0; ii < mm; ++ii) {
+          a.x = fmadd(ew[ii].x, lo[mm - ii].x, a.x);
+          a.y = fmadd(ew[ii].y, lo[mm - ii].y, a.y);
+        }
+        ew[mm] = Pair<T>{a.x * inv[m], a.y * inv[m]};
+        keep(m, ew[mm]);
+      }
+    }
+  }
+}
+
+// p = e / tot as jets over ej in place (gt: the query's totals, tot_j at
+// gt[j * 8]; inv0 = 1 / tot_0): p_0 = e_0 inv0, p_m = (e_m - sum_{j=1..m}
+// tot_j p_{m-j}) inv0, in windows as scores_exp_jet; p_m of the lane's
+// keys stored to o[m * out_plane] (and the next key), in one store where
+// `pair` (the output's rows hold pairs on 2-element boundaries).
+template <typename S, typename T>
+__device__ __forceinline__ void scores_divide_store(Pair<T>* ej, const T* gt, T inv0, int n1,
+                                                    S* o, int64_t out_plane, bool v0, bool v1,
+                                                    bool pair) {
+  const Pair<T> nil{T(0), T(0)};
+  auto put = [&](int m, const Pair<T>& p) {
+    ej[m * 32] = p;
+    S* om = o + m * out_plane;
+    if (v1 && pair) {
+      st_pair(om, p);
+    } else {
+      if (v0) st(om, p.x);
+      if (v1) st(om + 1, p.y);
+    }
+  };
+  const Pair<T> e0 = ej[0];
+  put(0, Pair<T>{e0.x * inv0, e0.y * inv0});
+  T lo[kScoresTile];   // tot_j for j = 1 .. kScoresTile - 1
+#pragma unroll
+  for (int j = 1; j < kScoresTile; ++j) lo[j] = j < n1 ? gt[j * 8] : T(0);
+  auto tot = [&](int j) { return j < n1 ? gt[j * 8] : T(0); };
+  for (int m0 = 1; m0 < n1; m0 += kScoresTile) {
+    Pair<T> acc[kScoresTile];
+#pragma unroll
+    for (int mm = 0; mm < kScoresTile; ++mm) acc[mm] = m0 + mm < n1 ? ej[(m0 + mm) * 32] : nil;
+    T w[kScoresTile];
+#pragma unroll
+    for (int mm = 0; mm < kScoresTile; ++mm) w[mm] = tot(m0 + mm);
+    for (int i = 0; i < m0; ++i) {   // w[mm] = tot_j for j = m0 + mm - i
+      const Pair<T> p = ej[i * 32];
+#pragma unroll
+      for (int mm = 0; mm < kScoresTile; ++mm) {
+        acc[mm].x = fmadd(-w[mm], p.x, acc[mm].x);
+        acc[mm].y = fmadd(-w[mm], p.y, acc[mm].y);
+      }
+#pragma unroll
+      for (int mm = kScoresTile - 1; mm > 0; --mm) w[mm] = w[mm - 1];
+      if (i + 1 < m0) w[0] = gt[(m0 - i - 1) * 8];
+    }
+    Pair<T> pw[kScoresTile];
+#pragma unroll
+    for (int mm = 0; mm < kScoresTile; ++mm) {
+      const int m = m0 + mm;
+      if (m < n1) {
+        Pair<T> a = acc[mm];
+#pragma unroll
+        for (int ii = 0; ii < mm; ++ii) {
+          a.x = fmadd(-lo[mm - ii], pw[ii].x, a.x);
+          a.y = fmadd(-lo[mm - ii], pw[ii].y, a.y);
+        }
+        pw[mm] = Pair<T>{a.x * inv0, a.y * inv0};
+        put(m, pw[mm]);
+      }
+    }
+  }
+}
+
+// A block: `groups` groups of 8 queries of one batch row, each taken by
+// `split` warps that divide the keys of every stage between them; a warp
+// works on 8 queries x 8 keys at a time, a lane on two (query, key) pairs
+// (query lane/4, keys 2 (lane%4) + {0, 1}: the mma accumulator's layout).
+// Keys come in stages of split x tiles 8-key tiles copied once a block
+// into a ring of two stages (the next in flight while the warps work on
+// this one, one barrier a stage), or, where one stage holds the row (ring
+// 1), copied once for both passes.  Pass 1, per tile: the score jet
+// (scores_tile_rt), the lane's running max M of s_0 (on a new max M' its
+// totals are rescaled by exp(M - M')), the e-jet with M and its sum into
+// the lane's totals.  Then the totals of each query's 4 lanes x split
+// warps are merged with the same rescale through shared memory, one
+// (query, order) a thread.  Pass 2, per tile: the score and e-jet again,
+// with the query's final max, and p over the e-jet, stored.  A lane's jets
+// and totals live in shared memory at [m][32] (pairs of the two keys): a
+// lane reads only what it wrote, so no barrier inside a tile.  Ragged T
+// and D: keys and dims past the end are zero, queries past T not stored.
+// f32/bf16 blocks may share an SM two at a time (128 registers a thread);
+// f64 ones take up to 255 (at 128 they spilled), since their jets fill
+// shared memory long before two 8-warp blocks would fit.
+template <typename S>
+constexpr int scores_min_blocks() {
+  return sizeof(typename Compute<S>::T) == 8 ? 1 : 2;
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kMaxWarps * 32, scores_min_blocks<S>())
+    jet_attention_scores_rt_tiled_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                                         S* __restrict__ out, int64_t bsz, int t, int d, int n1,
+                                         typename Compute<S>::T scale, int groups, int split,
+                                         int tiles, int ring) {
+  using T = typename Compute<S>::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nch = (d + 3) >> 2;
+  const int ntb = split * tiles, ktb = ntb * 8;   // 8-key tiles and keys a stage
+  const int nstages = (t + ktb - 1) / ktb;
+  const bool whole = ring == 1;
+  const int qblocks = ((t + 7) / 8 + groups - 1) / groups;
+  const int64_t b = blockIdx.x / qblocks;
+  const int q_first = static_cast<int>(blockIdx.x % qblocks) * groups * 8;
+  const int g = warp / split, ks = warp - g * split;
+  const int q0 = q_first + g * 8;
+  // a warp past the last query still copies keys and meets every barrier
+  const bool active = q0 < t;
+  const int64_t plane = bsz * t * d;
+  const int64_t out_plane = bsz * t * static_cast<int64_t>(t);
+  const int qwords = n1 * nch * 32, jwords = (5 * n1 + 1) * 32;
+  const int64_t stage_words = static_cast<int64_t>(qwords) * ntb;
+  T* qs = reinterpret_cast<T*>(smem_raw);           // [groups][n1][nch][32]
+  S* keys = reinterpret_cast<S*>(qs + groups * qwords);   // [ring][n1][nch][ntb][32]
+  T* jets = reinterpret_cast<T*>(keys + ring * stage_words);   // [warps][jwords]
+  T* wj = jets + warp * jwords;
+  Pair<T>* sj = reinterpret_cast<Pair<T>*>(wj) + lane;   // [n1][32] pairs
+  Pair<T>* ej = sj + n1 * 32;                            // [n1][32] pairs
+  T* ltot = wj + 4 * n1 * 32 + lane;                     // [n1][32], then the maxima [32]
+  T* gtot = jets + groups * split * jwords;         // [groups][n1 + 1][8]
+  T* gt = gtot + g * (n1 + 1) * 8;                  // the group's totals [n1][8], maxima [8]
+  T* inv = gtot + groups * (n1 + 1) * 8;            // [n1]: 1 / m
+  const S* kb = k + b * t * d;
+  const bool vec = scores_vec(k, d);
+
+  if (whole) scores_stage_keys(keys, kb, plane, t, d, n1, nch, ntb, 0, vec);
+  // the block's queries, scaled, in fragment order
+  for (int idx = threadIdx.x; idx < groups * qwords; idx += blockDim.x) {
+    const int l = idx & 31, rest = idx >> 5;
+    const int ch = rest % nch, gi = rest / nch;   // gi = group * n1 + coefficient
+    const int i = gi % n1, qi = q_first + (gi / n1) * 8 + (l >> 2), dd = ch * 4 + (l & 3);
+    qs[idx] = qi < t && dd < d ? T(ld(q + i * plane + (b * t + qi) * d + dd)) * scale : T(0);
+  }
+  for (int m = threadIdx.x; m < n1; m += blockDim.x) inv[m] = m > 0 ? T(1) / T(m) : T(1);
+  for (int m = 0; m < n1; ++m) ltot[m * 32] = T(0);
+  if (whole) cp_async_wait_all();
+  __syncthreads();   // the queries (and the whole row) are in
+  const T* qg = qs + g * qwords;
+  const int r = lane >> 2, c2 = (lane & 3) * 2;
+  const bool q_ok = q0 + r < t;
+  S* outr = out + (b * t + (q_ok ? q0 + r : 0)) * t + c2;
+  const bool pair = (t & 1) == 0 && (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(S) - 1)) == 0;
+  T run = lowest<T>(), mx = T(0), inv0 = T(0);
+
+  for (int pass = 0; pass < 2; ++pass) {
+    // the ring: stage st in slot st % 2 (the barrier after the merge keeps
+    // pass 2's first copy off keys that pass 1 still reads)
+    if (!whole) scores_stage_keys(keys, kb, plane, t, d, n1, nch, ntb, 0, vec);
+    for (int st = 0; st < nstages; ++st) {
+      if (!whole) {
+        cp_async_wait_all();
+        __syncthreads();   // stage st is in; every warp is done with stage st - 1
+        if (st + 1 < nstages)
+          scores_stage_keys(keys + ((st + 1) & 1) * stage_words, kb, plane, t, d, n1, nch, ntb,
+                            (st + 1) * ktb, vec);
+      }
+      if (!active) continue;
+      const S* buf = keys + (whole ? 0 : st & 1) * stage_words;
+      for (int nt = 0; nt < tiles; ++nt) {
+        const int tile = ks * tiles + nt, key0 = st * ktb + tile * 8;
+        if (key0 >= t) break;   // warp-uniform
+        scores_tile_rt(qg, buf + tile * 32, nch, ntb * 32, n1, lane, sj);
+        const bool v0 = key0 + c2 < t, v1 = key0 + c2 + 1 < t;
+        if (pass == 0) {
+          if (v0 || v1) {
+            const Pair<T> s0 = sj[0];
+            T tm = v0 ? s0.x : lowest<T>();
+            if (v1 && s0.y > tm) tm = s0.y;
+            if (tm > run) {   // a new max: rescale the totals
+              const T alpha = dev_exp(run - tm);
+              for (int m = 0; m < n1; ++m) ltot[m * 32] *= alpha;
+              run = tm;
+            }
+            scores_exp_jet<true>(sj, ej, run, n1, inv, ltot, v0, v1);
+          }
+        } else if (q_ok && (v0 || v1)) {
+          scores_exp_jet<false>(sj, ej, mx, n1, inv, ltot, false, false);
+          scores_divide_store(ej, gt + r, inv0, n1, outr + key0, out_plane, v0, v1, pair);
+        }
+      }
+    }
+    if (pass == 1) break;
+
+    // merge the (max, totals) of each query's 4 lanes in each of its split
+    // warps with the same rescale: M = the largest max, tot_m = sum of
+    // exp(max - M) tot_m over the warps, then the lanes, in order
+    ltot[n1 * 32] = run;
+    __syncthreads();
+    const T* grp = jets + g * split * jwords + 4 * n1 * 32;   // the group's first warp's totals
+    for (int it = ks * 32 + lane; it < 8 * n1; it += split * 32) {
+      const int rr = it & 7, m = it >> 3;
+      T mm = lowest<T>();
+      for (int sl = 0; sl < split; ++sl)
+        for (int j = 0; j < 4; ++j) {
+          const T v = grp[sl * jwords + n1 * 32 + rr * 4 + j];
+          mm = v > mm ? v : mm;
+        }
+      T s = T(0);
+      for (int sl = 0; sl < split; ++sl)
+        for (int j = 0; j < 4; ++j) {
+          const T* wt = grp + sl * jwords + rr * 4 + j;
+          s += dev_exp(wt[n1 * 32] - mm) * wt[m * 32];
+        }
+      gt[m * 8 + rr] = s;
+      if (m == 0) gt[n1 * 8 + rr] = mm;
+    }
+    __syncthreads();
+    mx = gt[n1 * 8 + r];
+    inv0 = T(1) / gt[r];
+  }
+}
+
+// The smallest block, for what no tiled block fits: a warp per (row,
+// query), lanes over keys, three passes (max, totals, probabilities),
+// recomputing the score jet in each from one read of the key (its
+// coefficients dim by dim), every per-key jet at a stride of 32 in shared
+// memory; the wrappers admit what it admits.
 
 __host__ __device__ inline int64_t scores_words(int n1, int d) { return static_cast<int64_t>(n1) * d + 65LL * n1; }
 
@@ -1631,19 +2142,42 @@ cudaError_t jet_flash_attention_rt(const void* q, const void* k, const void* v, 
   return cudaGetLastError();
 }
 
+// groups > 0: the tiled kernel, `groups` query groups of `split` warps, a
+// stage `tiles` 8-key tiles a warp, `ring` stages (1 only where one stage
+// holds every key); groups == 0: the smallest block, `split` warps (tiles
+// and ring 0).
 template <typename S>
 cudaError_t jet_attention_scores_rt(const void* q, const void* k, void* out, int64_t bsz, int t,
-                                    int d, int n1, double scale, int warps, cudaStream_t stream) {
+                                    int d, int n1, double scale, int groups, int split,
+                                    int tiles, int ring, cudaStream_t stream) {
   using T = typename Compute<S>::T;
-  const int64_t smem = scores_words(n1, d) * warps * static_cast<int64_t>(sizeof(T));
-  const int64_t blocks = blocks_of(bsz * t, warps);
+  const S* qs = static_cast<const S*>(q);
+  const S* ks = static_cast<const S*>(k);
+  S* os = static_cast<S*>(out);
+  if (groups == 0) {
+    if (bad_warps(split) || tiles != 0 || ring != 0) return cudaErrorInvalidValue;
+    const int64_t smem = scores_words(n1, d) * split * static_cast<int64_t>(sizeof(T));
+    const int64_t blocks = blocks_of(bsz * t, split);
+    if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+    auto kernel = jet_attention_scores_rt_kernel<S>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(blocks), split * 32, smem, stream>>>(
+        qs, ks, os, bsz, t, d, n1, static_cast<T>(scale));
+    return cudaGetLastError();
+  }
+  if (split < 1 || groups * split > kMaxWarps || tiles < 1 || ring < 1 || ring > kScoresMaxRing)
+    return cudaErrorInvalidValue;
+  if (ring == 1 && static_cast<int64_t>(split) * tiles * 8 < t) return cudaErrorInvalidValue;
+  const int64_t smem = scores_tiled_bytes(n1, (d + 3) / 4, groups, split, tiles, ring,
+                                          sizeof(S), sizeof(T));
+  const int64_t blocks = bsz * (((t + 7) / 8 + groups - 1) / groups);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = jet_attention_scores_rt_kernel<S>;
+  auto kernel = jet_attention_scores_rt_tiled_kernel<S>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
-      static_cast<const S*>(q), static_cast<const S*>(k), static_cast<S*>(out), bsz, t, d, n1,
-      static_cast<T>(scale));
+  kernel<<<static_cast<unsigned>(blocks), groups * split * 32, smem, stream>>>(
+      qs, ks, os, bsz, t, d, n1, static_cast<T>(scale), groups, split, tiles, ring);
   return cudaGetLastError();
 }
 
@@ -1660,8 +2194,8 @@ cudaError_t jet_attention_scores_rt(const void* q, const void* k, void* out, int
 // staged in shared memory (act_jet_geometry, jet_dense_geometry); K3 the
 // vector width (1, or 16 bytes where rows are 16-byte aligned), lanes a
 // row, warps and whether rows are staged (rms_norm_geometry); K4 the kernel
-// and its tiles (flash_geometry).  The caller makes the tensors' device
-// current.
+// and its tiles (flash_geometry); K5 the kernel and its tiles
+// (scores_runtime_geometry).  The caller makes the tensors' device current.
 extern "C" int act_jet_rt_launch(const void* x, void* out, int64_t n_elem, int n1, int act,
                                  int dtype, const void* tab, const void* reals, int n_ints,
                                  int n_reals, int units, int warps, int staged, void* stream) {
@@ -1756,15 +2290,19 @@ extern "C" int jet_flash_attention_rt_launch(const void* q, const void* k, const
 
 extern "C" int jet_attention_scores_rt_launch(const void* q, const void* k, void* out,
                                               int64_t bsz, int t, int d, int n1, int dtype,
-                                              double scale, int warps, void* stream) {
-  if (bsz < 0 || t < 1 || d < 1 || n1 < 1 || bad_warps(warps)) return cudaErrorInvalidValue;
+                                              double scale, int groups, int split, int tiles,
+                                              int ring, void* stream) {
+  if (bsz < 0 || t < 1 || d < 1 || n1 < 1 || groups < 0) return cudaErrorInvalidValue;
   if (bsz == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return jet_attention_scores_rt<float>(q, k, out, bsz, t, d, n1, scale, warps, s);
+    return jet_attention_scores_rt<float>(q, k, out, bsz, t, d, n1, scale, groups, split, tiles,
+                                          ring, s);
   if (dtype == kF64)
-    return jet_attention_scores_rt<double>(q, k, out, bsz, t, d, n1, scale, warps, s);
+    return jet_attention_scores_rt<double>(q, k, out, bsz, t, d, n1, scale, groups, split, tiles,
+                                           ring, s);
   if (dtype == kBF16)
-    return jet_attention_scores_rt<__nv_bfloat16>(q, k, out, bsz, t, d, n1, scale, warps, s);
+    return jet_attention_scores_rt<__nv_bfloat16>(q, k, out, bsz, t, d, n1, scale, groups,
+                                                  split, tiles, ring, s);
   return cudaErrorInvalidValue;
 }

@@ -67,9 +67,10 @@ _SIGNATURES = {
     # window, group, rows, key_tile, stream
     "jet_flash_attention_rt_launch": (_P, _P, _P, _P, _P, _I64, _I, _I, _I,
                                       _I, _I, _I, _D, _I, _I, _I, _I, _I, _P),
-    # q, k, out, bsz, t, d, n1, dtype, scale, warps, stream
+    # q, k, out, bsz, t, d, n1, dtype, scale, groups, split, tiles, ring,
+    # stream
     "jet_attention_scores_rt_launch": (_P, _P, _P, _I64, _I, _I, _I, _I, _D,
-                                       _I, _P),
+                                       _I, _I, _I, _I, _P),
 }
 
 

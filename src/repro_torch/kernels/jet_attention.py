@@ -28,7 +28,8 @@ templated kernels above run float32/float64 up to N1 = ``TEMPLATE_N1``
 (K4 also up to head dim ``_TEMPLATE_HEAD_DIM``); everything else runs the
 run-time-order kernels of csrc/jet_runtime.cu with their jets in shared
 memory: K3 a group of lanes a row (:func:`rms_norm_geometry`), K4 the
-templates' two geometries (:func:`flash_geometry`), K5 a warp a query.
+templates' two geometries (:func:`flash_geometry`), K5 the templates' tiling
+with its jets in shared memory (:func:`scores_runtime_geometry`).
 A wrapper refuses only a launch whose block does not fit in shared
 memory, naming the bytes.
 """
@@ -57,6 +58,8 @@ _SCORES_MAX_SPLIT = 8         # warps a query's keys are split between (16 lost 
 _SCORES_BLOCKS_WANTED = 128   # ~ one block on each of the 132 SMs
 _SMEM_LIMIT = SMEM_LIMIT      # shared memory a block can use on Hopper
 _RT_WARPS = 8                 # csrc/jet_runtime.cu: warps of a K3/K4/K5 block, at most
+_RT_RESIDENT_WARPS = 16       # K5's tiled kernel, f32/bf16: __launch_bounds__(256, 2)
+_RT_RESIDENT_WARPS_F64 = 8    # and f64: __launch_bounds__(256, 1), up to 255 registers
 _RMS_CHUNK = 32               # csrc/jet_runtime.cu: kRmsChunk
 _KEY_PITCH = 33               # csrc/jet_runtime.cu: kKeyPitch
 _SM_SMEM = 233472             # shared memory of one SM; each block reserves 1 KB of it
@@ -78,7 +81,7 @@ def _pow2_ceil(v: int) -> int:
 
 def runtime_warps(words_per_warp: int, dtype: torch.dtype) -> tuple[int, int]:
     """(warps, shared bytes) of a run-time-order block whose warps each keep
-    ``words_per_warp`` words (K5, and K4's smallest block): up to 8 warps,
+    ``words_per_warp`` words (K4's and K5's smallest blocks): up to 8 warps,
     fewer where they do not fit; one warp that does not fit leaves ``smem``
     over the limit."""
     per_warp = words_per_warp * compute_itemsize(dtype)
@@ -380,7 +383,10 @@ class ScoresGeometry(NamedTuple):
     shared memory (``ring == 1``: the whole row in one stage, copied once
     for both passes; else 2).  ``smem`` the block's dynamic shared memory
     in bytes.  The score contraction runs on the tensor cores in f64
-    (mma.sync m16n8k4), on FMAs in f32."""
+    (mma.sync m16n8k4), on FMAs in f32.  The run-time-order kernels
+    (csrc/jet_runtime.cu, :func:`scores_runtime_geometry`) take the same
+    fields; there ``groups == 0`` is the smallest block, a warp a query,
+    ``split`` warps (``tiles`` and ``ring`` 0)."""
     groups: int
     split: int
     tiles: int
@@ -390,6 +396,10 @@ class ScoresGeometry(NamedTuple):
     @property
     def whole(self) -> bool:
         return self.ring == 1
+
+    @property
+    def smallest(self) -> bool:
+        return self.groups == 0
 
 
 def scores_smem_bytes(n1: int, d: int, groups: int, split: int, tiles: int,
@@ -426,10 +436,7 @@ def scores_geometry(n1: int, t: int, d: int, dtype: torch.dtype,
     item = torch.empty((), dtype=dtype).element_size()
     max_warps = scores_max_warps(n1, dtype)
     qtiles = -(-t // 8)
-    groups = 1
-    while (groups < _SCORES_MAX_GROUPS
-           and bsz * -(-qtiles // (2 * groups)) >= _SCORES_BLOCKS_WANTED):
-        groups *= 2
+    groups = _scores_groups(t, bsz)
     split = 1
     while split < min(_SCORES_MAX_SPLIT, max_warps // groups) and qtiles >= 4 * split:
         split *= 2
@@ -451,18 +458,98 @@ def scores_geometry(n1: int, t: int, d: int, dtype: torch.dtype,
     return next((geo for geo in candidates if geo.smem <= _SMEM_LIMIT), candidates[-1])
 
 
+def _scores_groups(t: int, bsz: int) -> int:
+    """Query groups a K5 block starts from: as many (up to 4, powers of two)
+    as leave the grid ~128 blocks, since a block's groups share each key
+    stage it copies."""
+    qtiles = -(-t // 8)
+    groups = 1
+    while (groups < _SCORES_MAX_GROUPS
+           and bsz * -(-qtiles // (2 * groups)) >= _SCORES_BLOCKS_WANTED):
+        groups *= 2
+    return groups
+
+
 def scores_runtime_words(n1: int, d: int) -> int:
-    """Words a K5 run-time-order warp keeps (csrc/jet_runtime.cu): its
-    query's jet, the score and e-jets of 32 keys (one a lane) and the
-    row's totals."""
+    """Words a warp of K5's smallest run-time block keeps
+    (csrc/jet_runtime.cu::scores_words): its query's jet, the score and
+    e-jets of 32 keys (one a lane) and the row's totals."""
     return n1 * d + 65 * n1
+
+
+def scores_rt_smem_bytes(n1: int, d: int, groups: int, split: int, tiles: int, ring: int,
+                         item_s: int, item_t: int) -> int:
+    """Shared memory of one tiled run-time K5 block in bytes
+    (csrc/jet_runtime.cu::scores_tiled_bytes): the scaled queries as the
+    templates keep them, per warp its lanes' score and e-jets (two keys a
+    lane), totals and running maxima (5 n1 + 1 words a lane), per group
+    its queries' totals and maxima, and 1/m for m < n1, in the compute type
+    (``item_t`` bytes); the key ring as the templates keep it, in the
+    storage type (``item_s``)."""
+    nch = -(-d // 4)
+    return (item_t * (groups * n1 * nch * 32 + groups * split * (5 * n1 + 1) * 32
+                      + groups * (n1 + 1) * 8 + n1)
+            + item_s * ring * n1 * nch * split * tiles * 32)
+
+
+def _scores_runtime_tilings(t: int, bsz: int):
+    """The run-time K5's (groups, split, tiles, ring), in order of preference:
+    query groups from as many as ``_scores_groups`` gives down to 1,
+    for each every key split (powers of two, each slice keeping at least
+    two 8-key tiles) from the most warps a block takes down to 1, for each
+    the whole row in one stage, then a ring of two stages of 4, 2, 1 tiles
+    a warp."""
+    qtiles = -(-t // 8)
+    groups = _scores_groups(t, bsz)
+    while groups >= 1:
+        split = _RT_WARPS // groups
+        while split >= 1:
+            if split == 1 or qtiles >= 2 * split:
+                for tiles, ring in ((-(-qtiles // split), 1), (4, 2), (2, 2), (1, 2)):
+                    yield groups, split, tiles, ring
+            split //= 2
+        groups //= 2
+
+
+def scores_runtime_geometry(n1: int, t: int, d: int, dtype: torch.dtype,
+                            bsz: int) -> ScoresGeometry:
+    """The block the run-time K5 launcher runs for (n1, bsz, t, d) stacks
+    (orders past the templates, bfloat16): of the tilings
+    (``_scores_runtime_tilings``, up to 8 warps) that fit a block, the one that
+    keeps the most warps on each SM over the launch's waves (an SM holds as
+    many blocks as its shared memory and its registers allow: 16 warps at
+    f32/bf16, 8 at f64, whose kernel may take 255 registers a thread), the
+    first of those in order.  Where none fits, the
+    smallest block (:func:`scores_runtime_words` a warp, ``groups == 0``),
+    which admits what the wrapper admitted before the tiled kernel existed;
+    past its limit ``smem`` exceeds the limit and the wrapper refuses."""
+    item_s, item_t = torch.empty((), dtype=dtype).element_size(), compute_itemsize(dtype)
+    qtiles = -(-t // 8)
+
+    resident = _RT_RESIDENT_WARPS_F64 if item_t == 8 else _RT_RESIDENT_WARPS
+
+    def warps_per_sm(geo: ScoresGeometry) -> float:
+        warps = geo.groups * geo.split
+        per_sm = min(resident // warps, _SM_SMEM // (geo.smem + 1024))
+        blocks = bsz * -(-qtiles // geo.groups)
+        waves = -(-blocks // (per_sm * _SMS))
+        return blocks * warps / (waves * _SMS)
+
+    fits = [ScoresGeometry(*c, scores_rt_smem_bytes(n1, d, *c, item_s, item_t))
+            for c in _scores_runtime_tilings(t, bsz)]
+    fits = [geo for geo in fits if geo.smem <= _SMEM_LIMIT]
+    if fits:
+        return max(fits, key=warps_per_sm)
+    warps, smem = runtime_warps(scores_runtime_words(n1, d), dtype)
+    return ScoresGeometry(0, warps, 0, 0, smem)
 
 
 def jet_attention_scores_cuda(q: torch.Tensor, k: torch.Tensor,
                               scale: float) -> torch.Tensor:
     """K5 on the card: q/k (n+1, B, T, D) -> the softmaxed score jet
     (n+1, B, T, T), tiled by :func:`scores_geometry` (orders past the
-    templates and bfloat16: the run-time-order kernel, a warp a query)."""
+    templates and bfloat16: the run-time-order kernels, tiled by
+    :func:`scores_runtime_geometry`)."""
     check_cuda_tensor(q, "q", 4)
     check_cuda_tensor(k, "k", 4, q.dtype)
     if k.shape != q.shape:
@@ -472,12 +559,13 @@ def jet_attention_scores_cuda(q: torch.Tensor, k: torch.Tensor,
     n1, bsz, t, d = q.shape
     check_depth(n1)
     if runtime_path(n1, q.dtype):
-        warps, smem = runtime_warps(scores_runtime_words(n1, d), q.dtype)
-        check_fits("score", smem, f"head dim {d} at order {n1 - 1}")
+        geo = scores_runtime_geometry(n1, t, d, q.dtype, bsz)
+        check_fits("score", geo.smem, f"head dim {d} at order {n1 - 1}")
         out = torch.empty((n1, bsz, t, t), dtype=q.dtype, device=q.device)
         cuda_lib.launch("jet_attention_scores_rt_launch", q.device, q.data_ptr(),
                         k.data_ptr(), out.data_ptr(), bsz, t, d, n1,
-                        DTYPE_CODES[q.dtype], float(scale), warps)
+                        DTYPE_CODES[q.dtype], float(scale), geo.groups, geo.split,
+                        geo.tiles, geo.ring)
         SCORES_LAUNCHES.add()
         return out
     geo = scores_geometry(n1, t, d, q.dtype, bsz)

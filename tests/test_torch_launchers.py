@@ -74,6 +74,14 @@ def test_scores_launcher_takes_the_geometry_after_the_scale():
                      "split", "tiles", "ring", "stream"]
 
 
+def test_runtime_scores_launcher_takes_the_geometry_after_the_scale():
+    """The run-time K5 launcher takes the templated launcher's arguments:
+    (groups, split, tiles, ring) after the scale, groups 0 naming the
+    smallest block (tests/test_torch_scores.py checks the values)."""
+    names = [pname for _, pname in _launcher_params()["jet_attention_scores_rt_launch"]]
+    assert names == [pname for _, pname in _launcher_params()["jet_attention_scores_launch"]]
+
+
 @pytest.fixture
 def stubbed(monkeypatch):
     """CPU tensors forced down the CUDA branch, the checks recording what
@@ -539,7 +547,10 @@ def test_runtime_path_reaches_its_launchers(stubbed, monkeypatch, dtype, n1):
     assert calls[-1][1][5:] == (2, 2, 2, 4, 3, n1, code, 0.5, 0, 0) + want
     tops.jet_attention_scores(qkv[:, :, 0], qkv[:, :, 1], 0.5)
     assert calls[-1][0] == "jet_attention_scores_rt_launch"
-    assert calls[-1][1][3:] == (2, 5, 4, n1, code, 0.5, 8)
+    geo = tka.scores_runtime_geometry(n1, 5, 4, dtype, 2)
+    # T = 5: the tiled kernel, one 8-query group, one warp, the row in one stage
+    assert tuple(geo[:4]) == (1, 1, 1, 1)
+    assert calls[-1][1][3:] == (2, 5, 4, n1, code, 0.5, 1, 1, 1, 1)
     assert tops.launch_counts() == {"jet_dense": 1, "act_jet": 1, "jet_rms_norm": 1,
                                     "jet_flash_attention": 2, "jet_attention_scores": 1}
 

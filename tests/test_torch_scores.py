@@ -182,10 +182,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         tka.jet_attention_scores_cuda(cpu, cpu, 0.5)
     # no order is capped on either device (parity at orders 10 and 12
-    # below); past the templates a warp keeps n1 (D + 65) words, and a
-    # block whose one warp does not fit is refused, naming the bytes
-    assert tka.runtime_warps(tka.scores_runtime_words(11, 16), torch.float64) == (
-        8, 8 * 11 * 81 * 8)
+    # below); past the templates the tiled run-time block takes (11, T 3,
+    # D 16): one warp, the row in one stage, its queries and keys (11
+    # coefficients, 4 chunks of 4 dims), the lanes' jets and totals, the
+    # group's totals and 1/m; where no tiled block fits, the smallest block,
+    # a warp a query keeping n1 (D + 65) words, and a block whose one warp
+    # does not fit is refused, naming the bytes
+    assert tka.scores_runtime_geometry(11, 3, 16, torch.float64, 1) == (
+        1, 1, 1, 1, (2 * 11 * 4 * 32 + (5 * 11 + 1) * 32 + 12 * 8 + 11) * 8)
     monkeypatch.setattr(tka, "check_cuda_tensor", lambda *a: None)
     big = torch.zeros((11, 1, 3, 2577), dtype=torch.float64)
     with pytest.raises(ValueError, match=r"needs 232496 bytes of shared memory"):
@@ -449,3 +453,241 @@ def test_kernel_arithmetic_is_exact_on_one_key():
     assert torch.equal(got[0], torch.ones_like(got[0]))
     assert torch.equal(got[1:], torch.zeros_like(got[1:]))
     assert torch.equal(want[1:], torch.zeros_like(want[1:]))
+
+
+# ---------------------------------------------------------------------------
+# the run-time-order kernel's tiling (jet_attention.scores_runtime_geometry:
+# orders past the templates and bfloat16), checked without a card
+# ---------------------------------------------------------------------------
+
+RT_DTYPES = [torch.float64, torch.float32, torch.bfloat16]
+RT_SHAPES = [(4, 1024, 8), (4, 256, 8), (2, 70, 16), (3, 33, 64), (3, 31, 1), (5, 3, 4),
+             (2, 1, 8), (1, 70, 64), (19, 2, 8), (2, 9, 3)]
+
+
+def _rt_bytes(n1, d, groups, split, tiles, ring, item_s, item_t):
+    """The tiled block's shared memory, written out: the query and key
+    fragments as the templates keep them, the keys in the storage type
+    (``item_s`` bytes), the rest in the compute type (``item_t``); per warp
+    two jets of two pairs a lane, the lane's totals and its running max;
+    per group 8 queries' totals and maxima; 1/m."""
+    frag = n1 * -(-d // 4) * 32
+    per_warp = 2 * (2 * n1 * 32) + n1 * 32 + 32
+    return (item_t * (groups * frag + groups * split * per_warp + groups * (n1 * 8 + 8) + n1)
+            + item_s * ring * split * tiles * frag)
+
+
+def _old_rt_admits(n1, d, item):
+    """What the run-time K5 admitted before its tiled kernel: one warp of
+    n1 (D + 65) words."""
+    return n1 * (d + 65) * item <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", RT_DTYPES, ids=["f64", "f32", "bf16"])
+@pytest.mark.parametrize("n1", [10, 11, 17])
+@pytest.mark.parametrize("shape", RT_SHAPES, ids=["x".join(map(str, s)) for s in RT_SHAPES])
+def test_runtime_scores_geometry_fits_and_covers_every_key_once(shape, n1, dtype):
+    """The run-time block fits the 232,448 bytes at the size its formula
+    gives, with at most 8 warps, the whole row in one stage only where one
+    stage holds it; its blocks, warps, stages and tiles visit every (query,
+    key) pair of a row exactly once."""
+    b, t, d = shape
+    geo = tka.scores_runtime_geometry(n1, t, d, dtype, b)
+    item_s = torch.empty((), dtype=dtype).element_size()
+    assert not geo.smallest
+    assert geo.smem == _rt_bytes(n1, d, *geo[:4], item_s, max(item_s, 4)) <= SMEM_LIMIT
+    assert 1 <= geo.groups * geo.split <= 8 and geo.ring in (1, 2)
+    if geo.whole:
+        assert geo.split * geo.tiles * 8 >= t
+    np.testing.assert_array_equal(_visits(t, geo), 1)
+
+
+def test_scores_rt_smem_bytes_is_the_kernels_formula():
+    """scores_rt_smem_bytes against csrc/jet_runtime.cu::scores_tiled_bytes,
+    evaluated from its source, and against the layout written out here;
+    the launcher takes rings of 1 and 2 stages, the warps of a K3-K5
+    block."""
+    import re
+    src = (cuda_lib.CSRC / "jet_runtime.cu").read_text()
+    m = re.search(r"int64_t scores_tiled_bytes\(int n1, int nch, int groups, int split,\s*"
+                  r"int tiles, int ring, int item_s,\s*int item_t\) \{\s*return (.*?);\s*\}",
+                  src, re.S)
+    assert m, "scores_tiled_bytes not found"
+    expr = " ".join(m.group(1).replace("static_cast<int64_t>", "").split())
+    for n1, d, groups, split, tiles, ring, item_s, item_t in [
+            (10, 1, 1, 1, 1, 1, 4, 4), (11, 8, 4, 2, 4, 2, 8, 8), (17, 70, 2, 4, 3, 2, 2, 4),
+            (13, 13, 1, 8, 2, 2, 8, 8), (11, 8, 4, 2, 32, 1, 8, 8), (398, 5, 1, 2, 7, 1, 2, 4)]:
+        env = dict(n1=n1, nch=-(-d // 4), groups=groups, split=split, tiles=tiles,
+                   ring=ring, item_s=item_s, item_t=item_t)
+        got = tka.scores_rt_smem_bytes(n1, d, groups, split, tiles, ring, item_s, item_t)
+        assert got == eval(expr, env) == _rt_bytes(n1, d, groups, split, tiles, ring,
+                                                   item_s, item_t)
+    assert re.search(r"constexpr int kScoresMaxRing = (\d+);", src).group(1) == "2"
+    assert re.search(r"constexpr int kMaxWarps = (\d+);", src).group(1) == str(tka._RT_WARPS)
+
+
+@pytest.mark.parametrize("dtype", RT_DTYPES, ids=["f64", "f32", "bf16"])
+def test_runtime_scores_admits_what_it_admitted_before(dtype):
+    """No shape the run-time K5's one-warp block admitted is refused now,
+    and nothing it refused is admitted: orders from 10 to past the largest
+    the old block took at D 8 (n1 398 at f64), head dims 1 to 2577, T 1 to
+    1024.  The smallest block (a warp a query, the old kernel) takes
+    exactly what no tiled block fits."""
+    item = tka.compute_itemsize(dtype)
+    for d in (1, 8, 16, 64, 100, 128, 2576, 2577):
+        top = SMEM_LIMIT // (item * (d + 65))
+        for n1 in (10, 11, 17, 64, 200, 397, 398, 399, top, top + 1):
+            for t, b in ((1, 3), (70, 2), (1024, 4)):
+                geo = tka.scores_runtime_geometry(n1, t, d, dtype, b)
+                assert (geo.smem <= SMEM_LIMIT) == _old_rt_admits(n1, d, item)
+                item_s = torch.empty((), dtype=dtype).element_size()
+                tiled = [c for c in tka._scores_runtime_tilings(t, b)
+                         if tka.scores_rt_smem_bytes(n1, d, *c, item_s, item) <= SMEM_LIMIT]
+                assert geo.smallest == (not tiled)
+                if geo.smallest:
+                    assert (geo.split, geo.smem) == tka.runtime_warps(
+                        tka.scores_runtime_words(n1, d), dtype)
+
+
+def test_runtime_scores_geometry_at_the_timed_shapes(monkeypatch):
+    """The timed launches take the tiled kernel with the most warps an SM
+    keeps: (11, 4, 1024, 8) f64 4 query groups x 2 warps, a ring of 4-tile
+    stages (one block an SM, 230,488 bytes); (17, ...) 4 groups of one warp;
+    the bf16 memory row 2 groups x 4 warps with the whole row in one stage
+    (its keys in bfloat16); (11, 4, 256, 8) one group over 8 warps.  Order
+    397 at D 8 f64 takes the smallest block, and order 398 and head dim
+    2577 at order 10 are refused naming its bytes."""
+    f64 = torch.float64
+    assert tka.scores_runtime_geometry(11, 1024, 8, f64, 4) == (4, 2, 4, 2, 230488)
+    assert tuple(tka.scores_runtime_geometry(17, 1024, 8, f64, 4))[:4] == (4, 1, 4, 2)
+    assert tuple(tka.scores_runtime_geometry(3, 1024, 8, torch.bfloat16, 4))[:4] == (
+        2, 4, 32, 1)
+    assert tuple(tka.scores_runtime_geometry(11, 256, 8, f64, 4))[:4] == (1, 8, 1, 2)
+    assert tka.scores_runtime_geometry(398, 16, 8, f64, 1) == (0, 1, 0, 0, 232432)
+    monkeypatch.setattr(tka, "check_cuda_tensor", lambda *a: None)
+    for shape, nbytes in (((399, 1, 16, 8), 233016), ((11, 1, 3, 2577), 232496)):
+        big = torch.zeros(shape, dtype=f64)
+        with pytest.raises(ValueError, match=rf"needs {nbytes} bytes of shared memory"):
+            tka.jet_attention_scores_cuda(big, big, 0.5)
+
+
+# the tiled run-time kernel's arithmetic, emulated in plain torch: per lane
+# the online max and rescaled totals over its two keys of each tile, the
+# merge over the 4 lanes and split warps of a query in the kernel's order,
+# the e-jet and division recurrences kScoresTile orders at a time (the
+# earlier orders from a sliding window, the window's own from registers)
+
+_RT_TILE = 4   # csrc/jet_runtime.cu: kScoresTile
+
+
+def _rt_exp_jet(js, shift, n1):
+    """scores_exp_jet: e_0 = exp(s_0 - shift), e_m = (1/m) sum_j (j s_j)
+    e_{m-j}; js[0] = s_0, js[j] = j s_j."""
+    e = [torch.exp(js[0] - shift)] + [None] * (n1 - 1)
+    zero = torch.zeros_like(e[0])
+    lo = [None] + [js[j] if j < n1 else zero for j in range(1, _RT_TILE)]
+    for m0 in range(1, n1, _RT_TILE):
+        acc = [zero] * _RT_TILE
+        w = [js[m0 + mm] if m0 + mm < n1 else zero for mm in range(_RT_TILE)]
+        for i in range(m0):
+            acc = [acc[mm] + e[i] * w[mm] for mm in range(_RT_TILE)]
+            w = [js[m0 - i - 1] if i + 1 < m0 else zero] + w[:-1]
+        ew = []
+        for mm in range(min(_RT_TILE, n1 - m0)):
+            a = acc[mm]
+            for ii in range(mm):
+                a = a + ew[ii] * lo[mm - ii]
+            ew.append(a * (1.0 / (m0 + mm)))
+            e[m0 + mm] = ew[-1]
+    return e
+
+
+def _rt_divide(e, tot, n1):
+    """scores_divide_store: p_0 = e_0 / tot_0, p_m = (e_m - sum_j tot_j
+    p_{m-j}) / tot_0, over the same windows."""
+    inv0 = 1.0 / tot[0]
+    p = [e[0] * inv0] + [None] * (n1 - 1)
+    zero = torch.zeros_like(tot[0])
+    lo = [None] + [tot[j] if j < n1 else zero for j in range(1, _RT_TILE)]
+    for m0 in range(1, n1, _RT_TILE):
+        acc = [e[m0 + mm] if m0 + mm < n1 else zero for mm in range(_RT_TILE)]
+        w = [tot[m0 + mm] if m0 + mm < n1 else zero for mm in range(_RT_TILE)]
+        for i in range(m0):
+            acc = [acc[mm] - w[mm] * p[i] for mm in range(_RT_TILE)]
+            w = [tot[m0 - i - 1] if i + 1 < m0 else zero] + w[:-1]
+        pw = []
+        for mm in range(min(_RT_TILE, n1 - m0)):
+            a = acc[mm]
+            for ii in range(mm):
+                a = a - lo[mm - ii] * pw[ii]
+            pw.append(a * inv0)
+            p[m0 + mm] = pw[-1]
+    return p
+
+
+def _rt_kernel_emulation(q, k, scale, split, tiles):
+    """The tiled run-time K5 for one key split and stage width: pass 1 per
+    (query, key slice, lane) over its two keys of each 8-key tile, stage by
+    stage: the running max of s_0, the totals rescaled on a new max, the
+    e-jet with it added (first key, then second); the merge of the split
+    warps' 4 lanes of a query with their common max, in order; pass 2 the
+    e-jet with the final max and p over it."""
+    n1, b, t, d = q.shape
+    qs = q * scale
+    s = [sum(torch.einsum("bqd,bkd->bqk", qs[i], k[m - i]) for i in range(m + 1))
+         for m in range(n1)]
+    js = [s[0]] + [m * s[m] for m in range(1, n1)]
+    ktb = split * tiles * 8
+    shape = (b, t, split, 4)
+    run = torch.full(shape, _LOWEST, dtype=q.dtype)
+    tot = [torch.zeros(shape, dtype=q.dtype) for _ in range(n1)]
+    lanes = torch.arange(4)
+    for st in range(-(-t // ktb)):
+        for nt in range(tiles):
+            key0 = st * ktb + (torch.arange(split) * tiles + nt) * 8               # (split,)
+            keys = key0[:, None, None] + 2 * lanes[None, :, None] + torch.arange(2)
+            valid = keys < t                                                       # (split, 4, 2)
+            kk = keys.clamp(max=t - 1)
+            sk = [x[:, :, kk] for x in js]                                         # (b, t, split, 4, 2)
+            tm = torch.where(valid, sk[0], torch.full_like(sk[0], _LOWEST)).amax(-1)
+            up = tm > run
+            alpha = torch.exp(run - tm)
+            tot = [torch.where(up, x * alpha, x) for x in tot]
+            run = torch.where(up, tm, run)
+            e = _rt_exp_jet(sk, run[..., None], n1)
+            zero = torch.zeros_like(e[0][..., 0])
+            tot = [x + torch.where(valid[..., 0], em[..., 0], zero)
+                   + torch.where(valid[..., 1], em[..., 1], zero) for x, em in zip(tot, e)]
+    mx = run.amax((-2, -1))                                                        # (b, t)
+    merged = []
+    for x in tot:
+        acc = torch.zeros_like(mx)
+        for sl in range(split):
+            for j in range(4):
+                acc = acc + torch.exp(run[..., sl, j] - mx) * x[..., sl, j]
+        merged.append(acc[..., None])
+    e = _rt_exp_jet(js, mx[..., None], n1)
+    return torch.stack(_rt_divide(e, merged, n1))
+
+
+@pytest.mark.parametrize("split,tiles", [(1, 1), (4, 2)])
+@pytest.mark.parametrize("t", [9, 33, 70])
+@pytest.mark.parametrize("order", [10, 12, 16])
+def test_runtime_kernel_arithmetic_matches_the_plain_version(order, t, split, tiles):
+    """The emulated run-time tiling, merges and windowed recurrences
+    reproduce the plain version to 1e-12 (f64) at orders 10, 12 and 16, for
+    one and several key slices, ragged T included."""
+    q, k = _qk(order * 17 + t + split, order, (2, t, 5))
+    qt, kt = torch.tensor(q), torch.tensor(k)
+    got = _rt_kernel_emulation(qt, kt, 0.45, split, tiles)
+    _close(got, tref.jet_attention_scores_ref(qt, kt, 0.45), 1e-12)
+
+
+@pytest.mark.parametrize("order", [10, 16])
+def test_runtime_kernel_arithmetic_is_exact_on_one_key(order):
+    """At T = 1 the merged totals are the key's own e-jet and pass 2
+    recomputes it bit for bit, so p = (1, 0, ..., 0) exactly."""
+    q, k = _qk(5 + order, order, (3, 1, 4))
+    got = _rt_kernel_emulation(torch.tensor(q), torch.tensor(k), 0.5, 1, 1)
+    assert torch.equal(got[0], torch.ones_like(got[0]))
+    assert torch.equal(got[1:], torch.zeros_like(got[1:]))
