@@ -80,6 +80,12 @@ Phases, each failing loudly with a non-zero exit:
    sizes only; not 3e's or 3f's order 10); the trunk's grid tables relative
    to a conditioning scale (``readout_scale``), its cross tables relative
    to the polarization terms;
+   g. the Taylor-mode oracle: the tables of 3a (the DenseMLP's ``grid(4)``
+      and ``cross((0,0,1,1))``), 3e and 3f at 512 rows under ``ntp/cuda``
+      held against the engine ``"jet"`` (``core/taylor.py``, Taylor mode
+      through the torch operations, independent of ``core/jet.py``) on
+      the card within TOL_ORACLE, with both calls' times; the order-10
+      tables' only check besides eager ``ntp``;
 4. times from CUDA events after warm-up at the 512-row serving shapes: each
    kernel's device time (the host's enqueue kept off the clock, see
    ``device_time_ms``) and host dispatch time, its plain version, the
@@ -110,6 +116,22 @@ Phases, each failing loudly with a non-zero exit:
    and heat on the pinn-pde Transformer trunk (16 K1, 7 K3, 3 K4 per
    step), n_domain 1024, under ``ntp/cuda`` and eager ``ntp``: losses
    agree, launches asserted, time per step;
+   6b. data parallel on the one card (``repro_torch.parallel``): NCCL at
+   world size 1 in this process, ``train_operator(data_parallel=1)`` on
+   Navier-Stokes (DenseMLP) and heat (trunk), 5 Adam steps and 2 L-BFGS
+   iterations on the sharded objective, bit for bit with the run without
+   a mesh and with its launches; then two spawned gloo ranks sharing the
+   card (``file://`` init): the DenseMLP's and the trunk's
+   ``cross((0,0,1,1))`` and ``grid(10)`` at 512 rows through
+   ``ShardedEngine(NTPEngine("cuda"))`` against the single-process call
+   (bit for bit), each rank's counters showing its
+   K1 (and the trunk's K3 and K4) per sharded call, a
+   ``DerivativeServer(mesh=)`` across the ranks, and Navier-Stokes trained
+   on both ranks with ``grad_compression`` None (against the
+   single-process run within TOL_TRAIN), ``"int8"`` and ``"topk:0.1"``
+   (losses falling), times per Adam step beside the card's name and power
+   limit (two processes on one card: not a scaling figure).  A rank that
+   fails fails the run;
 7. K1 at the shapes the training phases launched it most (recorded while
    they ran), beside its plain version and bound; 7b. the run-time-order
    kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
@@ -307,6 +329,25 @@ RUNTIME_TURNS = tuple((*shape, "float64") for shape in BURGERS_K4_SHAPES) + (
 # relative; L-BFGS carries what Adam left.
 TOL_TRAIN = 1e-6
 TIMED_STEPS = {"ntp/cuda": 10, "ntp": 10, "autodiff": 3}
+# Phase 3g: the ntp/cuda tables of phases 3a, 3e and 3f at ORACLE_ROWS rows
+# against the Taylor-mode oracle (engine "jet", core/taylor.py) on the
+# card, relative per table slice (cross: to the polarization terms; the
+# trunk's grid: to readout_scale).  The CPU rehearsal at these shapes
+# (eager plain versions vs the oracle) read 3.2e-15, 7.9e-16 and 6.8e-16.
+ORACLE_ROWS = 512
+TOL_ORACLE = 1e-12
+# Phase 6b: data parallel on the one card.  NCCL at world size 1 trains
+# DP_RUNS (phase 6's Navier-Stokes on the DenseMLP and heat on the trunk,
+# n_domain 1024) for DP_ADAM Adam steps and DP_LBFGS L-BFGS iterations;
+# two gloo ranks sharing the card serve DP_ROWS rows through the sharded
+# engine and the sharded server and train Navier-Stokes under each
+# DP_COMPRESSIONS.  The pair must end within DP_TIMEOUT seconds.
+DP_RUNS = OPERATOR_RUNS[:2]
+DP_ADAM = 5
+DP_LBFGS = 2
+DP_ROWS = 512
+DP_COMPRESSIONS = (None, "int8", "topk:0.1")
+DP_TIMEOUT = 600
 
 
 class SmokeFailure(RuntimeError):
@@ -3095,6 +3136,347 @@ def train_operators(seed: int, report: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: the Taylor-mode oracle on the card
+# ---------------------------------------------------------------------------
+
+def check_oracle(net, params, trunk, trunk_params, gen, report: dict) -> dict:
+    """Phase 3g: the tables of phases 3a (DenseMLP grid(4),
+    cross((0,0,1,1))), 3e (DenseMLP grid(10)) and 3f (the trunk's grid(10))
+    at ORACLE_ROWS rows under ntp/cuda, held against the "jet" engine
+    (``core/taylor.py``: Taylor mode through the torch operations, which
+    shares nothing with ``core/jet.py``) on the same inputs on the card:
+    grid tables per table slice (the trunk's relative to ``readout_scale``),
+    cross tables relative to the polarization terms, within TOL_ORACLE.
+    The ntp/cuda calls' launches are counted; the oracle launches none.
+    Times: CUDA events around single calls (``event_time_ms``)."""
+    import torch
+    from repro_torch.core.engines import JetEngine, NTPEngine
+    from repro_torch.kernels import ops
+
+    engine, oracle = NTPEngine("cuda"), JetEngine()
+    x = torch.rand((ORACLE_ROWS, net.d_in), generator=gen, device=DEVICE,
+                   dtype=torch.float64) * 2 - 1
+    total, out = {name: 0 for name in KERNEL_NAMES}, {}
+    for label, n_, p_, kind, req in (("dense grid(4)", net, params, "grid", 4),
+                                     ("dense cross(0,0,1,1)", net, params, "cross",
+                                      (0, 0, 1, 1)),
+                                     (f"dense grid({DENSE_GRID_ORDER})", net, params, "grid",
+                                      DENSE_GRID_ORDER),
+                                     (f"trunk grid({TRUNK_GRID_ORDER})", trunk, trunk_params,
+                                      "grid", TRUNK_GRID_ORDER)):
+        def call(eng, n_=n_, p_=p_, kind=kind, req=req):
+            with torch.no_grad():
+                return (eng.grid if kind == "grid" else eng.cross)(n_, p_, x, req)
+
+        ops.reset_launch_counts()
+        table = call(engine)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        ops.reset_launch_counts()
+        want = call(oracle)
+        torch.cuda.synchronize()
+        require(sum(ops.launch_counts().values()) == 0,
+                f"oracle {label}: the jet engine launched {ops.launch_counts()}")
+        require(table.shape == want.shape and bool(torch.isfinite(want).all()),
+                f"oracle {label}: shape {tuple(want.shape)} vs {tuple(table.shape)}, or "
+                f"non-finite values")
+        if kind == "cross":
+            e = float((table - want).abs().max()) / polarization_scale(
+                NTPEngine(), n_, p_, x, req)
+        elif n_ is trunk:
+            e = scaled_err(table, want, readout_scale(n_, p_, x, req), keep=2)
+        else:
+            e = rel_err(table, want, 2)
+        require(e <= TOL_ORACLE, f"ntp/cuda {label} vs the jet oracle: {e:.3e}")
+        ms, oracle_ms = event_time_ms(lambda: call(engine), 10), event_time_ms(
+            lambda: call(oracle), 3)
+        for name in KERNEL_NAMES:
+            total[name] += launches[name]
+        out[label] = {"err": e, "ms": ms, "oracle_ms": oracle_ms,
+                      "launches": {k: v for k, v in launches.items() if v}}
+        print(f"  {label} at {ORACLE_ROWS} rows: ntp/cuda vs jet {e:.2e} (tol "
+              f"{TOL_ORACLE:.0e}); ntp/cuda {ms:.3f} ms, jet oracle {oracle_ms:.3f} ms "
+              f"(CUDA events, single calls); launches {out[label]['launches']}")
+    report["oracle"] = out
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: data parallel on the one card
+# ---------------------------------------------------------------------------
+
+def _dp_config(seed: int, op_name: str, network: str, net_kwargs: dict, **kw):
+    from repro_torch.pinn.trainer import OperatorRunConfig
+    kw = {"adam_steps": DP_ADAM, "lbfgs_steps": DP_LBFGS, **kw}
+    return OperatorRunConfig(op=op_name, network=network, net_kwargs=net_kwargs, width=32,
+                             depth=3, n_domain=1024, log_every=1, seed=seed,
+                             engine="ntp/cuda", **kw)
+
+
+def dp_nccl_one_rank(seed: int, report: dict) -> dict:
+    """Phase 6b, part 1: NCCL at world size 1 (NCCL refuses two ranks on one
+    device), in this process: ``train_operator(data_parallel=1)`` on
+    DP_RUNS (DP_ADAM Adam steps, DP_LBFGS L-BFGS iterations on the sharded
+    objective) against the same run without a mesh, bit for bit (every
+    logged loss, every parameter), and with the same launches."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.pinn.trainer import train_operator
+    from repro_torch.tree import leaves
+
+    import os
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")     # one host, no network
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{Path(tmp) / 'init'}",
+                            world_size=1, rank=0)
+    out, total = {}, {name: 0 for name in KERNEL_NAMES}
+    try:
+        # NCCL makes its communicator at the first collective: do that off
+        # the clock, so the timed steps carry only their own all-reduces
+        dist.all_reduce(torch.zeros((1,), device=DEVICE))
+        torch.cuda.synchronize()
+        for op_name, network, net_kwargs in DP_RUNS:
+            cfg = _dp_config(seed, op_name, network, net_kwargs)
+            runs = {}
+            for label, c in (("single", cfg), ("nccl", dataclasses.replace(
+                    cfg, data_parallel=1))):
+                ops.reset_launch_counts()
+                res = train_operator(c, device=DEVICE)
+                torch.cuda.synchronize()
+                runs[label] = (res, ops.launch_counts())
+            (one, c_one), (dp, c_dp) = runs["single"], runs["nccl"]
+            key = f"{op_name}/{network}"
+            require(dp.loss_history == one.loss_history,
+                    f"{key}: NCCL world size 1 losses {dp.loss_history} vs {one.loss_history}")
+            require(all(torch.equal(a, b) for a, b in zip(leaves(dp.params),
+                                                          leaves(one.params))),
+                    f"{key}: NCCL world size 1 parameters differ from the single run's")
+            require(c_dp == c_one and c_dp["jet_dense"] > 0 and
+                    (network != "transformer" or (c_dp["jet_rms_norm"] > 0 and
+                                                  c_dp["jet_flash_attention"] > 0)),
+                    f"{key}: launches {c_dp} under NCCL vs {c_one} without a mesh")
+            for name in KERNEL_NAMES:
+                total[name] += c_dp[name]
+            out[key] = {"loss_history": dp.loss_history, "launches": c_dp,
+                        "adam_step_ms": 1e3 * dp.adam_time_s / DP_ADAM,
+                        "single_adam_step_ms": 1e3 * one.adam_time_s / DP_ADAM,
+                        "lbfgs_s": dp.lbfgs_time_s, "single_lbfgs_s": one.lbfgs_time_s}
+            print(f"  NCCL world size 1, {key}: {DP_ADAM} Adam + {DP_LBFGS} L-BFGS bit for "
+                  f"bit with the run without a mesh; launches {c_dp}; Adam step "
+                  f"{out[key]['adam_step_ms']:.2f} ms (without a mesh "
+                  f"{out[key]['single_adam_step_ms']:.2f}), L-BFGS {dp.lbfgs_time_s:.2f} s "
+                  f"({one.lbfgs_time_s:.2f})")
+    finally:
+        dist.destroy_process_group()
+    report["data_parallel_nccl"] = out
+    return total
+
+
+def _dp_rank(rank: int, world: int, tmp: str, seed: int) -> None:
+    """One of the two gloo ranks of phase 6b (a spawned process): see
+    ``dp_rank_work``; its result goes to ``tmp/rank<r>.pt``."""
+    import os
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")     # both ranks on this host
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{Path(tmp) / 'init'}",
+                            world_size=world, rank=rank)
+    try:
+        torch.save(dp_rank_work(rank, seed), Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_rank_work(rank: int, seed: int) -> dict:
+    """What each gloo rank sharing the card does: the served cross((0,0,1,1))
+    and grid(10) of the DenseMLP and the trunk at DP_ROWS rows through
+    ``ShardedEngine(NTPEngine("cuda"))`` (launches counted around the
+    sharded calls alone) against the single-process call; a
+    ``DerivativeServer(mesh=)`` answering grid(4) and cross((0,0,1,1)) on
+    rank 0; and ``train_operator(data_parallel=2)`` on Navier-Stokes for
+    every DP_COMPRESSIONS."""
+    import torch
+    from repro_torch.core.engines import NTPEngine
+    from repro_torch.core.network import DenseMLP, Transformer
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.parallel import DataMesh, ShardedEngine
+    from repro_torch.pinn.trainer import train_operator
+    from repro_torch.serving import DerivativeServer
+
+    cuda_lib.library()
+    mesh = DataMesh()
+    engine = NTPEngine("cuda")
+    sharded = ShardedEngine(engine, mesh)
+    net = DenseMLP(d_in=2, width=32, depth=3, d_out=1, activation="tanh")
+    params = net.init(torch.Generator().manual_seed(seed), dtype=torch.float64)
+    trunk = Transformer(**TRUNK)
+    trunk_params = trunk.init(torch.Generator().manual_seed(seed), dtype=torch.float64)
+    x = torch.rand((DP_ROWS, 2), generator=torch.Generator(device=DEVICE).manual_seed(
+        seed + 10), device=DEVICE, dtype=torch.float64) * 2 - 1
+    out = {"tables": {}, "launches": {name: 0 for name in KERNEL_NAMES}}
+    for label, n_, p_, order in (("dense", net, params, DENSE_GRID_ORDER),
+                                 ("trunk", trunk, trunk_params, TRUNK_GRID_ORDER)):
+        for kind, req in (("cross", (0, 0, 1, 1)), ("grid", order)):
+            with torch.no_grad():
+                fn = (lambda e: e.grid(n_, p_, x, req)) if kind == "grid" else \
+                    (lambda e: e.cross(n_, p_, x, req))
+                single = fn(engine)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                got = fn(sharded)
+                torch.cuda.synchronize()
+                launches = ops.launch_counts()
+            if kind == "cross":
+                e = float((got - single).abs().max()) / polarization_scale(
+                    NTPEngine(), n_, p_, x, req)
+            elif n_ is trunk:
+                e = scaled_err(got, single, readout_scale(n_, p_, x, req), keep=2)
+            else:
+                e = rel_err(got, single, 2)
+            for name in KERNEL_NAMES:
+                out["launches"][name] += launches[name]
+            out["tables"][f"{label} {kind}{req}"] = {
+                "err": e, "bit_identical": bool(torch.equal(got, single)),
+                "finite": bool(torch.isfinite(got).all()), "launches": launches}
+
+    with torch.no_grad():
+        singles = {("grid", 4): engine.grid(net, params, x, 4),
+                   ("cross", (0, 0, 1, 1)): engine.cross(net, params, x, (0, 0, 1, 1))}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    srv = DerivativeServer(net, params, "ntp/cuda", buckets=(DP_ROWS,), mesh=mesh,
+                           flush_window_s=0.0)
+    try:
+        if rank == 0:
+            for (kind, req), single in singles.items():
+                got = srv.grid(x, req, timeout=300) if kind == "grid" else \
+                    srv.cross(x, req, timeout=300)
+                out["tables"][f"server {kind}{req}"] = {
+                    "err": rel_err(got, single, 2 if kind == "grid" else 0),
+                    "bit_identical": bool(torch.equal(got, single)),
+                    "finite": bool(torch.isfinite(got).all())}
+            out["server_metrics"] = srv.metrics()
+    finally:
+        srv.close()
+    out["server_launches"] = ops.launch_counts()
+    for name in KERNEL_NAMES:
+        out["launches"][name] += out["server_launches"][name]
+
+    op_name, network, net_kwargs = DP_RUNS[0]
+    # one untimed Adam step first: a fresh process's first backward pays
+    # one-time set-up (~1 s a step over 5 steps on the H100) that is not
+    # the step's
+    train_operator(_dp_config(seed, op_name, network, net_kwargs, data_parallel=2,
+                              adam_steps=1, lbfgs_steps=0), device=DEVICE)
+    for comp in DP_COMPRESSIONS:
+        ops.reset_launch_counts()
+        # compression is an Adam-phase knob: the L-BFGS phase runs once
+        res = train_operator(_dp_config(seed, op_name, network, net_kwargs, data_parallel=2,
+                                        grad_compression=comp,
+                                        lbfgs_steps=DP_LBFGS if comp is None else 0),
+                             device=DEVICE)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        for name in KERNEL_NAMES:
+            out["launches"][name] += launches[name]
+        out[f"train/{comp}"] = {"loss_history": res.loss_history,
+                                "adam_step_ms": 1e3 * res.adam_time_s / DP_ADAM,
+                                "lbfgs_s": res.lbfgs_time_s, "launches": launches}
+    return out
+
+
+def dp_gloo_two_ranks(seed: int, report: dict, single_ns: list) -> dict:
+    """Phase 6b, part 2: two gloo ranks sharing the card (spawned
+    processes, ``file://`` init), each running ``dp_rank_work``.  A rank
+    that fails, or a pair that outlives DP_TIMEOUT, fails the run.  Checks
+    here: every sharded table bit-identical to the single-process one (a
+    kernel's row arithmetic does not depend on the batch size; the error
+    against phase 3's scales is printed), the launches each
+    rank's counters show (per sharded engine call a DenseMLP 4 K1, the
+    trunk 16 K1, 7 K3, 3 K4; the server 4 K1 a batch on each rank), the
+    uncompressed run against the single-process run of part 1 within
+    TOL_TRAIN, and the compressed runs' losses finite and falling."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp()
+    ctx = mp.start_processes(_dp_rank, args=(2, tmp, seed), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            require(time.monotonic() < deadline,
+                    f"the two data-parallel ranks outlived {DP_TIMEOUT} s")
+    except mp.ProcessRaisedException as exc:
+        raise SmokeFailure(f"a data-parallel rank failed: {exc}") from exc
+    except mp.ProcessExitedException as exc:
+        raise SmokeFailure(f"a data-parallel rank exited: {exc}") from exc
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    per_call = {"dense": {"jet_dense": 4}, "trunk": {name: n for name, n in
+                                                     TRUNK_PER_CALL.items() if n}}
+    for r, res in enumerate(ranks):
+        for key, t in res["tables"].items():
+            require(t["finite"] and t["bit_identical"],
+                    f"rank {r}: sharded {key} differs from the single-process table: "
+                    f"{t['err']:.3e}")
+            if "launches" in t:
+                want = per_call[key.split()[0]]
+                got = {k: v for k, v in t["launches"].items() if v}
+                require(got == want, f"rank {r}: sharded {key} launched {got}, want {want}")
+        want = {"jet_dense": 4 * ranks[0]["server_metrics"]["batches"]}
+        got = {k: v for k, v in res["server_launches"].items() if v}
+        require(ranks[0]["server_metrics"]["batches"] == 2 and got == want,
+                f"rank {r}: the sharded server launched {got}, want {want}")
+        for comp in DP_COMPRESSIONS:
+            hist = res[f"train/{comp}"]["loss_history"]
+            require(all(math.isfinite(v) for v in hist) and hist[DP_ADAM - 1] < hist[0],
+                    f"rank {r}: grad_compression {comp}: losses {hist}")
+        _losses_agree(res["train/None"]["loss_history"], single_ns,
+                      f"rank {r}: two gloo ranks vs one process")
+        require(res["train/None"]["loss_history"] == ranks[0]["train/None"]["loss_history"],
+                f"rank {r}: the ranks logged different losses")
+    held = {key: [res["tables"][key] for res in ranks if key in res["tables"]]
+            for key in ranks[0]["tables"]}          # the server's tables: rank 0's
+    exact = {key: all(t["bit_identical"] for t in ts) for key, ts in held.items()}
+    worst = {key: max(t["err"] for t in ts) for key, ts in held.items()}
+    print(f"  two gloo ranks on one card: sharded vs single-process tables bit-identical: "
+          f"{exact}; error {worst}")
+    for r, res in enumerate(ranks):
+        print(f"    rank {r} launches {res['launches']}; server {res['server_launches']}")
+    smi = nvidia_smi_line()
+    for comp in DP_COMPRESSIONS:
+        t = ranks[0][f"train/{comp}"]
+        print(f"    Navier-Stokes, 2 ranks, grad_compression {comp}: Adam step "
+              f"{t['adam_step_ms']:.2f} ms (rank 0, wall; two processes on one card, "
+              f"not a scaling figure), loss {t['loss_history'][0]:.4e} -> "
+              f"{t['loss_history'][DP_ADAM - 1]:.4e} | {smi}")
+    report["data_parallel_gloo"] = {"ranks": ranks, "bit_identical": exact, "worst": worst,
+                                    "nvidia_smi": smi}
+    return {f"dp_gloo_rank{r}": res["launches"] for r, res in enumerate(ranks)}
+
+
+def data_parallel(seed: int, report: dict) -> dict:
+    """Phase 6b: NCCL at world size 1, then two gloo ranks sharing the card."""
+    totals = {"dp_nccl_ws1": dp_nccl_one_rank(seed, report)}
+    single_ns = report["data_parallel_nccl"]["/".join(DP_RUNS[0][:2])]["loss_history"]
+    totals.update(dp_gloo_two_ranks(seed, report, single_ns))
+    return totals
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3213,6 +3595,12 @@ def main(argv=None) -> int:
     new_paths["trunk_grid10"] = serve_trunk(
         trunk, trunk_params, torch.Generator(device=DEVICE).manual_seed(args.seed + 6), report,
         (("grid", TRUNK_GRID_ORDER),), (), "trunk_grid10", TRUNK_RT_LAUNCHERS)
+    phase("3g", f"the Taylor-mode oracle (engine \"jet\") on the card against the ntp/cuda "
+                f"tables of 3a, 3e and 3f at {ORACLE_ROWS} rows")
+    # from its own generator: the later phases keep their inputs
+    new_paths["oracle_check"] = check_oracle(
+        net, params, trunk, trunk_params,
+        torch.Generator(device=DEVICE).manual_seed(args.seed + 9), report)
 
     phase("4", "times (CUDA events, warm L2, back-to-back device work)")
     times = time_kernels(net, params, gen, report)
@@ -3235,6 +3623,9 @@ def main(argv=None) -> int:
         phase("6", f"operator training, pinn-pde, n_domain 1024: {OPERATOR_ADAM} Adam "
                    f"steps, ntp/cuda vs ntp")
         operator_launches = train_operators(args.seed, report)
+    phase("6b", f"data parallel on one card: NCCL at world size 1 ({DP_ADAM} Adam + "
+                f"{DP_LBFGS} L-BFGS, bit for bit), then two gloo ranks sharing the card")
+    new_paths.update(data_parallel(args.seed, report))
     phase("7", "K1 jet_dense at the shapes the training phases launched it")
     training_times = time_training_shapes(shapes.counts, gen, report)
     phase("7b", "the run-time-order kernels: K1 at the Burgers k = 4 shapes, K1-K5 at "

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the n-TangentProp reproduction.
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
-(``core/``, ``kernels/``, ``serving/``, ``runtime/``) so each ported file has
-one counterpart there, and imports neither ``jax`` nor ``repro``.
+(``core/``, ``kernels/``, ``parallel/``, ``serving/``, ``runtime/``) so each
+ported file has one counterpart there, and imports neither ``jax`` nor
+``repro``.
 
 Impl names: ``"torch"`` is the eager jet algebra (engine spec ``"ntp"``),
 ``"cuda"`` routes every dense layer through the hand-written CUDA kernels in

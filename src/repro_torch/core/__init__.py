@@ -1,9 +1,11 @@
 """Core n-TangentProp in PyTorch: jets, Faa di Bruno tables, activation
 derivative stacks, the jet-module layer, networks and derivative engines."""
 
-from . import jet, modules
+from . import jet, modules, taylor
 from .activations import TAYLOR_STACKS, tanh_taylor_stack
-from .engines import AutodiffEngine, DerivativeEngine, EngineSpec, NTPEngine
+from .baselines import taylor_jet_derivatives
+from .engines import (AutodiffEngine, DerivativeEngine, EngineSpec, JetEngine,
+                      NTPEngine)
 from .jet import Jet
 from .modules import (Activation, CoordinateEmbedding, Dense, FourierFeatures,
                       MLPBlock, Module, Residual, RMSNorm, SelfAttention,
@@ -18,8 +20,9 @@ from .partitions import (bell_number, faa_di_bruno_table, partition_count,
                          partitions, raw_bell_coefficient, total_fdb_terms)
 
 __all__ = [
-    "jet", "Jet", "modules", "TAYLOR_STACKS", "tanh_taylor_stack",
-    "AutodiffEngine", "DerivativeEngine", "EngineSpec", "NTPEngine",
+    "jet", "Jet", "modules", "taylor", "TAYLOR_STACKS", "tanh_taylor_stack",
+    "taylor_jet_derivatives",
+    "AutodiffEngine", "DerivativeEngine", "EngineSpec", "JetEngine", "NTPEngine",
     "Activation", "CoordinateEmbedding", "Dense", "FourierFeatures", "MLPBlock",
     "Module", "Residual", "RMSNorm", "SelfAttention", "Sequential", "TokenPool",
     "make_module", "module_names", "register_module",

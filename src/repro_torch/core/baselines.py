@@ -1,13 +1,18 @@
-"""Baselines the paper compares against.
+"""Baselines the paper compares against, plus an independent oracle.
 
-* ``nested_autodiff`` -- the standard PINN practice the paper benchmarks:
-                         n nested reverse-mode sweeps (O(M^n) graph).
-* ``nested_jacfwd``   -- forward-over-forward nesting; same asymptotic
-                         blow-up, often faster constants.
+* ``nested_autodiff``       -- the standard PINN practice the paper
+                               benchmarks: n nested reverse-mode sweeps
+                               (O(M^n) graph).
+* ``nested_jacfwd``         -- forward-over-forward nesting; same asymptotic
+                               blow-up, often faster constants.
+* ``taylor_jet_derivatives`` -- Taylor mode through the torch operations
+                               (:mod:`repro_torch.core.taylor`), the
+                               counterpart of the reference's
+                               ``jax_jet_derivatives``: a quasilinear
+                               implementation independent of ours, used as a
+                               correctness oracle.
 
-Both are built on ``torch.func``.  The reference's third entry,
-``jax_jet_derivatives`` (JAX's Taylor mode as an independent oracle), has
-no counterpart in the port yet.
+The first two are built on ``torch.func``.
 """
 
 from __future__ import annotations
@@ -68,3 +73,14 @@ def nested_jacfwd(params: MLPParams, x: torch.Tensor, order: int,
         return lambda t: jvp(prev, (t,), (torch.ones_like(t),))[1]
 
     return _towers(params, x, order, tangent, activation, lift)
+
+
+def taylor_jet_derivatives(params: MLPParams, x: torch.Tensor, order: int,
+                           tangent: torch.Tensor | None = None,
+                           activation: str = "tanh") -> torch.Tensor:
+    """(order+1, batch, d_out) raw derivatives by Taylor mode
+    (:func:`repro_torch.core.taylor.taylor_derivatives`) through
+    :func:`mlp_apply`."""
+    from .taylor import taylor_derivatives
+    return taylor_derivatives(lambda xx: mlp_apply(params, xx, activation), x, order,
+                              tangent)

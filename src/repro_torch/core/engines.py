@@ -17,10 +17,14 @@ An engine answers three questions about any
 ``NTPEngine(impl)``    the paper's quasilinear jet forward (Algorithm 1);
                        ``impl="torch"`` eager or ``impl="cuda"`` kernels
 ``AutodiffEngine()``   nested ``torch.func`` towers, the O(M^n) baseline
+``JetEngine()``        Taylor mode at the level of torch operations
+                       (:mod:`repro_torch.core.taylor`), an oracle
+                       independent of the layer-level jet algebra
 =====================  =====================================================
 
 Spec strings have a canonical identity (:class:`EngineSpec`): ``"ntp"`` ==
-``"ntp/torch"``, ``"ntp/cuda"``, ``"autodiff"``.
+``"ntp/torch"``, ``"ntp/cuda"``, ``"autodiff"``, ``"jet"`` == ``"jax-jet"``
+== ``"jaxjet"`` (the reference's spellings of its Taylor-mode oracle).
 """
 
 from __future__ import annotations
@@ -32,10 +36,14 @@ from typing import Sequence
 import torch
 
 from . import jet as J
+from . import taylor as T
 from .network import Network
 
+# accepted alternate spellings -> canonical engine name
+_SPEC_ALIASES = {"jax-jet": "jet", "jaxjet": "jet"}
+
 # engine name -> implementation variants (None = no /impl suffix allowed)
-_ENGINE_IMPLS = {"ntp": ("torch", "cuda"), "autodiff": None}
+_ENGINE_IMPLS = {"ntp": ("torch", "cuda"), "autodiff": None, "jet": None}
 
 
 @dataclass(frozen=True)
@@ -43,7 +51,8 @@ class EngineSpec:
     """Typed, canonical identity of an engine configuration.
 
     ``parse`` accepts a spec string (``"ntp"``, ``"ntp/torch"``,
-    ``"ntp/cuda"``, ``"autodiff"``), an :class:`EngineSpec`, or a
+    ``"ntp/cuda"``, ``"autodiff"``, ``"jet"`` and its ``"jax-jet"`` /
+    ``"jaxjet"`` aliases), an :class:`EngineSpec`, or a
     :class:`DerivativeEngine`; ``"ntp"`` and ``"ntp/torch"`` are the SAME
     value.  ``str(EngineSpec.parse(s))`` is the canonical string every
     spec-keyed surface uses (the serving cache key).  Round-trip law:
@@ -76,6 +85,7 @@ class EngineSpec:
         if isinstance(spec, DerivativeEngine):
             return EngineSpec.parse(spec.spec)
         name, _, impl = str(spec).strip().lower().partition("/")
+        name = _SPEC_ALIASES.get(name, name)
         try:
             return EngineSpec(name, impl or None)
         except ValueError as e:
@@ -91,7 +101,9 @@ class EngineSpec:
         """Instantiate the engine this spec names."""
         if self.name == "ntp":
             return NTPEngine(self.impl)
-        return AutodiffEngine()
+        if self.name == "autodiff":
+            return AutodiffEngine()
+        return JetEngine()
 
 
 class DerivativeEngine:
@@ -158,8 +170,8 @@ class DerivativeEngine:
 
     @staticmethod
     def from_spec(spec: "str | DerivativeEngine") -> "DerivativeEngine":
-        """``"ntp"`` | ``"ntp/cuda"`` | ``"autodiff"`` -> engine.  Engine
-        instances pass through unchanged."""
+        """``"ntp"`` | ``"ntp/cuda"`` | ``"autodiff"`` | ``"jet"`` -> engine.
+        Engine instances pass through unchanged."""
         if isinstance(spec, DerivativeEngine):
             return spec
         return EngineSpec.parse(spec).build()
@@ -228,3 +240,23 @@ class AutodiffEngine(DerivativeEngine):
             return torch.stack([torch.atleast_1d(o(t0)) for o in outs])
 
         return vmap(along)(x, tangent).movedim(0, 1)
+
+
+@dataclass(frozen=True)
+class JetEngine(DerivativeEngine):
+    """Taylor mode through ``net.apply``'s torch operations
+    (:mod:`repro_torch.core.taylor`), the counterpart of the reference's
+    ``JaxJetEngine``.  Quasilinear like NTP but independent of it (rules per
+    torch operation against the layer-level jet algebra), so agreement
+    between the two certifies both; any network whose ``apply`` uses only
+    operations with a Taylor rule runs, on the device of its inputs."""
+
+    @property
+    def spec(self) -> str:
+        return "jet"
+
+    def derivs(self, net: Network, params, x: torch.Tensor, order: int,
+               tangent: torch.Tensor | None = None) -> torch.Tensor:
+        if order == 0:
+            return net.apply(params, x)[None]
+        return T.taylor_derivatives(lambda xx: net.apply(params, xx), x, order, tangent)

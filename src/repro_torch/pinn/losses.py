@@ -27,10 +27,6 @@ from repro_torch.core.ntp import MLPParams, mlp_apply
 from .burgers import exact_profile, residual_derivs_autodiff, residual_jet
 from .operators import Operator, build_table, get_operator
 
-MESH_NOT_PORTED = ("mesh= needs the data-parallel layer (repro_torch.parallel), "
-                   "which comes with slice D of the port")
-
-
 @dataclass(frozen=True)
 class LossWeights:
     residual: float = 1.0
@@ -55,12 +51,17 @@ def pinn_loss(params, *, op: Union[Operator, str], pts: torch.Tensor,
     (:func:`repro_torch.pinn.operators.exact_values` normalizes the shape).
     For a multi-equation system the residual term averages the squares of
     every equation and the boundary term supervises every output component.
-    ``mesh`` is not ported yet and raises."""
-    if mesh is not None:
-        raise ValueError(MESH_NOT_PORTED)
+    ``mesh`` (a :class:`repro_torch.parallel.DataMesh`, on every rank of its
+    process group) shards the residual's grid/cross calls over the ranks
+    through :class:`repro_torch.parallel.ShardedEngine`: the same loss on
+    every rank, its collocation batch split across them, and under autograd
+    the whole batch's gradient on every rank."""
     if isinstance(op, str):
         op = get_operator(op)
     eng = DerivativeEngine.from_spec(engine)
+    if mesh is not None:
+        from repro_torch.parallel.jet_shard import ShardedEngine
+        eng = ShardedEngine(eng, mesh)
     r = op.residual(pts, build_table(net, params, eng, op, pts))
     l_res = torch.mean(r ** 2)
     ub = net.apply(params, bc_pts)                       # (Nb, d_out)

@@ -18,8 +18,10 @@ They also accept injected initial parameters (``init_params``) and a
 ``resample_every``-th step), so a test can replay the reference's
 ``jax.random`` draws and hold the two trainers step for step.
 
-Single device: ``OperatorRunConfig``'s ``data_parallel``, ``mesh`` and
-``grad_compression`` raise until the port has its data-parallel layer.
+``train_operator`` trains data-parallel over ``torch.distributed``
+(``OperatorRunConfig``'s ``data_parallel``, ``mesh`` and
+``grad_compression``; :mod:`repro_torch.parallel`): run it on every rank
+of the process group, each on its own device.
 """
 
 from __future__ import annotations
@@ -37,10 +39,11 @@ from repro_torch.data.collocation import (boundary_grid, eval_grid, resample,
                                           sample_box, uniform_grid)
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init, adam_update, lbfgs
+from repro_torch.parallel.jet_shard import build_sharded_train_step, resolve_mesh
 from repro_torch.tree import leaves, num_params, tree_map, unflatten
 
 from .burgers import lambda_window, profile_lambda, smoothness_order
-from .losses import MESH_NOT_PORTED, LossWeights, bc_targets, burgers_pinn_loss, pinn_loss
+from .losses import LossWeights, bc_targets, burgers_pinn_loss, pinn_loss
 from .operators import exact_values, get_operator
 
 DTYPE = torch.float64
@@ -222,9 +225,17 @@ class OperatorRunConfig:
     transformer, whose ``width`` must be divisible by ``n_heads``).  The
     network's output rank follows the operator (``op.d_out``), so
     multi-equation systems like "gray-scott" train with no extra plumbing.
-    ``data_parallel``, ``mesh`` and ``grad_compression`` keep the
-    reference's fields; anything but their defaults raises until the port
-    has its data-parallel layer.
+
+    Data parallelism (:mod:`repro_torch.parallel`): ``data_parallel=N``
+    shards each collocation batch over the N ranks of the initialised
+    default process group (0 = one process, the default; without such a
+    group it raises); ``mesh=`` passes a :class:`DataMesh` instead.
+    ``n_domain`` must be a multiple of the world size.  Every rank draws
+    the same points from ``seed`` and keeps its own shard; the L-BFGS
+    phase shards its objective.  ``grad_compression`` routes the Adam
+    phase's gradient all-reduce through :mod:`repro_torch.parallel.
+    compression`: None (exact, default), "int8", or "topk:<frac>", both
+    with error feedback; it needs a mesh.
     """
 
     op: str = "heat"
@@ -261,10 +272,12 @@ class OperatorResult:
     net: Optional[Network] = None
 
 
-def operator_loss_fn(cfg: OperatorRunConfig, net: Network, device) -> Callable:
+def operator_loss_fn(cfg: OperatorRunConfig, net: Network, device,
+                     mesh=None) -> Callable:
     """``loss_fn(params, pts) -> (loss, aux)``: the objective
     ``train_operator`` minimizes, boundary data from the operator's exact
-    solution on :func:`boundary_grid`."""
+    solution on :func:`boundary_grid`; with ``mesh``, its grid/cross calls
+    sharded over the mesh (``pinn_loss(mesh=)``)."""
     op = get_operator(cfg.op)
     engine = DerivativeEngine.from_spec(cfg.engine)
     bc_pts = boundary_grid(op.domain, cfg.n_bc, DTYPE, device)
@@ -272,7 +285,7 @@ def operator_loss_fn(cfg: OperatorRunConfig, net: Network, device) -> Callable:
 
     def loss_fn(p, pts):
         return pinn_loss(p, op=op, pts=pts, bc_pts=bc_pts, bc_vals=bc_vals,
-                         weights=cfg.weights, engine=engine, net=net)
+                         weights=cfg.weights, engine=engine, net=net, mesh=mesh)
 
     return loss_fn
 
@@ -291,10 +304,16 @@ def train_operator(cfg: OperatorRunConfig, *, device=None, init_params=None,
     operator's exact solution supplies boundary/initial data and the final
     accuracy oracle.  ``sampler(step) -> pts`` replaces the generator's
     draws at step 0 and every ``cfg.resample_every`` steps; ``lbfgs_pts``
-    the L-BFGS phase's fixed points."""
-    if cfg.data_parallel or cfg.mesh is not None or cfg.grad_compression:
-        raise ValueError("data_parallel / mesh / grad_compression: "
-                         + MESH_NOT_PORTED)
+    the L-BFGS phase's fixed points.  Under a mesh, call it on every rank
+    with the same arguments."""
+    mesh = resolve_mesh(cfg.mesh, cfg.data_parallel)
+    if mesh is None and cfg.grad_compression not in (None, "", "none"):
+        raise ValueError(f"grad_compression={cfg.grad_compression!r} compresses the "
+                         "data-parallel gradient all-reduce: it needs data_parallel= "
+                         "or mesh=")
+    if mesh is not None and cfg.n_domain % mesh.size:
+        raise ValueError(f"n_domain={cfg.n_domain} does not divide the "
+                         f"{mesh.size}-way data axis of the mesh")
     device = resolve_device(device)
     op = get_operator(cfg.op)
     net = make_operator_net(cfg)
@@ -302,6 +321,12 @@ def train_operator(cfg: OperatorRunConfig, *, device=None, init_params=None,
     params = _on(device, init_params) if init_params is not None else \
         net.init(gen, dtype=DTYPE, device=device)
     loss_fn = operator_loss_fn(cfg, net, device)
+    if mesh is not None:
+        # local loss + grad on this rank's shard, the gradients summed over
+        # the ranks (optionally compressed), the same Adam update everywhere
+        built = build_sharded_train_step(loss_fn, mesh, adam_lr=cfg.adam_lr,
+                                         compression=cfg.grad_compression)
+        ef_err = built.init_err(params)
 
     def draw(step):
         if sampler is not None:
@@ -315,8 +340,11 @@ def train_operator(cfg: OperatorRunConfig, *, device=None, init_params=None,
     for step in range(cfg.adam_steps):
         if step == 0 or step % cfg.resample_every == 0:
             pts = draw(step)
-        params, state, loss, _ = adam_step(loss_fn, params, state,
-                                           cfg.adam_lr, pts)
+        if mesh is None:
+            params, state, loss, _ = adam_step(loss_fn, params, state,
+                                               cfg.adam_lr, pts)
+        else:
+            params, state, (loss, _), ef_err = built.step(params, state, pts, ef_err)
         if step % cfg.log_every == 0 or step == cfg.adam_steps - 1:
             loss_hist.append(float(loss))
     _synchronize(device)
@@ -328,9 +356,14 @@ def train_operator(cfg: OperatorRunConfig, *, device=None, init_params=None,
             if lbfgs_pts is not None else \
             sample_box(torch.Generator().manual_seed(cfg.seed + 1), op.domain,
                        cfg.n_domain, DTYPE, device)
+        # under a mesh the full-batch objective shards its grid/cross calls
+        # (the whole gradient on every rank); compression is an Adam-phase
+        # knob only
+        lbfgs_loss = loss_fn if mesh is None else \
+            operator_loss_fn(cfg, net, device, mesh)
 
         def vg_flat(p):
-            (loss, _), grads = value_and_grad(loss_fn, p, grid_pts)
+            (loss, _), grads = value_and_grad(lbfgs_loss, p, grid_pts)
             return loss, grads
 
         t0 = time.perf_counter()

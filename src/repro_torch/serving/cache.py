@@ -25,7 +25,10 @@ class ExecutableKey:
     (``str(repro_torch.core.engines.EngineSpec.parse(...))``), so equivalent
     spellings -- ``"ntp"`` vs ``"ntp/torch"`` -- share one entry;
     ``request`` is ``(order,)`` for a pure-derivative grid or the axes tuple
-    for a mixed partial; ``bucket`` is the padded batch size.
+    for a mixed partial; ``bucket`` is the padded batch size; ``mesh`` is the
+    data-parallel mesh the call is sharded over as ``((axis, size), ...)``
+    pairs (empty for a single process: the same bucket sharded over another
+    mesh is another call).
     """
 
     net_id: str
@@ -34,6 +37,7 @@ class ExecutableKey:
     request: Tuple[int, ...]
     bucket: int
     dtype: str
+    mesh: Tuple[Tuple[str, int], ...] = ()
 
 
 class ExecutableCache:

@@ -22,6 +22,17 @@ Construction is direct (``DerivativeServer(net, params, "ntp/cuda")``) or
 from a checkpoint the JAX package's ``ckpt.CheckpointManager`` wrote
 (:meth:`DerivativeServer.from_checkpoint`, through :mod:`repro_torch.bridge`).
 The server runs on the CUDA device unless ``device="cpu"`` is passed.
+
+Data-parallel serving (``mesh=``, a :class:`repro_torch.parallel.DataMesh`):
+construct the server on every rank of the mesh's process group.  Rank 0
+takes the requests; for each bucketed batch it broadcasts a header (kind,
+request, bucket, dtype) and the padded rows, every rank computes the
+engine call on its contiguous shard of the bucket, and the table is
+gathered.  The other ranks run a worker loop that serves those batches
+until :meth:`DerivativeServer.close` on rank 0 ends it; their own
+``close()`` waits for that.  While no request comes, rank 0 broadcasts an
+idle header every ``heartbeat_s``, so the other ranks' wait for the next
+header never outlives the process group's timeout.
 """
 
 from __future__ import annotations
@@ -35,11 +46,13 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.bridge import load_jax_checkpoint, to_device
 from repro_torch.core.engines import DerivativeEngine, EngineSpec
 from repro_torch.core.network import Network
 from repro_torch.device import resolve_device
+from repro_torch.parallel.jet_shard import gather_rows, resolve_mesh
 from repro_torch.runtime.metrics import LatencyStats
 
 from .bucketing import DEFAULT_BUCKETS, pad_fraction, pad_to, pick_bucket
@@ -56,6 +69,15 @@ class RequestTimeoutError(TimeoutError):
 
 class ServerClosedError(RuntimeError):
     """The server was closed while the request was pending."""
+
+
+# the header rank 0 broadcasts before each sharded batch: command, kind,
+# bucket, dtype, request length, then the request (order or axes); while
+# idle it broadcasts the command alone
+_HEADER = 16
+_STOP, _RUN, _IDLE = 0, 1, 2
+_KINDS = ("grid", "cross")
+_DTYPES = (torch.float64, torch.float32, torch.bfloat16, torch.float16)
 
 
 @dataclass(frozen=True)
@@ -110,6 +132,12 @@ class DerivativeServer:
     cache_capacity : LRU capacity of the bound-call cache.
     device : where the server computes; ``None`` is the CUDA device (raises
         without one).
+    mesh : a :class:`repro_torch.parallel.DataMesh`; every bucket must be a
+        multiple of its size, and the mesh shape joins every cache key (see
+        the module docstring).
+    heartbeat_s : under a mesh, the longest an idle rank 0 goes without a
+        broadcast; keep it well under the process group's timeout (NCCL's
+        default is 10 minutes, gloo's 30).
     autostart : start the worker thread (tests drive :meth:`_drain_once`
         synchronously with ``autostart=False``).
     """
@@ -118,7 +146,8 @@ class DerivativeServer:
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  flush_window_s: float = 0.002, max_queue: int = 256,
                  cache_capacity: int = 32, net_id: Optional[str] = None,
-                 device=None, autostart: bool = True):
+                 device=None, mesh=None, heartbeat_s: float = 10.0,
+                 autostart: bool = True):
         self.device = resolve_device(device)
         self.net = net
         self.params = to_device(params, self.device)
@@ -129,6 +158,19 @@ class DerivativeServer:
         self.buckets = tuple(sorted(int(b) for b in buckets))
         if not self.buckets:
             raise ValueError("need at least one bucket size")
+        self.mesh = resolve_mesh(mesh) if mesh is not None else None
+        if self.mesh is not None:
+            bad = [b for b in self.buckets if b % self.mesh.size]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} do not divide the {self.mesh.size}-way data "
+                    f"axis; sharded launches need every padded batch to split evenly")
+        self.mesh_key = tuple((str(a), int(n)) for a, n in self.mesh.shape.items()) \
+            if self.mesh is not None else ()
+        self.leader = self.mesh is None or self.mesh.rank == 0
+        if not heartbeat_s > 0:
+            raise ValueError(f"heartbeat_s must be > 0, got {heartbeat_s}")
+        self.heartbeat_s = float(heartbeat_s)
         self.flush_window_s = float(flush_window_s)
         self.max_queue = int(max_queue)
         self.net_id = net_id or (f"{type(net).__name__}"
@@ -138,6 +180,7 @@ class DerivativeServer:
         self._q: "deque[_Pending]" = deque()
         self._cv = threading.Condition()
         self._closed = False
+        self._stopped = False
         self._worker: Optional[threading.Thread] = None
 
         self.queue_wait = LatencyStats()
@@ -165,12 +208,20 @@ class DerivativeServer:
 
     def start(self) -> None:
         if self._worker is None:
-            self._worker = threading.Thread(target=self._run, daemon=True,
-                                            name="derivative-server")
+            self._worker = threading.Thread(
+                target=self._run if self.leader else self._follow, daemon=True,
+                name="derivative-server")
             self._worker.start()
 
     def close(self) -> None:
-        """Stop the worker; pending requests fail with ServerClosedError."""
+        """Stop the worker; pending requests fail with ServerClosedError.
+        Under a mesh, rank 0's close also ends the other ranks' loops; on
+        those ranks close waits for that."""
+        if not self.leader:
+            if self._worker is not None:
+                self._worker.join()
+                self._worker = None
+            return
         with self._cv:
             self._closed = True
             pending = list(self._q)
@@ -185,6 +236,9 @@ class DerivativeServer:
         if self._worker is not None:
             self._worker.join()
             self._worker = None
+        if self.mesh is not None and not self._stopped:
+            self._stopped = True
+            self._broadcast_header()
 
     def __enter__(self) -> "DerivativeServer":
         return self
@@ -200,6 +254,9 @@ class DerivativeServer:
         Exactly one of ``order`` (pure-derivative grid through that order)
         or ``axes`` (one mixed partial) must be given.
         """
+        if not self.leader:
+            raise RuntimeError(f"rank {self.mesh.rank} of a sharded server takes no "
+                               "requests: submit them on rank 0")
         if (order is None) == (axes is None):
             raise ValueError("pass exactly one of order= or axes=")
         x = torch.as_tensor(x)
@@ -255,9 +312,16 @@ class DerivativeServer:
         while True:
             with self._cv:
                 while not self._q and not self._closed:
-                    self._cv.wait()
+                    if self.mesh is None:
+                        self._cv.wait()
+                    elif not self._cv.wait(self.heartbeat_s):
+                        break
                 if self._closed:
                     return
+                idle = not self._q
+            if idle:
+                self._broadcast_header(_IDLE)
+                continue
             self._wait_flush_window()
             self._drain_once()
 
@@ -314,11 +378,14 @@ class DerivativeServer:
             bucket = pick_bucket(total, self.buckets)
             xp = pad_to(torch.cat([it.x for it in batch], dim=0)
                         if len(batch) > 1 else batch[0].x, bucket)
-            key = ExecutableKey(self.net_id, self.engine_spec, group.kind,
-                                group.request, bucket, group.dtype)
-            fn, hit = self.cache.get_or_build(key, lambda: self._bind(group))
-            with torch.no_grad():
-                out = fn(self.params, xp)
+            fn, hit = self._bound(group, bucket)
+            if self.mesh is None:
+                with torch.no_grad():
+                    out = fn(self.params, xp)
+            else:
+                self._broadcast_header(_RUN, group, bucket)
+                dist.broadcast(xp.contiguous(), src=0, group=self.mesh.group)
+                out = self._sharded(group, fn, xp)
             if out.is_cuda:
                 torch.cuda.synchronize(out.device)
         except Exception as exc:                    # noqa: BLE001 -- fulfilled
@@ -342,6 +409,73 @@ class DerivativeServer:
                 table=seg, queue_wait_s=t_batch - it.t_submit,
                 latency_s=now - it.t_submit, bucket=bucket,
                 batch_rows=total, pad_fraction=frac, cache_hit=hit))
+
+    def _bound(self, group: _GroupKey, bucket: int):
+        key = ExecutableKey(self.net_id, self.engine_spec, group.kind,
+                            group.request, bucket, group.dtype, self.mesh_key)
+        return self.cache.get_or_build(key, lambda: self._bind(group))
+
+    # ------------------------------------------------------------- sharded
+    def _broadcast_header(self, command: int = _STOP, group: Optional[_GroupKey] = None,
+                          bucket: int = 0) -> torch.Tensor:
+        """Rank 0 sends (and the other ranks receive) one header: a batch's
+        (``_RUN``), ``_IDLE`` or ``_STOP`` (all zero)."""
+        header = torch.zeros((_HEADER,), dtype=torch.int64, device=self.device)
+        if self.leader:
+            header[0] = command
+        if self.leader and group is not None:
+            req = group.request
+            if len(req) > _HEADER - 5:
+                raise ValueError(f"a sharded server takes requests of at most "
+                                 f"{_HEADER - 5} entries, got {req}")
+            names = [str(d) for d in _DTYPES]
+            if group.dtype not in names:
+                raise ValueError(f"a sharded server serves {names}, not {group.dtype}")
+            dtype = names.index(group.dtype)
+            header[:5 + len(req)] = torch.tensor(
+                [command, _KINDS.index(group.kind), bucket, dtype, len(req), *req])
+        dist.broadcast(header, src=0, group=self.mesh.group)
+        return header
+
+    def _sharded(self, group: _GroupKey, fn, xp: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the bucket through ``fn``, then the table
+        gathered.  The ranks first agree that every shard ran (one
+        all-reduce of a failure flag), so a failure on any rank fails the
+        batch on rank 0 and no rank is left waiting in the gather."""
+        size, rank = self.mesh.size, self.mesh.rank
+        m = xp.shape[0] // size
+        local, error = None, None
+        try:
+            with torch.no_grad():
+                local = fn(self.params, xp[rank * m:(rank + 1) * m])
+        except Exception as exc:                    # noqa: BLE001 -- reported below
+            error = exc
+        failed = torch.tensor([0 if error is None else 1], device=self.device)
+        dist.all_reduce(failed, group=self.mesh.group)
+        if int(failed) or error is not None:
+            raise error if error is not None else RuntimeError(
+                f"{int(failed)} rank(s) of the mesh failed this batch")
+        return gather_rows(local, 2 if group.kind == "grid" else 0, self.mesh)
+
+    def _follow(self) -> None:
+        """The worker loop of a rank other than 0: serve rank 0's batches
+        until its close."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while True:
+            h = self._broadcast_header().tolist()
+            if h[0] == _STOP:
+                return
+            if h[0] == _IDLE:
+                continue
+            group = _GroupKey(_KINDS[h[1]], tuple(h[5:5 + h[4]]), str(_DTYPES[h[3]]))
+            xp = torch.empty((h[2], self.net.d_in), dtype=_DTYPES[h[3]], device=self.device)
+            dist.broadcast(xp, src=0, group=self.mesh.group)
+            fn, _ = self._bound(group, h[2])
+            try:
+                self._sharded(group, fn, xp)
+            except Exception:                       # noqa: BLE001 -- rank 0 reports
+                continue
 
     def _bind(self, group: _GroupKey):
         """The engine call for one request kind, as a callable of

@@ -1,0 +1,347 @@
+"""What each rank runs in the port's multi-process data-parallel tests
+(``tests/test_torch_parallel.py``).
+
+``spawn(world_size, scenario, tmp_path)`` starts ``world_size`` processes
+(spawn start method), each of which joins a gloo process group initialised
+from a file under ``tmp_path`` (no TCP port is chosen), runs
+``SCENARIOS[scenario]`` on the CPU and saves what it returns to
+``tmp_path/rank<r>.pt``; the parent gets those back.  A child that raises
+fails the spawn (``torch.multiprocessing`` ends the others), and a spawn
+that outlives its deadline is killed and fails.  This module imports only
+torch and the port, so the children never load JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+F64 = torch.float64
+
+
+def spawn(world_size: int, scenario: str, tmp_path, timeout: float = 600.0,
+          **kwargs) -> list:
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_entry, args=(world_size, str(tmp_path), scenario, kwargs),
+                             nprocs=world_size, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{scenario} at world size {world_size} outlived {timeout} s")
+    return [torch.load(os.path.join(tmp_path, f"rank{r}.pt"), weights_only=False)
+            for r in range(world_size)]
+
+
+def _entry(rank: int, world_size: int, tmp: str, scenario: str, kwargs: dict) -> None:
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'init')}",
+                            world_size=world_size, rank=rank)
+    try:
+        out = SCENARIOS[scenario](world_size, **kwargs)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def _rel(a, b) -> float:
+    return _max_diff(a, b) / max(float(b.abs().max()), 1e-300)
+
+
+# ---------------------------------------------------------------------------
+# the scenarios
+# ---------------------------------------------------------------------------
+
+def engine_tables(world_size: int, networks=("dense",), operators=None, orders=(4,),
+                  sizes=(19, 3)) -> dict:
+    """ShardedEngine(ntp and ntp/cuda) against the single-process call:
+    grid at ``orders``, every cross the operator declares (or (0, 1)), and
+    derivs along a random tangent, per operator, network and batch size.
+    Returns per (impl, network) the largest |difference| relative to the
+    table's largest |value|."""
+    from repro_torch.core.engines import NTPEngine
+    from repro_torch.core.network import make_network
+    from repro_torch.data.collocation import sample_box
+    from repro_torch.parallel import DataMesh, ShardedEngine
+    from repro_torch.pinn.operators import get_operator, operator_names
+
+    mesh = DataMesh()
+    worst = {}
+    for impl in ("torch", "cuda"):
+        eng = NTPEngine(impl)
+        sh = ShardedEngine(eng, mesh)
+        assert sh.spec == eng.spec and sh.n_shards == world_size
+        for kind in networks:
+            w = 0.0
+            for name in operators or operator_names():
+                op = get_operator(name)
+                extra = dict(n_heads=2) if kind == "transformer" else {}
+                net = make_network(kind, d_in=op.d_in, d_out=op.d_out,
+                                   width=4 if kind == "transformer" else 6, depth=2,
+                                   **extra)
+                params = net.init(torch.Generator().manual_seed(0), F64, device="cpu")
+                gen = torch.Generator().manual_seed(1)
+                for n in sizes:
+                    x = sample_box(gen, op.domain, n, F64, "cpu")
+                    for order in orders:
+                        got, ref = sh.grid(net, params, x, order), eng.grid(net, params, x, order)
+                        assert got.shape == (op.d_in, order + 1, n, op.d_out)
+                        w = max(w, _rel(got, ref))
+                    for axes in op.mixed or (tuple(range(min(op.d_in, 2))),):
+                        w = max(w, _rel(sh.cross(net, params, x, axes),
+                                        eng.cross(net, params, x, axes)))
+                    v = torch.rand(x.shape, generator=gen, dtype=F64)
+                    w = max(w, _rel(sh.derivs(net, params, x, 3, v),
+                                    eng.derivs(net, params, x, 3, v)))
+            worst[f"{impl}/{kind}"] = w
+    return worst
+
+
+def _toy_loss(params, pts):
+    pred = pts @ params["w"] + params["b"]
+    loss = torch.mean((pred - torch.sin(pts[:, :1])) ** 2)
+    return loss, {"residual": loss}
+
+
+def toy_problem():
+    """The reference's toy train-step problem (tests/test_jet_shard.py), at
+    24 points from numpy (a multiple of 2, 3 and 4 ranks)."""
+    params = {"w": torch.full((3, 1), 0.1, dtype=F64), "b": torch.zeros((1,), dtype=F64)}
+    pts = torch.from_numpy(np.random.default_rng(0).uniform(size=(24, 3)))
+    return params, pts
+
+
+def training(world_size: int) -> dict:
+    """The sharded Adam step (4 steps of the toy problem; the compressed
+    steps 30), pinn_loss(mesh=) and its gradient, the sharded L-BFGS
+    objective's gradient, train_operator(data_parallel=) against the
+    single-process run, and error-feedback accumulation over the real
+    reduce."""
+    import torch.distributed as dist
+    from repro_torch.optim import adam_init
+    from repro_torch.parallel import (DataMesh, build_sharded_train_step,
+                                      compressed_psum_tree, resolve_mesh, topk_psum_tree)
+    from repro_torch.pinn import OperatorRunConfig, train_operator
+    from repro_torch.pinn.trainer import (adam_step, make_operator_net, operator_loss_fn,
+                                          value_and_grad)
+    from repro_torch.data.collocation import sample_box
+    from repro_torch.pinn.operators import get_operator
+    from repro_torch.tree import leaves
+
+    out = {}
+    mesh = resolve_mesh(None, world_size)
+    assert isinstance(mesh, DataMesh) and mesh.shape == {"data": world_size}
+    try:
+        resolve_mesh(None, world_size + 1)
+    except ValueError as e:
+        out["wrong_world_size"] = str(e)
+
+    # --- the sharded Adam step against the single-process step
+    params, pts = toy_problem()
+    built = build_sharded_train_step(_toy_loss, mesh, adam_lr=1e-2)
+    assert built.n_shards == world_size and built.compression is None
+    err = built.init_err(params)
+    p_sh, s_sh, p_one, s_one = params, adam_init(params), params, adam_init(params)
+    losses, aux_res = [], []
+    for _ in range(4):
+        p_sh, s_sh, (loss, aux), err = built.step(p_sh, s_sh, pts, err)
+        p_one, s_one, loss_one, _ = adam_step(_toy_loss, p_one, s_one, 1e-2, pts)
+        losses.append((float(loss), float(loss_one)))
+        aux_res.append(float(aux["residual"]))
+    out["adam"] = {"params": p_sh, "single": p_one, "losses": losses, "aux": aux_res,
+                   "err_max": max(float(e.abs().max()) for e in leaves(err))}
+    try:
+        built.step(p_sh, s_sh, pts[:world_size * 3 + 1], err)
+    except ValueError as e:
+        out["indivisible_batch"] = str(e)
+
+    # --- compressed steps descend
+    for spec in ("int8", "topk:0.5"):
+        c = build_sharded_train_step(_toy_loss, mesh, adam_lr=1e-2, compression=spec)
+        p, s, e = params, adam_init(params), c.init_err(params)
+        hist = []
+        for _ in range(30):
+            p, s, (loss, _), e = c.step(p, s, pts, e)
+            hist.append(float(loss))
+        out[f"descent/{spec}"] = hist
+
+    # --- error feedback over the real reduce: the running mean of the
+    # compressed sums converges to the exact sum
+    g_all = torch.from_numpy(np.random.default_rng(0).normal(size=(world_size, 128)) * 3.0
+                             ).float()
+    true = g_all.sum(0)
+    g = g_all[dist.get_rank()]
+    for spec, comp in (("int8", compressed_psum_tree),
+                       ("topk:0.2", lambda gg, ee, grp: topk_psum_tree(gg, ee, grp, 0.2))):
+        e, acc = [torch.zeros(128)], torch.zeros(128)
+        for _ in range(50):
+            red, e = comp([g], e, None)
+            acc = acc + red[0]
+        out[f"ef/{spec}"] = float((acc / 50 - true).abs().max() / true.abs().max())
+
+    # --- pinn_loss(mesh=) and the sharded L-BFGS objective's gradient
+    for kind in ("dense", "transformer"):
+        cfg = OperatorRunConfig(op="heat", network=kind, width=8 if kind == "dense" else 4,
+                                depth=2, n_bc=8, engine="ntp",
+                                net_kwargs=dict(n_heads=2) if kind == "transformer" else {})
+        net = make_operator_net(cfg)
+        p = net.init(torch.Generator().manual_seed(0), F64, device="cpu")
+        x = sample_box(torch.Generator().manual_seed(1), get_operator("heat").domain, 13,
+                       F64, "cpu")
+        (l1, a1), g1 = value_and_grad(operator_loss_fn(cfg, net, "cpu"), p, x)
+        (l2, a2), g2 = value_and_grad(operator_loss_fn(cfg, net, "cpu", mesh), p, x)
+        out[f"pinn_loss/{kind}"] = {
+            "loss": (float(l2), float(l1)),
+            "aux": {k: (float(a2[k]), float(a1[k])) for k in a1},
+            "grad_rel": max(_rel(b, a) for a, b in zip(leaves(g1), leaves(g2)))}
+
+    # --- train_operator(data_parallel=) against the single-process run
+    base = dict(op="heat", width=8, depth=2, n_domain=8 * world_size, n_bc=8, adam_steps=6,
+                lbfgs_steps=2, log_every=1, eval_pts_per_axis=8)
+    one = train_operator(OperatorRunConfig(**base), device="cpu")
+    dp = train_operator(OperatorRunConfig(**base, data_parallel=world_size), device="cpu")
+    explicit = train_operator(OperatorRunConfig(**base, mesh=mesh), device="cpu")
+    out["train"] = {"single": one.loss_history, "sharded": dp.loss_history,
+                    "mesh": explicit.loss_history,
+                    "params_rel": max(_rel(b, a) for a, b in zip(leaves(one.params),
+                                                                 leaves(dp.params))),
+                    "l2": (dp.l2_error, one.l2_error)}
+    comp = train_operator(OperatorRunConfig(**{**base, "lbfgs_steps": 0, "adam_steps": 20},
+                                            data_parallel=world_size,
+                                            grad_compression="int8"), device="cpu")
+    out["train_int8"] = comp.loss_history
+    try:
+        train_operator(OperatorRunConfig(**{**base, "n_domain": 8 * world_size + 1},
+                                         data_parallel=world_size), device="cpu")
+    except ValueError as e:
+        out["indivisible_n_domain"] = str(e)
+    return out
+
+
+def serving(world_size: int) -> dict:
+    """DerivativeServer(mesh=) across the ranks against direct engine calls;
+    the mesh in the cache key, the bucket guard and the followers'
+    refusal of requests."""
+    import torch.distributed as dist
+    from repro_torch.core.engines import NTPEngine
+    from repro_torch.core.network import make_network
+    from repro_torch.parallel import DataMesh
+    from repro_torch.serving import DerivativeServer
+
+    mesh = DataMesh()
+    out = {}
+    for kind in ("dense", "transformer"):
+        extra = dict(n_heads=2) if kind == "transformer" else {}
+        net = make_network(kind, d_in=2, d_out=1, width=4 if extra else 8, depth=2, **extra)
+        params = net.init(torch.Generator().manual_seed(0), F64, device="cpu")
+        x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, size=(5, 2)))
+        buckets = (4 * world_size, 8 * world_size)
+        srv = DerivativeServer(net, params, "ntp/cuda", buckets=buckets, mesh=mesh,
+                               device="cpu", flush_window_s=0.0)
+        try:
+            if dist.get_rank() == 0:
+                eng = NTPEngine("cuda")
+                got = {"grid": srv.grid(x, 3, timeout=120), "cross": srv.cross(x, (0, 1),
+                                                                               timeout=120)}
+                want = {"grid": eng.grid(net, params, x, 3),
+                        "cross": eng.cross(net, params, x, (0, 1))}
+                big = torch.from_numpy(np.random.default_rng(2).uniform(
+                    -1, 1, size=(8 * world_size - 1, 2)))
+                got["grid_big"] = srv.grid(big, 2, timeout=120)
+                want["grid_big"] = eng.grid(net, params, big, 2)
+                out[kind] = {k: _rel(got[k], want[k]) for k in got}
+                out["mesh_key"] = srv.mesh_key
+                out["cache_keys"] = [k.mesh for k in srv.cache._entries]
+            else:
+                try:
+                    srv.submit(x, order=1)
+                except RuntimeError as e:
+                    out["follower_submit"] = str(e)
+        finally:
+            srv.close()
+    try:
+        DerivativeServer(net, params, "ntp", buckets=(world_size + 1,), mesh=mesh,
+                         device="cpu")
+    except ValueError as e:
+        out["bucket_guard"] = str(e)
+    return out
+
+
+def serving_idle(world_size: int, timeout_s: float = 3.0, idle_s: float = 7.0) -> dict:
+    """A sharded server on a group whose timeout (``timeout_s``) is shorter
+    than the idle gap (``idle_s``) between two requests: rank 0's idle
+    heartbeat keeps the other ranks' wait for the next header inside the
+    timeout, so the request after the gap is answered, and equals the one
+    before it."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.core.network import make_network
+    from repro_torch.parallel import DataMesh
+    from repro_torch.serving import DerivativeServer
+
+    mesh = DataMesh(dist.new_group(timeout=datetime.timedelta(seconds=timeout_s)))
+    net = make_network("dense", d_in=2, d_out=1, width=8, depth=2)
+    params = net.init(torch.Generator().manual_seed(0), F64, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, size=(5, 2)))
+    dist.barrier()
+    srv = DerivativeServer(net, params, "ntp", buckets=(4 * world_size,), mesh=mesh,
+                           device="cpu", flush_window_s=0.0, heartbeat_s=timeout_s / 12)
+    out = {}
+    try:
+        if mesh.rank == 0:
+            before = srv.grid(x, 2, timeout=60)
+            time.sleep(idle_s)
+            after = srv.grid(x, 2, timeout=60)
+            out = {"equal": bool(torch.equal(before, after)),
+                   "batches": srv.metrics()["batches"]}
+    finally:
+        srv.close()
+    return out
+
+
+def pinn_loss_parity(world_size: int) -> dict:
+    """pinn_loss(mesh=) and its gradient against the single-process loss on
+    the heat operator's DenseMLP."""
+    from repro_torch.parallel import DataMesh
+    from repro_torch.pinn import OperatorRunConfig
+    from repro_torch.pinn.trainer import make_operator_net, operator_loss_fn, value_and_grad
+    from repro_torch.tree import leaves
+
+    cfg = OperatorRunConfig(op="heat", width=8, depth=2, n_bc=8)
+    net = make_operator_net(cfg)
+    p = net.init(torch.Generator().manual_seed(0), F64, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, size=(11, 2)))
+    (l1, _), g1 = value_and_grad(operator_loss_fn(cfg, net, "cpu"), p, x)
+    (l2, _), g2 = value_and_grad(operator_loss_fn(cfg, net, "cpu", DataMesh()), p, x)
+    return {"loss": (float(l2), float(l1)),
+            "grad_rel": max(_rel(b, a) for a, b in zip(leaves(g1), leaves(g2)))}
+
+
+def train_parity(world_size: int) -> dict:
+    """train_operator(data_parallel=N) against the single-process run."""
+    from repro_torch.pinn import OperatorRunConfig, train_operator
+    base = dict(op="heat", width=8, depth=2, n_domain=8 * world_size, n_bc=8, adam_steps=4,
+                lbfgs_steps=2, log_every=1, eval_pts_per_axis=8)
+    one = train_operator(OperatorRunConfig(**base), device="cpu")
+    dp = train_operator(OperatorRunConfig(**base, data_parallel=world_size), device="cpu")
+    return {"single": one.loss_history, "sharded": dp.loss_history}
+
+
+def everything(world_size: int, **engine_kwargs) -> dict:
+    return {"engine": engine_tables(world_size, **engine_kwargs),
+            "training": training(world_size), "serving": serving(world_size)}
+
+
+SCENARIOS = {"everything": everything, "pinn_loss_parity": pinn_loss_parity,
+             "train_parity": train_parity, "serving_idle": serving_idle}

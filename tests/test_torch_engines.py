@@ -164,14 +164,15 @@ def test_engine_spec_canonical_forms():
     assert EngineSpec.parse("ntp") == EngineSpec.parse("NTP/torch")
     assert str(EngineSpec.parse("ntp/cuda")) == "ntp/cuda"
     assert str(EngineSpec.parse("autodiff")) == "autodiff"
-    for s in ("ntp", "ntp/cuda", "autodiff"):
+    assert str(EngineSpec.parse("jax-jet")) == str(EngineSpec.parse("jaxjet")) == "jet"
+    for s in ("ntp", "ntp/cuda", "autodiff", "jet"):
         spec = EngineSpec.parse(s)
         assert EngineSpec.parse(str(spec)) == spec
         assert str(EngineSpec.parse(DerivativeEngine.from_spec(s))) == s
     assert isinstance(DerivativeEngine.from_spec("ntp/cuda"), NTPEngine)
     eng = NTPEngine("cuda")
     assert DerivativeEngine.from_spec(eng) is eng
-    for bad in ("ntp/pallas", "jet", "autodiff/cuda", "nope"):
+    for bad in ("ntp/pallas", "jet/torch", "autodiff/cuda", "nope"):
         with pytest.raises(ValueError):
             EngineSpec.parse(bad)
     with pytest.raises(ValueError):

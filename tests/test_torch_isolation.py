@@ -65,6 +65,26 @@ def test_source_imports_neither_jax_nor_reference(path):
         and "import repro." not in text
 
 
+def test_taylor_oracle_is_independent_of_the_jet_algebra():
+    """core/taylor.py, the port's Taylor-mode oracle, shares nothing with
+    the layer-level jet algebra it checks: no import of core/jet.py, by
+    any spelling, and none of JAX or the JAX package."""
+    path = PORT / "core" / "taylor.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            names += [base] + [f"{base}.{alias.name}".replace("..", ".")
+                               for alias in node.names]
+    assert names, "no imports parsed"
+    for name in names:
+        assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), name
+        assert "core.jet" not in name and not name.startswith(".jet"), name
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
     from repro_torch import bridge, resolve_device
     from repro_torch.core.modules import Dense

@@ -316,13 +316,20 @@ def test_pinn_loss_and_gradients_match_reference(name, network, engine):
     _grads_close(grads, jgrad, tol)
 
 
-def test_pinn_loss_mesh_raises_until_slice_d():
+def test_pinn_loss_mesh_raises_until_slice_d(tmp_path):
+    """Slice D landed: ``mesh=`` takes a ``DataMesh`` (anything else still
+    raises), and over 2 gloo ranks (``tests/_torch_ranks.py``) the sharded
+    loss and its gradient equal the single-process ones at 1e-12."""
+    import _torch_ranks
     net = make_network("dense", d_in=2, d_out=1, width=4, depth=1)
     x = torch.zeros((3, 2), dtype=torch.float64)
     p = net.init(torch.Generator().manual_seed(0), torch.float64, device="cpu")
-    with pytest.raises(ValueError, match="slice D"):
+    with pytest.raises(ValueError, match="'data' axis"):
         tloss.pinn_loss(p, op="heat", pts=x, bc_pts=x, bc_vals=x[:, 0], net=net,
                         mesh=object())
+    for res in _torch_ranks.spawn(2, "pinn_loss_parity", tmp_path):
+        np.testing.assert_allclose(*res["loss"], rtol=1e-12)
+        assert res["grad_rel"] <= 1e-12, res["grad_rel"]
 
 
 @pytest.mark.parametrize("engine", ["ntp", "ntp/cuda", "autodiff"])

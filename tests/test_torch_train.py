@@ -260,11 +260,22 @@ def test_trainers_draw_from_a_seeded_generator_by_default():
     assert len(res.loss_history) >= 3 and all(math.isfinite(v) for v in res.loss_history)
 
 
-def test_trainers_refuse_what_is_not_ported_and_default_to_the_card(monkeypatch):
-    for bad in (dict(data_parallel=2), dict(mesh=object()),
-                dict(grad_compression="int8")):
-        with pytest.raises(ValueError, match="slice D"):
+def test_trainers_refuse_what_is_not_ported_and_default_to_the_card(monkeypatch, tmp_path):
+    """The data-parallel fields are ported: without a process group (none
+    is opened in this process) ``data_parallel`` raises with the launch
+    command, a mesh that is not a ``DataMesh`` and compression without a
+    mesh raise; over 2 gloo ranks (``tests/_torch_ranks.py``)
+    ``train_operator(data_parallel=2)`` matches the single-process run on
+    every logged loss at 1e-12.  The trainers default to the card."""
+    import _torch_ranks
+    for bad, match in ((dict(data_parallel=2), "torchrun --nproc-per-node 2"),
+                       (dict(mesh=object()), "'data' axis"),
+                       (dict(grad_compression="int8"), "needs data_parallel")):
+        with pytest.raises(ValueError, match=match):
             ttrainer.train_operator(ttrainer.OperatorRunConfig(**bad), device="cpu")
+    for res in _torch_ranks.spawn(2, "train_parity", tmp_path):
+        assert len(res["single"]) == 4 + 3
+        np.testing.assert_allclose(res["sharded"], res["single"], rtol=1e-12)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrainer.train_operator(ttrainer.OperatorRunConfig(adam_steps=1))
