@@ -124,14 +124,28 @@ Phases, each failing loudly with a non-zero exit:
    card (``file://`` init): the DenseMLP's and the trunk's
    ``cross((0,0,1,1))`` and ``grid(10)`` at 512 rows through
    ``ShardedEngine(NTPEngine("cuda"))`` against the single-process call
-   (bit for bit), each rank's counters showing its
-   K1 (and the trunk's K3 and K4) per sharded call, a
+   (bit for bit: ``repro_torch.tree.bit_equal``, which compares integer
+   views, so -0.0 and +0.0 differ), each rank's counters showing its
+   K1 (and the trunk's K3 and K4) per sharded call, a table holding -0.0
+   entries gathered by ``gather_rows`` (gloo on CUDA tensors: an integer
+   sum) at f64, f32 and bf16, a
    ``DerivativeServer(mesh=)`` across the ranks, and Navier-Stokes trained
    on both ranks with ``grad_compression`` None (against the
    single-process run within TOL_TRAIN), ``"int8"`` and ``"topk:0.1"``
    (losses falling), times per Adam step beside the card's name and power
    limit (two processes on one card: not a scaling figure).  A rank that
    fails fails the run;
+   6c. train -> checkpoint -> serve: heat on the pinn-pde DenseMLP
+   (``train_operator``, ``ntp/cuda``), its parameters saved by
+   ``repro_torch.ckpt.CheckpointManager`` (blocking) and its training
+   state asynchronously while the next step runs, ``from_checkpoint`` into
+   a fresh net serving ``grid(2)`` and ``cross((0,0,1,1))`` at 512 rows to
+   four clients (against a direct call and nested autodiff), twice; the
+   trunk's parameters and served ``grid(4)`` across a checkpoint; the
+   ``Trainer`` uninterrupted, with one injected failure and preempted;
+   ``examples/torch_serve_operator.py``; every identity ``bit_equal``,
+   launches counted, save / restore / first-answer times and the served
+   p50 printed;
 7. K1 at the shapes the training phases launched it most (recorded while
    they ran), beside its plain version and bound; 7b. the run-time-order
    kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
@@ -348,6 +362,18 @@ DP_LBFGS = 2
 DP_ROWS = 512
 DP_COMPRESSIONS = (None, "int8", "topk:0.1")
 DP_TIMEOUT = 600
+# phase 6c: heat on the pinn-pde DenseMLP trained, checkpointed and served
+# at CKPT_ROWS rows by CKPT_CLIENTS clients; the Trainer checkpoints every
+# CKPT_EVERY steps, fails once at CKPT_FAIL_AT, is preempted at
+# CKPT_PREEMPT_AT; then the serve example at the pinn-pde DenseMLP's width
+CKPT_OP = "heat"
+CKPT_ROWS = 512
+CKPT_CLIENTS = 4
+CKPT_EVERY = 5
+CKPT_FAIL_AT = 12
+CKPT_PREEMPT_AT = 7
+EXAMPLE_ARGV = ["--op", "heat", "--steps", "20", "--width", "32", "--depth", "3",
+                "--clients", "4", "--points", "128"]
 
 
 class SmokeFailure(RuntimeError):
@@ -943,6 +969,7 @@ def check_high_orders(gen, report: dict, worst: dict) -> None:
     at the served shapes, orders 1, 4 and 10, held to the f32 plain version
     within BF16_ULPS."""
     import torch
+    from repro_torch.tree import bit_equal
     rows = []
     for dt in (torch.float64, torch.float32):
         for n in HIGH_ORDERS:
@@ -950,11 +977,12 @@ def check_high_orders(gen, report: dict, worst: dict) -> None:
                 got = call()
                 torch.cuda.synchronize()
                 e = holds_high(got, plain, args, dt, n, f"{name} {label} {dt} order {n}")
-                diff = float((got - plain(*args)).abs().max())
+                want = plain(*args)
+                diff = float((got - want).abs().max())
                 worst[name] = max(worst[name], diff)
                 # the dense epilogue rounds op by op as ref.py, the GEMM part
                 # as the plain version's at these shapes: bit for bit
-                require(name not in ("act_jet", "jet_dense") or diff == 0.0,
+                require(name not in ("act_jet", "jet_dense") or bit_equal(got, want),
                         f"{name} {label} {dt} order {n}: differs from its plain version "
                         f"by {diff:.3e}, not bit for bit")
                 rows.append((name, str(dt), n, label, e))
@@ -3226,7 +3254,7 @@ def dp_nccl_one_rank(seed: int, report: dict) -> dict:
     import torch.distributed as dist
     from repro_torch.kernels import ops
     from repro_torch.pinn.trainer import train_operator
-    from repro_torch.tree import leaves
+    from repro_torch.tree import bit_equal
 
     import os
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")     # one host, no network
@@ -3252,8 +3280,7 @@ def dp_nccl_one_rank(seed: int, report: dict) -> dict:
             key = f"{op_name}/{network}"
             require(dp.loss_history == one.loss_history,
                     f"{key}: NCCL world size 1 losses {dp.loss_history} vs {one.loss_history}")
-            require(all(torch.equal(a, b) for a, b in zip(leaves(dp.params),
-                                                          leaves(one.params))),
+            require(bit_equal(dp.params, one.params),
                     f"{key}: NCCL world size 1 parameters differ from the single run's")
             require(c_dp == c_one and c_dp["jet_dense"] > 0 and
                     (network != "transformer" or (c_dp["jet_rms_norm"] > 0 and
@@ -3294,21 +3321,31 @@ def _dp_rank(rank: int, world: int, tmp: str, seed: int) -> None:
         dist.destroy_process_group()
 
 
+def signed_zero_rows(rank: int, dt):
+    """Rank ``rank``'s rows of phase 6b's gather check: -0.0 and +0.0
+    beside values, each rank's different, on the card."""
+    import torch
+    return torch.tensor([[-0.0, 0.0, 1.0 + rank], [rank - 2.5, -0.0, -0.0]], dtype=dt,
+                        device=DEVICE)
+
+
 def dp_rank_work(rank: int, seed: int) -> dict:
     """What each gloo rank sharing the card does: the served cross((0,0,1,1))
     and grid(10) of the DenseMLP and the trunk at DP_ROWS rows through
     ``ShardedEngine(NTPEngine("cuda"))`` (launches counted around the
     sharded calls alone) against the single-process call; a
     ``DerivativeServer(mesh=)`` answering grid(4) and cross((0,0,1,1)) on
-    rank 0; and ``train_operator(data_parallel=2)`` on Navier-Stokes for
-    every DP_COMPRESSIONS."""
+    rank 0; a table holding -0.0 entries gathered by ``gather_rows`` at
+    f64, f32 and bf16; and ``train_operator(data_parallel=2)`` on
+    Navier-Stokes for every DP_COMPRESSIONS."""
     import torch
     from repro_torch.core.engines import NTPEngine
     from repro_torch.core.network import DenseMLP, Transformer
     from repro_torch.kernels import cuda_lib, ops
-    from repro_torch.parallel import DataMesh, ShardedEngine
+    from repro_torch.parallel import DataMesh, ShardedEngine, gather_rows
     from repro_torch.pinn.trainer import train_operator
     from repro_torch.serving import DerivativeServer
+    from repro_torch.tree import bit_equal
 
     cuda_lib.library()
     mesh = DataMesh()
@@ -3343,8 +3380,17 @@ def dp_rank_work(rank: int, seed: int) -> dict:
             for name in KERNEL_NAMES:
                 out["launches"][name] += launches[name]
             out["tables"][f"{label} {kind}{req}"] = {
-                "err": e, "bit_identical": bool(torch.equal(got, single)),
+                "err": e, "bit_identical": bit_equal(got, single),
                 "finite": bool(torch.isfinite(got).all()), "launches": launches}
+
+    # a table holding -0.0 entries through gather_rows: gloo on CUDA
+    # tensors gathers by an integer sum, which keeps every bit pattern
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
+        want = torch.cat([signed_zero_rows(r, dt) for r in range(mesh.size)])
+        got = gather_rows(signed_zero_rows(rank, dt), 0, mesh)
+        out["tables"][f"signed zeros {dt}"] = {
+            "err": float((got - want).abs().max()), "bit_identical": bit_equal(got, want),
+            "finite": bool(torch.isfinite(got).all())}
 
     with torch.no_grad():
         singles = {("grid", 4): engine.grid(net, params, x, 4),
@@ -3360,7 +3406,7 @@ def dp_rank_work(rank: int, seed: int) -> dict:
                     srv.cross(x, req, timeout=300)
                 out["tables"][f"server {kind}{req}"] = {
                     "err": rel_err(got, single, 2 if kind == "grid" else 0),
-                    "bit_identical": bool(torch.equal(got, single)),
+                    "bit_identical": bit_equal(got, single),
                     "finite": bool(torch.isfinite(got).all())}
             out["server_metrics"] = srv.metrics()
     finally:
@@ -3396,9 +3442,11 @@ def dp_gloo_two_ranks(seed: int, report: dict, single_ns: list) -> dict:
     """Phase 6b, part 2: two gloo ranks sharing the card (spawned
     processes, ``file://`` init), each running ``dp_rank_work``.  A rank
     that fails, or a pair that outlives DP_TIMEOUT, fails the run.  Checks
-    here: every sharded table bit-identical to the single-process one (a
-    kernel's row arithmetic does not depend on the batch size; the error
-    against phase 3's scales is printed), the launches each
+    here: every sharded table bit-identical (``bit_equal``: dtype, shape,
+    integer views) to the single-process one (a kernel's row arithmetic
+    does not depend on the batch size; the error against phase 3's scales
+    is printed), the gathered -0.0 table to the rows the ranks wrote, the
+    launches each
     rank's counters show (per sharded engine call a DenseMLP 4 K1, the
     trunk 16 K1, 7 K3, 3 K4; the server 4 K1 a batch on each rank), the
     uncompressed run against the single-process run of part 1 within
@@ -3474,6 +3522,293 @@ def data_parallel(seed: int, report: dict) -> dict:
     single_ns = report["data_parallel_nccl"]["/".join(DP_RUNS[0][:2])]["loss_history"]
     totals.update(dp_gloo_two_ranks(seed, report, single_ns))
     return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: train -> checkpoint -> serve
+# ---------------------------------------------------------------------------
+
+def _fail_once(at: int):
+    """A fail_injector for the Trainer that raises at step ``at``, once."""
+    left = {at}
+
+    def injector(step):
+        if step in left:
+            left.clear()
+            raise RuntimeError(f"injected failure at step {step}")
+
+    return injector
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_checkpoint_serve(seed: int, report: dict) -> dict:
+    """Phase 6c: the product's path on the card.  ``train_operator`` fits
+    heat on the pinn-pde DenseMLP (d_in 2, 3 x 32 tanh, f64, n_domain
+    1024, OPERATOR_ADAM Adam steps, ``ntp/cuda``); ``CheckpointManager``
+    saves the parameters (blocking) and the training state (params, Adam)
+    asynchronously while the next step runs; ``from_checkpoint`` restores
+    the parameters into a fresh net and serves ``grid(op.order)`` and
+    ``cross((0,0,1,1))`` at CKPT_ROWS rows from CKPT_CLIENTS clients,
+    held to a direct ``NTPEngine("cuda")`` call (TOL_SERVED) and nested
+    autodiff (TOL_AUTODIFF) at phase 3's scales; a second server on the
+    checkpoint answers the same requests with the same bits.  The pinn-pde trunk's
+    parameters round-trip and its served ``grid(4)`` after the restore
+    equals the table before the save.  The ``Trainer`` runs the same step
+    (``ckpt_every`` CKPT_EVERY) uninterrupted, with one failure at
+    CKPT_FAIL_AT (one restart, the same final state) and preempted at
+    CKPT_PREEMPT_AT (a checkpoint at the boundary); every identity is
+    ``bit_equal``.  Then ``examples/torch_serve_operator.py`` runs on the
+    card.  Launch counters are zeroed before each of these and read after:
+    K1 on the DenseMLP's calls, K1, K3 and K4 on the trunk's."""
+    import tempfile
+
+    import torch
+    from repro_torch.bridge import tree_map
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core.engines import DerivativeEngine, NTPEngine
+    from repro_torch.core.network import Transformer
+    from repro_torch.data.collocation import sample_box
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adam_init
+    from repro_torch.pinn.operators import get_operator
+    from repro_torch.pinn.trainer import (OperatorRunConfig, adam_step, make_operator_net,
+                                          operator_loss_fn, train_operator)
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.serving import DerivativeServer
+    from repro_torch.tree import bit_equal
+
+    root = Path(tempfile.mkdtemp())
+    op = get_operator(CKPT_OP)
+    cfg = OperatorRunConfig(op=CKPT_OP, network="dense", width=32, depth=3, n_domain=1024,
+                            adam_steps=OPERATOR_ADAM, log_every=1, seed=seed,
+                            engine="ntp/cuda")
+    per_step = 4 * (1 + len(op.mixed))          # K1 per Adam step on the DenseMLP
+    paths, out = {}, {}
+
+    def ms_since(t0: float) -> float:
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    def zeros_like(tree):
+        return tree_map(lambda _, t: torch.zeros_like(t), tree)
+
+    # train
+    ops.reset_launch_counts()
+    res = train_operator(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    paths["ckpt_train"] = ops.launch_counts()
+    require(paths["ckpt_train"]["jet_dense"] == per_step * OPERATOR_ADAM,
+            f"training launched {paths['ckpt_train']}, want jet_dense "
+            f"{per_step * OPERATOR_ADAM}")
+    require(res.loss_history[-1] < res.loss_history[0], f"heat: losses {res.loss_history}")
+    net = res.net
+    loss_fn = operator_loss_fn(cfg, net, DEVICE)
+
+    def step_fn(state, pts):
+        params, st = state
+        params, st, loss, _ = adam_step(loss_fn, params, st, cfg.adam_lr, pts)
+        return (params, st), loss
+
+    def batch_fn(step):
+        return sample_box(torch.Generator().manual_seed(seed + 100 + step), op.domain,
+                          cfg.n_domain, torch.float64, DEVICE)
+
+    # checkpoint: the parameters blocking, the training state asynchronously
+    # while the next step runs
+    serve_dir = str(root / "serve")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(serve_dir).save(OPERATOR_ADAM, res.params, blocking=True)
+    out["save_blocking_ms"] = ms_since(t0)
+    state = (res.params, adam_init(res.params))
+    mgr = CheckpointManager(str(root / "state"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(OPERATOR_ADAM, state, blocking=False)
+    out["save_async_blocked_ms"] = 1e3 * (time.perf_counter() - t0)
+    _, loss = step_fn(state, batch_fn(OPERATOR_ADAM))
+    float(loss)
+    t0 = time.perf_counter()
+    mgr.wait()
+    out["save_async_wait_after_step_ms"] = 1e3 * (time.perf_counter() - t0)
+    like = zeros_like(state)
+    t0 = time.perf_counter()
+    back = mgr.restore(OPERATOR_ADAM, like)
+    out["restore_ms"] = ms_since(t0)
+    require(bit_equal(back, state), "the training state saved during a step restores "
+                                    "with other bits than it had")
+
+    # serve from the checkpoint into a fresh net
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    xs = {i: torch.rand((CKPT_ROWS, net.d_in), generator=gen, device=DEVICE,
+                        dtype=torch.float64) * 2 - 1 for i in range(CKPT_CLIENTS)}
+    requests = (("grid", op.order), ("cross", (0, 0, 1, 1)))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = DerivativeServer.from_checkpoint(serve_dir, make_operator_net(cfg),
+                                           engine="ntp/cuda", dtype=torch.float64,
+                                           buckets=(CKPT_ROWS,), flush_window_s=0.0)
+    first = srv.grid(xs[0], op.order, timeout=300)
+    out["from_checkpoint_to_first_answer_ms"] = ms_since(t0)
+    first_launches = ops.launch_counts()
+    require(bit_equal(srv.params, res.params),
+            "from_checkpoint's parameters differ from the trained ones")
+    results, launches, metrics = serve_concurrently(
+        {"ckpt": srv}, xs, [(kind, req, i) for i in xs for kind, req in requests])
+    batches = metrics["ckpt"]["batches"]
+    require(launches["jet_dense"] == 4 * (batches - 1) > 0,
+            f"the served run launched {launches}, want jet_dense 4 x {batches - 1} batches")
+    paths["ckpt_serve_dense"] = {k: launches[k] + first_launches[k] for k in KERNEL_NAMES}
+    direct, autodiff = NTPEngine("cuda"), DerivativeEngine.from_spec("autodiff")
+    worst = {"direct": 0.0, "autodiff": 0.0}
+    with torch.no_grad():
+        for (_, kind, req, i), table in results.items():
+            call = (lambda e: e.grid(net, res.params, xs[i], req)) if kind == "grid" else \
+                (lambda e: e.cross(net, res.params, xs[i], req))
+            keep = 2 if kind == "grid" else 0
+            e = rel_err(table, call(direct), keep)
+            require(e <= TOL_SERVED, f"served {kind}{req} vs direct ntp/cuda: {e:.3e}")
+            worst["direct"] = max(worst["direct"], e)
+    for kind, req in requests:
+        got = results[("ckpt", kind, req, 0)]
+        want = (autodiff.grid(net, res.params, xs[0], req) if kind == "grid"
+                else autodiff.cross(net, res.params, xs[0], req)).detach()
+        e = rel_err(got, want, 2 if kind == "grid" else 0)
+        require(e <= TOL_AUTODIFF, f"served {kind}{req} vs autodiff: {e:.3e}")
+        worst["autodiff"] = max(worst["autodiff"], e)
+    require(bit_equal(first, results[("ckpt", "grid", op.order, 0)]),
+            "the first answer and a later one on the same rows differ")
+    # the same requests again from a second server on the checkpoint: the
+    # process has paid its one-time costs; the tables must not move
+    again, _, metrics2 = serve_concurrently(
+        {"ckpt": DerivativeServer.from_checkpoint(serve_dir, make_operator_net(cfg),
+                                                  engine="ntp/cuda", dtype=torch.float64,
+                                                  buckets=(CKPT_ROWS,), flush_window_s=0.0)},
+        xs, [(kind, req, i) for i in xs for kind, req in requests])
+    require(all(bit_equal(again[key], table) for key, table in results.items()),
+            "a second server on the checkpoint answers with other bits")
+    lat, lat2 = metrics["ckpt"]["latency"], metrics2["ckpt"]["latency"]
+    wait, wait2 = metrics["ckpt"]["queue_wait"], metrics2["ckpt"]["queue_wait"]
+
+    # the trunk: parameters and a served table across the checkpoint
+    trunk = Transformer(**TRUNK)
+    tp = trunk.init(torch.Generator().manual_seed(seed), dtype=torch.float64)
+    with DerivativeServer(trunk, tp, "ntp/cuda", buckets=(CKPT_ROWS,),
+                          flush_window_s=0.0) as s:
+        before = s.grid(xs[0], 4, timeout=300)
+    trunk_dir = str(root / "trunk")
+    CheckpointManager(trunk_dir).save(1, tp, blocking=True)
+    with DerivativeServer.from_checkpoint(trunk_dir, Transformer(**TRUNK), engine="ntp/cuda",
+                                          buckets=(CKPT_ROWS,), flush_window_s=0.0) as s:
+        require(bit_equal(s.params, tp), "the trunk's restored parameters differ")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        after = s.grid(xs[0], 4, timeout=300)
+        torch.cuda.synchronize()
+        paths["ckpt_serve_trunk"] = ops.launch_counts()
+    want = {name: n for name, n in TRUNK_PER_CALL.items() if n}
+    require({k: v for k, v in paths["ckpt_serve_trunk"].items() if v} == want,
+            f"the restored trunk's grid(4) launched {paths['ckpt_serve_trunk']}, want {want}")
+    require(bit_equal(after, before), "the trunk's served grid(4) after the restore differs "
+                                      "from the table before the save")
+
+    # the Trainer: uninterrupted, one injected failure, preempted
+    p0 = net.init(torch.Generator().manual_seed(seed), dtype=torch.float64, device=DEVICE)
+    start = (p0, adam_init(p0))
+    runs = {}
+    for label, injector in (("uninterrupted", None), ("one failure", _fail_once(CKPT_FAIL_AT))):
+        tcfg = TrainerConfig(total_steps=OPERATOR_ADAM, ckpt_every=CKPT_EVERY,
+                             ckpt_dir=str(root / label.replace(" ", "_")))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        final, rep = Trainer(tcfg, step_fn, batch_fn).run(start, fail_injector=injector)
+        wall = ms_since(t0)
+        runs[label] = (final, rep, ops.launch_counts(), wall)
+        require(runs[label][2]["jet_dense"] == per_step * rep.steps_run,
+                f"Trainer {label}: launches {runs[label][2]}, want jet_dense "
+                f"{per_step} x {rep.steps_run} steps")
+        paths[f"ckpt_trainer_{label.replace(' ', '_')}"] = runs[label][2]
+    (clean, rep0, _, _), (failed, rep1, _, _) = runs["uninterrupted"], runs["one failure"]
+    require(rep0.restarts == 0 and rep1.restarts == 1,
+            f"restarts {rep0.restarts} uninterrupted, {rep1.restarts} with one failure")
+    require(rep1.steps_run == OPERATOR_ADAM + CKPT_FAIL_AT % CKPT_EVERY,
+            f"{rep1.steps_run} steps with one failure")
+    require(bit_equal(failed, clean), "the Trainer's state after a failure and a restart "
+                                      "differs from the uninterrupted run's")
+    calls = {"n": 0}
+    tcfg = TrainerConfig(total_steps=OPERATOR_ADAM, ckpt_every=CKPT_EVERY,
+                         ckpt_dir=str(root / "preempted"))
+
+    def preempting_batch(step):
+        calls["n"] += 1
+        if calls["n"] == CKPT_PREEMPT_AT:
+            tr.request_preempt()
+        return batch_fn(step)
+
+    tr = Trainer(tcfg, step_fn, preempting_batch)
+    ops.reset_launch_counts()
+    held, rep2 = tr.run(start)
+    paths["ckpt_trainer_preempted"] = ops.launch_counts()
+    require(rep2.preempted and tr.ckpt.latest_step() == CKPT_PREEMPT_AT,
+            f"preempted: {rep2.preempted}, latest checkpoint {tr.ckpt.latest_step()}")
+    require(bit_equal(tr.ckpt.restore(CKPT_PREEMPT_AT, zeros_like(held)), held),
+            "the preemption checkpoint differs from the state at the boundary")
+
+    # the example, on the card
+    ex = _load_example("torch_serve_operator")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ran = ex.main(EXAMPLE_ARGV + ["--ckpt-dir", str(root / "example")])
+    example_s = ms_since(t0) / 1e3
+    paths["serve_operator_example"] = ops.launch_counts()
+    require(paths["serve_operator_example"]["jet_dense"] > 0,
+            f"the example launched {paths['serve_operator_example']}")
+    for spec in ex.SPECS:
+        scale = max(float(t.abs().max()) for t in ran[spec]["tables"])
+        require(ran[spec]["worst"] <= TOL_SERVED * scale,
+                f"example, engine {spec}: served vs direct {ran[spec]['worst']:.3e}")
+
+    smi = nvidia_smi_line()
+    out.update(worst_rel_err=worst, served_latency=lat, served_queue_wait=wait,
+               second_server_latency=lat2, second_server_queue_wait=wait2,
+               served_batches=batches - 1,
+               example_seconds=example_s, launches=paths, nvidia_smi=smi,
+               trainer={label: {"restarts": r[1].restarts, "steps_run": r[1].steps_run,
+                                "wall_ms": r[3], "losses": r[1].losses}
+                        for label, r in runs.items()})
+    print(f"  trained heat on the DenseMLP: {OPERATOR_ADAM} Adam steps, loss "
+          f"{res.loss_history[0]:.4e} -> {res.loss_history[-1]:.4e}, "
+          f"{paths['ckpt_train']['jet_dense']} K1 launches")
+    print(f"  save {out['save_blocking_ms']:.2f} ms blocking (params); async "
+          f"{out['save_async_blocked_ms']:.2f} ms blocked (training state; the writer "
+          f"outlived the next step by {out['save_async_wait_after_step_ms']:.2f} ms); "
+          f"restore {out['restore_ms']:.2f} ms; from_checkpoint to first answer "
+          f"{out['from_checkpoint_to_first_answer_ms']:.2f} ms | {smi}")
+    print(f"  served from the checkpoint: {len(results)} requests in {batches - 1} batches "
+          f"after the first answer, "
+          f"p50 {lat['p50_us']:.0f} us, p99 {lat['p99_us']:.0f} us (queue wait p50 "
+          f"{wait['p50_us']:.0f} us); a second server on the checkpoint, the same requests: "
+          f"p50 {lat2['p50_us']:.0f} us, p99 {lat2['p99_us']:.0f} us (queue wait p50 "
+          f"{wait2['p50_us']:.0f} us), bit-equal tables (host clock) | {smi}; "
+          f"vs direct {worst['direct']:.2e} (tol {TOL_SERVED:.0e}), vs autodiff "
+          f"{worst['autodiff']:.2e} (tol {TOL_AUTODIFF:.0e}); K1 {launches['jet_dense']}")
+    print(f"  trunk: parameters and served grid(4) bit-equal across the checkpoint; "
+          f"launches {want}")
+    print(f"  Trainer: restarts {rep0.restarts} / {rep1.restarts} (one failure at step "
+          f"{CKPT_FAIL_AT}), final state bit-equal to the uninterrupted run's; preempted at "
+          f"{CKPT_PREEMPT_AT} with its checkpoint; wall {runs['uninterrupted'][3]:.1f} ms "
+          f"for {OPERATOR_ADAM} steps")
+    print(f"  examples/torch_serve_operator.py {' '.join(EXAMPLE_ARGV)}: {example_s:.1f} s")
+    report["train_checkpoint_serve"] = out
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -3626,6 +3961,10 @@ def main(argv=None) -> int:
     phase("6b", f"data parallel on one card: NCCL at world size 1 ({DP_ADAM} Adam + "
                 f"{DP_LBFGS} L-BFGS, bit for bit), then two gloo ranks sharing the card")
     new_paths.update(data_parallel(args.seed, report))
+    phase("6c", f"train -> checkpoint -> serve: heat on the pinn-pde DenseMLP, the trunk's "
+                f"checkpoint, the Trainer (ckpt_every {CKPT_EVERY}, one failure, preemption), "
+                f"examples/torch_serve_operator.py")
+    new_paths.update(train_checkpoint_serve(args.seed, report))
     phase("7", "K1 jet_dense at the shapes the training phases launched it")
     training_times = time_training_shapes(shapes.counts, gen, report)
     phase("7b", "the run-time-order kernels: K1 at the Burgers k = 4 shapes, K1-K5 at "

@@ -8,18 +8,17 @@ here map such trees leaf by leaf, keeping their structure:
   arrays) into tensors, keeping each leaf's dtype unless told otherwise;
 * :func:`params_to_numpy` is the inverse;
 * :func:`load_jax_checkpoint` reads a ``step_<N>/shard_0.npz`` +
-  ``manifest.json`` directory written by the JAX package's
-  ``ckpt.CheckpointManager``, whose leaf keys are the flattened tree path:
-  ``.field`` for a NamedTuple field, the index for a tuple entry, the key
-  for a dict entry, joined with ``/`` (e.g. ``.w_hidden`` or ``2/0``).
+  ``manifest.json`` directory written by either package's
+  ``ckpt.CheckpointManager``, whose leaf keys are the flattened tree path
+  (:func:`leaf_keys`): ``.field`` for a NamedTuple field, the index for a
+  tuple or list entry, the key for a dict entry, joined with ``/`` (e.g.
+  ``.w_hidden`` or ``2/0``).
 
 Nothing here imports JAX: the port reads the files, not the library.
 """
 
 from __future__ import annotations
 
-import json
-import os
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -62,6 +61,13 @@ def leaf_keys(tree: Tree) -> list[str]:
     return keys
 
 
+def by_key(tree: Tree) -> dict:
+    """``tree``'s leaves by checkpoint key."""
+    out = {}
+    tree_map(lambda key, leaf: out.__setitem__(key, leaf), tree)
+    return out
+
+
 def to_device(tree: Tree, device) -> Tree:
     """Every tensor leaf of ``tree`` on ``device``."""
     return tree_map(lambda _, t: torch.as_tensor(t).to(device), tree)
@@ -90,51 +96,28 @@ def params_to_numpy(tree: Tree) -> Tree:
     return tree_map(lambda _, t: t.detach().cpu().numpy(), tree)
 
 
-def _steps(directory: str) -> list[int]:
-    out = []
-    for name in os.listdir(directory):
-        if name.startswith("step_") and name[5:].isdigit():
-            out.append(int(name[5:]))
-    return sorted(out)
-
-
 def load_jax_checkpoint(directory: str, net, step: Optional[int] = None, *,
                         dtype: torch.dtype = torch.float64,
                         device=None) -> Tree:
-    """``net``'s parameters from a JAX ``CheckpointManager`` directory
-    (latest step by default), as tensors of ``dtype`` on ``device`` (the
-    CUDA device by default).  Raises, naming the leaves, when the
-    checkpoint's leaf set or shapes differ from ``net``'s."""
+    """``net``'s parameters from a ``CheckpointManager`` directory, written
+    by either package (latest step by default), as tensors of ``dtype`` on
+    ``device`` (the CUDA device by default): :meth:`repro_torch.ckpt.
+    CheckpointManager.restore` against ``net.init``'s tree.  Raises, naming
+    the leaves, when the checkpoint's leaf set or shapes differ from
+    ``net``'s."""
+    from repro_torch.ckpt import CheckpointManager
+
     device = resolve_device(device)
+    mgr = CheckpointManager(directory)
     if step is None:
-        steps = _steps(directory)
-        if not steps:
+        step = mgr.latest_step()
+        if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory!r}")
-        step = steps[-1]
-    path = os.path.join(directory, f"step_{step:010d}")
-    with np.load(os.path.join(path, "shard_0.npz")) as z:
-        arrays = {k: z[k] for k in z.files}
-    stored = set(arrays)
-    manifest = os.path.join(path, "manifest.json")
-    if os.path.exists(manifest):
-        with open(manifest) as f:
-            stored = set(json.load(f).get("leaves", stored))
-
-    like = net.init(torch.Generator().manual_seed(0), dtype=dtype, device="cpu")
-    wanted = set(leaf_keys(like))
-    missing, extra = sorted(wanted - stored), sorted(stored - wanted)
-    if missing or extra:
-        raise ValueError(
-            f"checkpoint step {step} does not match {type(net).__name__}:\n"
-            f"  leaves missing from the checkpoint: {missing or 'none'}\n"
-            f"  checkpoint leaves the network lacks: {extra or 'none'}\n"
-            f"(checkpoint: {path})")
-
-    def load(key, ref):
-        arr = arrays[key]
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, "
+    like = net.init(torch.Generator().manual_seed(0), dtype=dtype, device=device)
+    params = mgr.restore(step, like)
+    got = by_key(params)
+    for key, ref in by_key(like).items():
+        if got[key].shape != ref.shape:
+            raise ValueError(f"checkpoint leaf {key!r} has shape {tuple(got[key].shape)}, "
                              f"the network wants {tuple(ref.shape)}")
-        return torch.as_tensor(arr).to(device=device, dtype=dtype)
-
-    return tree_map(load, like)
+    return params

@@ -119,20 +119,34 @@ def gather_rows(local: torch.Tensor, dim: int, mesh: DataMesh) -> torch.Tensor:
     """Every rank's ``local`` (one shape on every rank) concatenated along
     ``dim``, rank order, on every rank.  Data movement only: the values are
     the ranks' values, bit for bit.  gloo runs only broadcast and
-    all_reduce on CUDA tensors, so there each rank writes its block into a
-    zero buffer and the buffers are summed, which is exact: each entry has
-    one term that is not a zero."""
+    all_reduce on CUDA tensors, so there :func:`gather_rows_by_sum` does
+    the gather; every other backend runs ``all_gather``."""
     moved = local.movedim(dim, 0).contiguous()
-    n, rank, m = mesh.size, mesh.rank, moved.shape[0]
     if moved.is_cuda and dist.get_backend(mesh.group) == "gloo":
-        full = moved.new_zeros((n * m,) + tuple(moved.shape[1:]))
-        full[rank * m:(rank + 1) * m] = moved
-        dist.all_reduce(full, group=mesh.group)
+        full = gather_rows_by_sum(moved, mesh)
     else:
-        parts = [torch.empty_like(moved) for _ in range(n)]
+        parts = [torch.empty_like(moved) for _ in range(mesh.size)]
         dist.all_gather(parts, moved, group=mesh.group)
         full = torch.cat(parts)
     return full.movedim(0, dim)
+
+
+# the integer type gloo sums for each element width (it has no int16)
+_SUM_VIEWS = {1: torch.uint8, 2: torch.uint8, 4: torch.int32, 8: torch.int64}
+
+
+def gather_rows_by_sum(moved: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """The ranks' ``moved`` (contiguous, one shape on every rank) stacked
+    along dim 0 by one all_reduce: each rank writes its rows into a zero
+    buffer and the buffers' integer views are summed.  Each entry has one
+    term that is not all zero bits, and an integer sum with zeros keeps
+    every bit pattern (a float sum would not: -0.0 + 0.0 is +0.0)."""
+    m = moved.shape[0]
+    full = moved.new_zeros((mesh.size * m,) + tuple(moved.shape[1:]))
+    full[mesh.rank * m:(mesh.rank + 1) * m] = moved
+    dist.all_reduce(full.view(-1).view(_SUM_VIEWS[full.element_size()]),
+                    group=mesh.group)
+    return full
 
 
 class _GatherRows(torch.autograd.Function):

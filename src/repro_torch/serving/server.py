@@ -19,8 +19,10 @@ tables.  The moving parts:
   so the numbers include the kernels' run, not only their enqueue.
 
 Construction is direct (``DerivativeServer(net, params, "ntp/cuda")``) or
-from a checkpoint the JAX package's ``ckpt.CheckpointManager`` wrote
-(:meth:`DerivativeServer.from_checkpoint`, through :mod:`repro_torch.bridge`).
+from a checkpoint directory in the format both packages'
+``ckpt.CheckpointManager`` write, whichever package wrote it
+(:meth:`DerivativeServer.from_checkpoint`, through
+:class:`repro_torch.ckpt.CheckpointManager`).
 The server runs on the CUDA device unless ``device="cpu"`` is passed.
 
 Data-parallel serving (``mesh=``, a :class:`repro_torch.parallel.DataMesh`):
@@ -198,9 +200,9 @@ class DerivativeServer:
                         step: Optional[int] = None, dtype=torch.float64,
                         engine="ntp", device=None,
                         **kwargs) -> "DerivativeServer":
-        """Restore ``net``'s parameters from a directory written by the JAX
-        package's ``ckpt.CheckpointManager`` (latest step by default) and
-        serve them."""
+        """Restore ``net``'s parameters from a ``CheckpointManager``
+        directory (latest step by default), whichever package wrote it, as
+        ``dtype`` on ``device``, and serve them."""
         device = resolve_device(device)
         params = load_jax_checkpoint(directory, net, step, dtype=dtype,
                                      device=device)

@@ -8,6 +8,8 @@ leaf (Adam) and as one flat vector (L-BFGS).  Leaf order follows
 entries by **sorted** key, so :func:`ravel` lays a tree out exactly as the
 reference's ``jax.flatten_util.ravel_pytree`` does and the two optimizers'
 histories can be compared entry by entry.
+
+:func:`bit_equal` is the port's one test of bit identity.
 """
 
 from __future__ import annotations
@@ -81,3 +83,24 @@ def ravel(tree: Tree) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Tree]]:
 
 def num_params(tree: Tree) -> int:
     return sum(leaf.numel() for leaf in leaves(tree))
+
+
+# integer types of each element width: comparing these views compares bits
+_INT_VIEWS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def bit_equal(a: Tree, b: Tree) -> bool:
+    """Whether two tensors (or two trees of them, leaf by leaf) hold the same
+    bits: one dtype, one shape, equal integer views.  ``torch.equal``
+    compares values, so it counts -0.0 equal to +0.0 (and a NaN unequal to
+    itself): it cannot say that data moved unchanged."""
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        view = _INT_VIEWS[x.element_size()]
+        if not torch.equal(x.view(view), y.to(x.device).view(view)):
+            return False
+    return True

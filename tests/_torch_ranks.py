@@ -19,6 +19,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.tree import bit_equal
+
 F64 = torch.float64
 
 
@@ -303,7 +305,7 @@ def serving_idle(world_size: int, timeout_s: float = 3.0, idle_s: float = 7.0) -
             before = srv.grid(x, 2, timeout=60)
             time.sleep(idle_s)
             after = srv.grid(x, 2, timeout=60)
-            out = {"equal": bool(torch.equal(before, after)),
+            out = {"equal": bit_equal(before, after),
                    "batches": srv.metrics()["batches"]}
     finally:
         srv.close()
@@ -338,9 +340,39 @@ def train_parity(world_size: int) -> dict:
     return {"single": one.loss_history, "sharded": dp.loss_history}
 
 
+def _signed_zero_rows(rank: int, dtype) -> torch.Tensor:
+    """Rank ``rank``'s rows of the gather check: -0.0 and +0.0 beside
+    values, each rank's different."""
+    return torch.tensor([[-0.0, 0.0, 1.0 + rank], [rank - 2.5, -0.0, -0.0]], dtype=dtype)
+
+
+def gather_signed_zeros(world_size: int) -> dict:
+    """``gather_rows_by_sum`` on every float width against the rows each
+    rank wrote, by bits; beside it the float sum of the same zero-filled
+    buffers, which turns -0.0 into +0.0."""
+    import torch.distributed as dist
+    from repro_torch.parallel import DataMesh
+    from repro_torch.parallel.jet_shard import gather_rows_by_sum
+
+    mesh, out = DataMesh(), {}
+    for dt in (torch.float64, torch.float32, torch.bfloat16, torch.float16):
+        want = torch.cat([_signed_zero_rows(r, dt) for r in range(world_size)])
+        local = _signed_zero_rows(mesh.rank, dt)
+        got = gather_rows_by_sum(local, mesh)
+        summed = torch.zeros_like(want, dtype=torch.float64)
+        summed[mesh.rank * 2:(mesh.rank + 1) * 2] = local.double()
+        dist.all_reduce(summed)
+        summed = summed.to(dt)
+        out[str(dt)] = {"by_sum_bits": bit_equal(got, want),
+                        "float_sum_equal": bool(torch.equal(summed, want)),
+                        "float_sum_bits": bit_equal(summed, want)}
+    return out
+
+
 def everything(world_size: int, **engine_kwargs) -> dict:
     return {"engine": engine_tables(world_size, **engine_kwargs),
-            "training": training(world_size), "serving": serving(world_size)}
+            "training": training(world_size), "serving": serving(world_size),
+            "gather": gather_signed_zeros(world_size)}
 
 
 SCENARIOS = {"everything": everything, "pinn_loss_parity": pinn_loss_parity,

@@ -37,6 +37,7 @@ from repro_torch.kernels import jet_attention as tka
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.serving import DerivativeServer
+from repro_torch.tree import bit_equal
 
 TOL = 1e-12
 # The trunk's derivative tables through order 4: with the init's zero
@@ -346,11 +347,11 @@ def test_flash_attention_bfloat16_matches_float32_plain():
                    for a in _qkvo(40, 3, 2, 2, 3, 4, 5))
     got = tops.jet_flash_attention(q, k, v, wo, 0.5)
     want = tref.jet_flash_attention_ref(q.float(), k.float(), v.float(), wo.float(), 0.5)
-    assert got.dtype == torch.bfloat16 and torch.equal(got, want.to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and bit_equal(got, want.to(torch.bfloat16))
     x = torch.tensor(_stack(41, (4, 3, 6)), dtype=torch.float32).to(torch.bfloat16)
     g = torch.ones(6, dtype=torch.bfloat16)
-    assert torch.equal(tops.jet_rms_norm(x, g),
-                       tref.jet_rms_norm_ref(x.float(), g.float()).to(torch.bfloat16))
+    assert bit_equal(tops.jet_rms_norm(x, g),
+                     tref.jet_rms_norm_ref(x.float(), g.float()).to(torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from repro_torch.core import ntp as tntp
 from repro_torch.core.engines import (AutodiffEngine, DerivativeEngine,
                                       EngineSpec, NTPEngine)
 from repro_torch.core.network import DenseMLP, make_network, network_names
+from repro_torch.tree import bit_equal
 
 TOL = 1e-12
 NETS = {"dense": dict(d_in=2, d_out=1, width=8, depth=2),
@@ -150,7 +151,7 @@ def test_mlp_apply_and_init_shapes():
     assert float(p.w_hidden.abs().max()) <= lim
     again = tntp.init_mlp(torch.Generator().manual_seed(0), 2, 32, 3, 1,
                           dtype=torch.float64, device="cpu")
-    assert all(torch.equal(a, b) for a, b in zip(p, again))
+    assert bit_equal(p, again)
     net = DenseMLP.from_params(p)
     assert (net.d_in, net.width, net.depth, net.d_out) == (2, 32, 3, 1)
     x = torch.rand((3, 2), dtype=torch.float64)

@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points run on the CUDA device unless the caller asks for the CPU.
+The port's examples (``examples/torch_*.py``) are held to the import rule
+too.
 
 chip_smoke.py, the port's on-card smoke run, is held to the same rules and
 must fail -- printing no result -- where there is no GPU or no checkout."""
@@ -54,7 +56,8 @@ def _imported_names(path: Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_reference(path):
     for name in _imported_names(path):
@@ -85,8 +88,9 @@ def test_taylor_oracle_is_independent_of_the_jet_algebra():
         assert "core.jet" not in name and not name.startswith(".jet"), name
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
     from repro_torch import bridge, resolve_device
+    from repro_torch.runtime import Trainer, TrainerConfig
     from repro_torch.core.modules import Dense
     from repro_torch.core.network import DenseMLP
     from repro_torch.core.ntp import init_mlp
@@ -101,6 +105,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
                  lambda: net.init(gen, torch.float64),
                  lambda: Dense(2, 3).init(gen),
                  lambda: DerivativeServer(net, params, "ntp/cuda"),
+                 lambda: DerivativeServer.from_checkpoint(str(tmp_path), net),
+                 lambda: bridge.load_jax_checkpoint(str(tmp_path), net),
+                 lambda: Trainer(TrainerConfig(ckpt_dir=str(tmp_path)), None, None),
                  lambda: bridge.params_from_numpy(bridge.params_to_numpy(params))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -25,6 +25,7 @@ from repro_torch.kernels import bell_tables as tbell
 from repro_torch.kernels import tanh_jet
 from repro_torch.kernels.jet_dense import jet_dense_cuda
 from repro_torch.kernels.tanh_jet import act_jet_cuda
+from repro_torch.tree import bit_equal
 
 DTYPES = {"f64": (np.float64, torch.float64, 1e-12),
           "f32": (np.float32, torch.float32, 1e-5)}
@@ -269,7 +270,7 @@ def test_bfloat16_path():
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                    rtol=5e-2, atol=5e-2)
     # the plain version is the float32 computation on the same bfloat16 inputs
-    assert torch.equal(got, tref.jet_dense_ref(c.float(), w.float(), b.float(), "tanh")
+    assert bit_equal(got, tref.jet_dense_ref(c.float(), w.float(), b.float(), "tanh")
                        .to(torch.bfloat16))
 
 

@@ -3,7 +3,9 @@
 In this process (no process group is opened here): padding, the mesh
 policy and its refusals, compressor parsing, and the compression functions
 bit for bit against the reference's (``repro.parallel.compression``) on the
-same arrays.
+same arrays (floats compared by their bits, :func:`repro_torch.tree.
+bit_equal`: ``torch.equal`` and ``np.array_equal`` count -0.0 equal to
++0.0).
 
 Across processes: ``tests/_torch_ranks.py`` spawns 2 or 4 ranks over gloo
 (``file://`` init under ``tmp_path``, no TCP port), once per world size,
@@ -24,7 +26,10 @@ and every test below reads one part of what the ranks returned:
   on the DenseMLP and the Transformer trunk, at 1e-12;
 * ``train_operator(data_parallel=N)`` and ``(mesh=)`` against the
   single-process run on every logged loss (Adam and L-BFGS) at 1e-12;
-* ``DerivativeServer(mesh=)`` against direct engine calls.
+* ``DerivativeServer(mesh=)`` against direct engine calls;
+* ``gather_rows_by_sum`` (the gather ``gather_rows`` runs for gloo on CUDA
+  tensors) returns every rank's rows bit for bit, -0.0 entries included,
+  where a float sum of the same buffers turns them into +0.0.
 
 The ``multidevice`` test (deselected by default) runs the engine sweep at 3
 ranks (pad rows on every shard) on the DenseMLP and the trunk, orders 2 and
@@ -46,6 +51,7 @@ from repro_torch.parallel import (DataMesh, ShardedEngine, compression as tcomp,
                                   pad_rows, resolve_mesh)
 from repro_torch.parallel.jet_shard import _compressor
 from repro_torch.core.engines import NTPEngine
+from repro_torch.tree import bit_equal
 
 TABLE_TOL = 1e-13    # batch-size dependence of the CPU BLAS, see the docstring
 # the trunk's cross tables sum polarization terms that nearly cancel (zero
@@ -64,7 +70,7 @@ def test_pad_rows_remainder_and_identity():
     x = torch.arange(14.0).reshape(7, 2)
     padded, n = pad_rows(x, 4)
     assert n == 7 and padded.shape == (8, 2)
-    assert torch.equal(padded[:7], x) and bool((padded[7:] == 0).all())
+    assert bit_equal(padded[:7], x) and bool((padded[7:] == 0).all())
     same, n2 = pad_rows(x, 7)
     assert same is x and n2 == 7
     with pytest.raises(ValueError, match="multiple"):
@@ -118,15 +124,15 @@ def test_compression_functions_bit_for_bit_against_the_reference(dtype):
         tq, ts = tcomp.quantize_int8(torch.from_numpy(g))
         jq, js = jcomp.quantize_int8(jnp.asarray(g))
         assert np.array_equal(tq.numpy(), np.asarray(jq)) and float(ts) == float(js)
-        assert np.array_equal(tcomp.dequantize_int8(tq, ts).numpy(),
-                              np.asarray(jcomp.dequantize_int8(jq, js)))
+        assert bit_equal(tcomp.dequantize_int8(tq, ts),
+                         torch.tensor(np.asarray(jcomp.dequantize_int8(jq, js))))
         terr = torch.from_numpy(err).to(torch.bfloat16)
         jerr = jnp.asarray(err).astype(jnp.bfloat16)
         tq, ts, tn = tcomp.ef_compress(torch.from_numpy(g), terr)
         jq, js, jn = jcomp.ef_compress(jnp.asarray(g), jerr)
         assert np.array_equal(tq.numpy(), np.asarray(jq)) and float(ts) == float(js)
         assert tn.dtype == torch.bfloat16
-        assert np.array_equal(tn.float().numpy(), np.asarray(jn.astype(jnp.float32)))
+        assert bit_equal(tn.float(), torch.tensor(np.asarray(jn.astype(jnp.float32))))
         for frac in (0.05, 0.3, 1.0):
             assert np.array_equal(tcomp.topk_mask(torch.from_numpy(g), frac).numpy(),
                                   np.asarray(jcomp.topk_mask(jnp.asarray(g), frac)))
@@ -134,6 +140,22 @@ def test_compression_functions_bit_for_bit_against_the_reference(dtype):
     ef = tcomp.ef_init(tree)
     assert ef["w"].dtype == torch.bfloat16 and ef["b"][0].shape == (4,)
     assert all(float(t.abs().max()) == 0.0 for t in (ef["w"], ef["b"][0]))
+
+
+def test_bit_equal_tells_signed_zeros_apart():
+    """``torch.equal`` compares values: -0.0 == +0.0 passes it.  bit_equal
+    compares the integer views, so it does not, at every float width, and
+    it also checks dtype and shape, and trees leaf by leaf."""
+    for dt in (torch.float64, torch.float32, torch.bfloat16, torch.float16):
+        neg, pos = torch.tensor([1.5, -0.0], dtype=dt), torch.tensor([1.5, 0.0], dtype=dt)
+        assert torch.equal(neg, pos) and not bit_equal(neg, pos)
+        assert bit_equal(neg, neg.clone())
+    nan = torch.tensor([float("nan")])
+    assert not torch.equal(nan, nan) and bit_equal(nan, nan.clone())
+    x = torch.zeros(4)
+    assert not bit_equal(x, x.double()) and not bit_equal(x, x.reshape(2, 2))
+    assert bit_equal({"a": (x, x[:2])}, {"a": (x.clone(), x[:2].clone())})
+    assert not bit_equal((x,), (x, x))
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +267,15 @@ def test_sharded_server_matches_direct_engine_calls(ranks):
         assert "do not divide" in res[r]["serving"]["bucket_guard"]
     for r in range(1, n):
         assert "submit them on rank 0" in res[r]["serving"]["follower_submit"]
+
+
+def test_integer_sum_gather_keeps_signed_zeros(ranks):
+    n, res = ranks
+    for r in range(n):
+        for dtype, got in res[r]["gather"].items():
+            assert got["by_sum_bits"], (r, dtype)
+            # the float sum the gather ran before: equal by value, not by bits
+            assert got["float_sum_equal"] and not got["float_sum_bits"], (r, dtype)
 
 
 def test_sharded_server_outlives_an_idle_gap_longer_than_the_group_timeout(tmp_path):

@@ -114,7 +114,7 @@ def test_random_samplers_are_seeded_boxes():
     a = tcol.sample_box(torch.Generator().manual_seed(3), domain, 500, device="cpu")
     b = tcol.sample_box(torch.Generator().manual_seed(3), domain, 500, device="cpu")
     assert a.shape == (500, 3) and a.dtype == torch.float64
-    assert torch.equal(a, b)
+    assert tree.bit_equal(a, b)
     for axis, (lo, hi) in enumerate(domain):
         assert lo <= float(a[:, axis].min()) and float(a[:, axis].max()) <= hi
         assert float(a[:, axis].max() - a[:, axis].min()) > 0.9 * (hi - lo)

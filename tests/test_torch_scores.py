@@ -32,6 +32,7 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import jet_attention as tka
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.tree import bit_equal
 
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 # the reference's own test shapes (tests/test_kernels.py): ragged T, T = 1,
@@ -217,7 +218,7 @@ def test_bfloat16_is_the_float32_plain_version_rounded():
             for a in _qk(60, 3, (2, 5, 4)))
     got = tops.jet_attention_scores(q, k, 0.5)
     want = tref.jet_attention_scores_ref(q.float(), k.float(), 0.5).to(torch.bfloat16)
-    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert got.dtype == torch.bfloat16 and bit_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

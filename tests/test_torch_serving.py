@@ -28,6 +28,7 @@ from repro_torch.serving import (DerivativeServer, ExecutableCache,
                                  RequestTooLargeError, ServerClosedError,
                                  ServerOverloadedError, pad_fraction, pad_to,
                                  pick_bucket)
+from repro_torch.tree import bit_equal
 
 KW = dict(d_in=2, d_out=1, width=8, depth=2)
 
@@ -300,6 +301,6 @@ def test_bridge_roundtrip_both_directions(model):
         np.testing.assert_array_equal(a, np.asarray(b))
     again = bridge.params_from_numpy(back, device="cpu")
     assert type(again).__name__ == "MLPParams"
-    assert all(torch.equal(a, b) for a, b in zip(again, tp))
+    assert bit_equal(again, tp)
     f32 = bridge.params_from_numpy(back, dtype=torch.float32, device="cpu")
     assert all(t.dtype == torch.float32 for t in f32)

@@ -22,6 +22,7 @@ from repro.kernels import bell_tables as jbell
 from repro_torch.core import activations as tact
 from repro_torch.kernels import bell_tables as tbell
 from repro_torch.kernels import tanh_jet
+from repro_torch.tree import bit_equal
 
 # the packages' __init__ re-export a function named `partitions`, which
 # shadows the submodule as an attribute
@@ -253,7 +254,7 @@ def test_runtime_epilogue_walk_reads_the_listed_parts():
     reads those past the fourth from the list, still bit for bit."""
     from repro_torch.kernels import ref as tref
     z = torch.tensor(np.random.default_rng(26).normal(size=(27, 3, 2)) * 0.3)
-    assert torch.equal(_runtime_epilogue(z, "tanh"), tref.act_jet_ref(z, "tanh"))
+    assert bit_equal(_runtime_epilogue(z, "tanh"), tref.act_jet_ref(z, "tanh"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -266,7 +267,7 @@ def test_runtime_epilogue_walk_equals_the_plain_version(activation, n, dtype):
     from repro_torch.kernels import ref as tref
     z = torch.tensor(np.random.default_rng(n).normal(size=(n + 1, 6, 5)) * 0.5, dtype=dtype)
     want = z if activation is None else tref.act_jet_ref(z, activation)
-    assert torch.equal(_runtime_epilogue(z, activation), want)
+    assert bit_equal(_runtime_epilogue(z, activation), want)
 
 
 @pytest.mark.parametrize("name", sorted(tact.TAYLOR_STACKS))

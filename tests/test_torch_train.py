@@ -99,7 +99,7 @@ def test_ravel_matches_ravel_pytree_layout():
         np.testing.assert_array_equal(_np(flat), np.asarray(want))
         back = unravel(flat)
         for a, b in zip(tree.leaves(back), tree.leaves(ptree)):
-            assert torch.equal(a, b)
+            assert tree.bit_equal(a, b)
     assert tree.num_params(_port(jp)) == sum(x.size for x in
                                              jax.tree_util.tree_leaves(jp))
 
@@ -133,7 +133,7 @@ def test_adam_rounds_float64_parameters_through_float32():
     p = {"w": torch.tensor([1.0 + 1e-12, math.pi], dtype=torch.float64)}
     g = {"w": torch.tensor([1e-3, -2e-3], dtype=torch.float64)}
     new, _ = adam_update(g, adam_init(p), p, 1e-3)
-    assert torch.equal(new["w"], new["w"].float().double())
+    assert tree.bit_equal(new["w"], new["w"].float().double())
 
 
 def _rosenbrock(np_mod, x):
