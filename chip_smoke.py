@@ -146,6 +146,29 @@ Phases, each failing loudly with a non-zero exit:
    ``examples/torch_serve_operator.py``; every identity ``bit_equal``,
    launches counted, save / restore / first-answer times and the served
    p50 printed;
+   6d. the LM substrate's attention family (``repro_torch.models``,
+   ``launch/``), within LM_PHASE_LIMIT_S, launch counters zeroed before and
+   read after (it launches none of the port's kernels): (a) the six
+   attention archs reduced, float32, the same parameters on the card and
+   the CPU (logits within TOL_LM_CARD_CPU), prefill + decode against the
+   full forward, blocked against full attention; qwen3-0.6b at its
+   published widths (596 M parameters): (b) float32 prefill + decode
+   against the full forward, (c) bfloat16 served by ``launch.serve.run``
+   twice (the same tokens; prefill ms, decode ms a token), (d) float64
+   ``jet_forward_dense`` at order 3 against nested ``torch.func.jvp``
+   (TOL_LM_JET), (e) bfloat16 trained by ``launch.train.run`` with the
+   order-3 penalty and without (finite losses, CE falling, ms a step, the
+   penalty's share, peak memory);
+   6e. the five other attention archs (LM_WIDE) at their published widths
+   and depths, within LM_WIDE_LIMIT_S: each served at bfloat16 by
+   ``launch.serve.run`` (tokens in range, prefill ms, decode ms a token)
+   with prompts past the local windows, then prefill + decode against the
+   full forward at float64 with the float32 islands lifted (TOL_LM_WIDE_F64)
+   and at float32 against that result (gemma2-27b at 6 of 46 layers, llava
+   at 16 of 32, whisper at 4 + 4 of 32 + 32 layers, its random stacks
+   being chaotic: the phase measures it);
+   6f. the LM path traced: one decode step of 6d (c) and one training step
+   with the penalty of 6d (e), device-busy share and device ops;
 7. K1 at the shapes the training phases launched it most (recorded while
    they ran), beside its plain version and bound; 7b. the run-time-order
    kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
@@ -374,6 +397,47 @@ CKPT_FAIL_AT = 12
 CKPT_PREEMPT_AT = 7
 EXAMPLE_ARGV = ["--op", "heat", "--steps", "20", "--width", "32", "--depth", "3",
                 "--clients", "4", "--points", "128"]
+
+# phase 6d: the LM substrate's attention family (repro_torch.models, launch/)
+LM_ARCHS = ("qwen3-0.6b", "granite-3-2b", "gemma3-4b", "gemma2-27b",
+            "llava-next-mistral-7b", "whisper-large-v3")   # (a): reduced, float32
+LM_FULL = "qwen3-0.6b"                 # (b)-(e): at its published widths
+LM_B, LM_S = 2, 32                     # (a), (b): batch rows, tokens
+TOL_LM_CARD_CPU = 1e-4                 # (a): card vs CPU logits, of the logit scale
+LM_DECODE_RTOL, LM_DECODE_ATOL = 2e-2, 2e-4   # prefill + decode vs the full forward
+LM_BLOCKED_RTOL, LM_BLOCKED_ATOL = 1e-4, 1e-5  # blocked vs full attention
+LM_CHUNKS = (16, 32)                   # (a): query / key chunks of blocked_attention
+LM_SERVE = dict(batch=4, prompt_len=32, gen=16)    # (c), bfloat16, greedy
+LM_JET = dict(batch=1, tokens=16, order=3)         # (d), float64
+TOL_LM_JET = 1e-9                      # (d): jet vs nested jvp, of each order's max
+LM_TRAIN = dict(batch=2, seq=4096, steps=3, lr=1e-3, ntp_order=3)   # (e), bfloat16
+LM_PHASE_LIMIT_S = 120.0
+
+# phase 6e: the five other attention archs at their published widths.  Per
+# arch: batch rows, prompt tokens (after llava's 2880 image tokens), tokens
+# served, decoder layers of the decode check (None: all) and why they are
+# cut.  The prompts outrun the local windows (gemma3 1024, gemma2 and llava
+# 4096) so the local masks and the ring's eviction apply.  The check runs at
+# float64 with the float32 islands lifted and at float32 on the same
+# weights.  "memory": the float64 weights and S^2 scores must fit the card.
+# "chaos": whisper's random stacks amplify a perturbation so far (the phase
+# measures it, LM_PERTURB) that at 32 + 32 layers a 2^-50 change moves the
+# logits O(1): float64 rounding alone parts the two paths; its check runs
+# 4 encoder and 4 decoder layers on the 1500 frames.  Other random deep
+# stacks amplify rounding too, so at full depth float32's two orders
+# of summation part by more than the reference test's bound; the float32
+# gate is the CPU tests' rule instead: the decode path within
+# LM_WIDE_F32_FACTOR x the full forward's own error against the float64
+# result.
+LM_WIDE = {"granite-3-2b": (2, 1024, 8, None, ""),
+           "gemma3-4b": (1, 2048, 8, None, ""),
+           "gemma2-27b": (1, 5120, 8, 6, "memory"),
+           "llava-next-mistral-7b": (1, 2240, 8, 16, "memory"),
+           "whisper-large-v3": (2, 64, 8, 4, "chaos")}
+LM_PERTURB = 2.0 ** -50                # relative change of the embedding table
+TOL_LM_WIDE_F64 = 1e-9                 # lifted float64: decode vs full, of the logit scale
+LM_WIDE_F32_FACTOR, LM_WIDE_F32_FLOOR = 4.0, 1e-5
+LM_WIDE_LIMIT_S = 240.0
 
 
 class SmokeFailure(RuntimeError):
@@ -2852,18 +2916,21 @@ KERNEL_NAMES = ("jet_dense", "act_jet", "jet_rms_norm", "jet_flash_attention",
                 "jet_attention_scores")
 
 
-def profile_ms(fn, reps: int) -> dict | None:
+def profile_ms(fn, reps: int, host_ops: bool = True) -> dict | None:
     """Device busy ms per call of ``fn`` from ``torch.profiler``: the sum of
     the CUDA kernels' (and copies') device intervals, split into the port's
     own kernels (by their ``<name>_kernel`` symbol) and everything else
     (the eager ops: backward recomputes, Adam, small ops).  None when the
-    profiler recorded no device event."""
+    profiler recorded no device event.  ``host_ops=False`` records the
+    device activity alone (a step of ~10^5 eager ops then costs seconds to
+    trace, not minutes)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -3813,6 +3880,499 @@ def train_checkpoint_serve(seed: int, report: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 6d: the LM substrate's attention family
+# ---------------------------------------------------------------------------
+
+def _allclose(got, want, rtol: float, atol: float) -> float:
+    """The worst |got - want| / (atol + rtol |want|): at most 1 where
+    ``torch.allclose(got, want, rtol, atol)`` holds."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def nested_jvp(f, n: int):
+    """t -> (f(t), f'(t), ..., f^(n)(t)) for a scalar t, by n nested
+    ``torch.func.jvp`` (each level carries the orders below it as outputs,
+    so one evaluation gives them all)."""
+    import torch
+
+    if n == 0:
+        return lambda t: (f(t),)
+    lower = nested_jvp(f, n - 1)
+
+    def g(t):
+        primals, tangents = torch.func.jvp(lower, (t,), (torch.ones_like(t),))
+        return primals + (tangents[-1],)
+
+    return g
+
+
+def _lm_decode_and_full(params, cfg, batch):
+    """(logits of prefilling S-1 tokens and decoding the last, the full
+    forward's last logits)."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+
+    s = batch["tokens"].shape[1]
+    pre = dict(batch, tokens=batch["tokens"][:, :s - 1])
+    want = _lm_last_logits(params, cfg, batch)
+    with torch.no_grad():
+        _, st = prefill(params, cfg, pre, pad_to=s + cfg.vlm_image_tokens)
+        got, _ = decode_step(params, cfg, batch["tokens"][:, s - 1:], st)
+    return got, want
+
+
+def _lm_last_logits(params, cfg, batch):
+    import torch
+    from repro_torch.models import forward_seq
+    from repro_torch.models.layers import logits
+
+    with torch.no_grad():
+        x = forward_seq(params, cfg, batch)[0][:, -1:]
+        return logits(params["embed"], x, cfg)[:, 0]
+
+
+def _lm_sensitivity(params, cfg, batch, want) -> float:
+    """How far a LM_PERTURB relative change of the embedding table moves
+    the full forward's last logits ``want``, of their scale."""
+    table = params["embed"]["table"]
+    moved = _lm_last_logits(dict(params, embed=dict(params["embed"],
+                                                    table=table * (1 + LM_PERTURB))),
+                            cfg, batch)
+    return float((moved - want).abs().max() / want.abs().max())
+
+
+def _lm_prefill_decode(params, cfg, batch) -> float:
+    """Prefill S-1 tokens, decode the last, against the full forward's last
+    logits (the reference test's bound, as a fraction of it)."""
+    return _allclose(*_lm_decode_and_full(params, cfg, batch), LM_DECODE_RTOL, LM_DECODE_ATOL)
+
+
+class _Wide:
+    """A module proxy whose ``float32`` is float64."""
+
+    def __init__(self, module, wide):
+        self._module, self.float32 = module, wide
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+def lifted_islands():
+    """A context in which the LM modules' float32 islands (RMS norm's mean
+    square, RoPE's angles, attention scores) compute in float64, as the
+    CPU tests lift them (``tests/_torch_lm.py``): a float64 model then
+    computes in float64 throughout."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from repro_torch.models import attention, layers, transformer
+
+    stack = contextlib.ExitStack()
+    for mod in (layers, attention, transformer):
+        stack.enter_context(mock.patch.object(mod, "torch", _Wide(torch, torch.float64)))
+    return stack
+
+
+def lm_reduced_archs(seed: int, out: dict) -> None:
+    """(a) The six attention archs reduced, float32, the same parameters on
+    the card and on the CPU: the card's logits of the whole sequence
+    within TOL_LM_CARD_CPU of the CPU port's (of the logit scale); prefill
+    of S-1 tokens and one decode step against the card's full forward;
+    ``blocked_attention`` (chunks LM_CHUNKS) against ``full_attention`` on
+    the first layer, whose pattern picks the local or the global branch."""
+    import torch
+    from repro_torch.bridge import to_device
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models import attention, forward_seq, init_model
+    from repro_torch.models.layers import logits
+    from repro_torch.models.transformer import _pattern_at, stack_layers
+
+    for arch in LM_ARCHS:
+        cfg = get_arch(arch).reduced()
+        cpu_params = init_model(cfg, seed, device="cpu")
+        cpu_batch = synthetic_batch(cfg, ShapeCfg("lm", LM_S + cfg.vlm_image_tokens, LM_B,
+                                                  "prefill"), 0, device="cpu")
+        params, batch = to_device(cpu_params, DEVICE), to_device(cpu_batch, DEVICE)
+        with torch.no_grad():
+            lg = {name: logits(p["embed"], forward_seq(p, cfg, b)[0], cfg).cpu()
+                  for name, p, b in (("card", params, batch), ("cpu", cpu_params, cpu_batch))}
+        card_cpu = rel_err(lg["card"], lg["cpu"], 0)
+        require(card_cpu <= TOL_LM_CARD_CPU,
+                f"LM {arch}: card logits {card_cpu:.3e} from the CPU port's")
+        decode = _lm_prefill_decode(params, cfg, batch)
+        require(decode <= 1.0, f"LM {arch}: prefill + decode {decode:.3f} of the bound "
+                               f"(rtol {LM_DECODE_RTOL}, atol {LM_DECODE_ATOL})")
+        j, lp = next(stack_layers(params["stack"], cfg))
+        window = cfg.window if _pattern_at(cfg, j) == "local" else None
+        x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator().manual_seed(seed)
+                        ).to(DEVICE)
+        with torch.no_grad():
+            blocked, _ = attention.blocked_attention(lp["attn"], cfg, x, window=window,
+                                                     q_chunk=LM_CHUNKS[0],
+                                                     kv_chunk=LM_CHUNKS[1])
+            full, _ = attention.full_attention(lp["attn"], cfg, x, causal=True, window=window)
+        branch = "local" if window is not None and window + LM_CHUNKS[0] < 64 else "global"
+        blocked_err = _allclose(blocked, full, LM_BLOCKED_RTOL, LM_BLOCKED_ATOL)
+        require(blocked_err <= 1.0, f"LM {arch}: blocked ({branch}) vs full attention "
+                                    f"{blocked_err:.3f} of the bound")
+        out[arch] = {"card_vs_cpu": card_cpu, "decode_of_bound": decode,
+                     "blocked_branch": branch, "blocked_of_bound": blocked_err}
+        print(f"    (a) {arch} reduced f32: card vs CPU logits {card_cpu:.2e}; prefill + "
+              f"decode {decode:.3f} of the bound; blocked ({branch}) vs full "
+              f"{blocked_err:.3f} of the bound")
+
+
+def lm_full_width(seed: int, report: dict) -> dict:
+    """Phase 6d: the LM substrate's attention family on the card (ported
+    models, serve and train launchers, the jet regularizer), launch counters
+    zeroed before and read after: the path launches none of the port's
+    kernels (the reference's LM path reaches no Pallas kernel).
+    (a) ``lm_reduced_archs``;
+    (b) qwen3-0.6b at its published widths (28 layers, d_model 1024, vocab
+        151936), float32: prefill + decode against the full forward, B 2,
+        S 32;
+    (c) the same at bfloat16, its published dtype, served through
+        ``launch.serve.run`` (B 4, prompt 32, greedy, 16 tokens) twice, the
+        same tokens both times, prefill ms and decode ms a token;
+    (d) the same at float64: ``jet_forward_dense`` at order 3 (B 1, 16
+        tokens) against nested ``torch.func.jvp`` of ``dense_primal``,
+        within TOL_LM_JET of each order's max;
+    (e) the same at bfloat16 trained by ``launch.train.run`` with the
+        order-3 penalty (B 2, S 4096, 3 steps, no checkpoint inside the run),
+        and without it: every CE and penalty finite and >= 0, the last CE
+        below the first, ms a step, the penalty's share, peak memory.
+    Phase 6f traces a step of (c) and of (e)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import jet as J
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.ntp_reg import REG_TOKENS, dense_primal, jet_forward_dense
+    from repro_torch.models import init_model
+    from repro_torch.models.layers import embed
+    from repro_torch.tree import num_params
+
+    t_phase = time.perf_counter()
+    out: dict = {"reduced": {}}
+    smi = nvidia_smi_line()
+    ops.reset_launch_counts()
+    lm_reduced_archs(seed, out["reduced"])
+    base = get_arch(LM_FULL)
+
+    # (b) float32 at full width
+    cfg = dataclasses.replace(base, dtype="float32")
+    params = init_model(cfg, seed, device=DEVICE)
+    out["n_params"] = num_params(params)
+    batch = synthetic_batch(cfg, ShapeCfg("lm", LM_S, LM_B, "prefill"), 0, device=DEVICE)
+    decode = _lm_prefill_decode(params, cfg, batch)
+    require(decode <= 1.0, f"LM {LM_FULL} full width f32: prefill + decode {decode:.3f} "
+                           f"of the bound")
+    out["full_f32_decode_of_bound"] = decode
+    print(f"    (b) {LM_FULL} at full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {out['n_params']} parameters) f32: prefill + decode "
+          f"{decode:.3f} of the bound (B {LM_B}, S {LM_S}); cut: f32, not the published "
+          f"bf16 (a bf16 check is no tighter than 'finite' against an f32 reference)")
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) bfloat16 serving, twice
+    params = init_model(base, seed, device=DEVICE)
+    runs = [serve.run(base, LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"],
+                      params=params, device=DEVICE) for _ in range(2)]
+    require(torch.equal(runs[0]["tokens"], runs[1]["tokens"]),
+            f"LM serve: two runs gave different tokens")
+    require(runs[0]["tokens"].shape == (LM_SERVE["batch"], LM_SERVE["gen"])
+            and int(runs[0]["tokens"].min()) >= 0
+            and int(runs[0]["tokens"].max()) < base.vocab, "LM serve: tokens out of range")
+    out["serve"] = {f"run{i}": {k: r[k] for k in ("prefill_ms", "decode_ms", "ms_per_token")}
+                    for i, r in enumerate(runs)}
+    print(f"    (c) {LM_FULL} bf16 served (B {LM_SERVE['batch']}, prompt "
+          f"{LM_SERVE['prompt_len']}, greedy, {LM_SERVE['gen']} tokens): the same tokens "
+          f"twice; prefill {runs[1]['prefill_ms']:.2f} ms, decode "
+          f"{runs[1]['ms_per_token']:.2f} ms/token (first run {runs[0]['prefill_ms']:.2f} / "
+          f"{runs[0]['ms_per_token']:.2f}) | {smi}")
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) the jet at float64 against nested forward-mode autodiff
+    cfg = dataclasses.replace(base, dtype="float64")
+    params = init_model(cfg, seed, device=DEVICE)
+    toks = synthetic_batch(cfg, ShapeCfg("jet", LM_JET["tokens"], LM_JET["batch"], "train"),
+                           0, device=DEVICE)["tokens"]
+    n = LM_JET["order"]
+    with torch.no_grad():
+        x0 = embed(params["embed"], toks, cfg)
+        v = torch.randn(x0.shape, generator=torch.Generator().manual_seed(seed),
+                        dtype=x0.dtype).to(DEVICE) * (x0.shape[-1] ** -0.5)
+        t0 = time.perf_counter()
+        jet = J.derivatives(jet_forward_dense(params, cfg, toks, n, direction=v))
+        torch.cuda.synchronize()
+        jet_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = nested_jvp(lambda t: dense_primal(params, cfg, x0 + t * v), n)(
+            torch.zeros((), dtype=torch.float64, device=DEVICE))
+        torch.cuda.synchronize()
+        oracle_ms = 1e3 * (time.perf_counter() - t0)
+        errs = [rel_err(jet[k], want[k], 0) for k in range(n + 1)]
+    require(max(errs) <= TOL_LM_JET, f"LM jet vs nested jvp: {errs} (TOL_LM_JET {TOL_LM_JET})")
+    out["jet"] = {"errors_by_order": errs, "jet_ms": jet_ms, "oracle_ms": oracle_ms}
+    print(f"    (d) jet_forward_dense order {n} f64 (B {LM_JET['batch']}, "
+          f"{LM_JET['tokens']} tokens) vs nested jvp: {' '.join(f'{e:.1e}' for e in errs)} "
+          f"by order; {jet_ms:.1f} ms, the oracle {oracle_ms:.1f} ms")
+    del params, jet
+    torch.cuda.empty_cache()
+
+    # (e) Sobolev training at bfloat16, with and without the penalty
+    t_e = time.perf_counter()
+    out["a_to_d_seconds"] = t_e - t_phase
+    shape = ShapeCfg("lm_train", LM_TRAIN["seq"], LM_TRAIN["batch"], "train")
+    out["train"] = {}
+    for order in (LM_TRAIN["ntp_order"], 0):
+        torch.cuda.reset_peak_memory_stats()
+        res = train.run(base, shape, LM_TRAIN["steps"], LM_TRAIN["lr"], ntp_order=order,
+                        ckpt_dir=tempfile.mkdtemp(), ckpt_every=LM_TRAIN["steps"] + 1,
+                        device=DEVICE, seed=seed)
+        peak = torch.cuda.max_memory_allocated()
+        ce, smooth = res["ce"], res["smooth"]
+        require(len(ce) == LM_TRAIN["steps"] and res["report"].restarts == 0,
+                f"LM train order {order}: {len(ce)} steps, {res['report'].restarts} restarts")
+        require(all(math.isfinite(c) and c >= 0 for c in ce + smooth),
+                f"LM train order {order}: CE {ce}, penalty {smooth}")
+        require(ce[-1] < ce[0], f"LM train order {order}: CE {ce[0]:.4f} -> {ce[-1]:.4f}")
+        if order:
+            require(all(s > 0 for s in smooth), f"LM train: penalty {smooth}")
+        steady = sorted(res["step_ms"][1:])[len(res["step_ms"][1:]) // 2]
+        out["train"][f"ntp_order{order}"] = {
+            "ce": ce, "smooth": smooth, "step_ms": res["step_ms"], "median_step_ms": steady,
+            "peak_bytes": peak}
+        del res
+        torch.cuda.empty_cache()
+    with_p, without = (out["train"][f"ntp_order{o}"] for o in (LM_TRAIN["ntp_order"], 0))
+    share = 1.0 - without["median_step_ms"] / with_p["median_step_ms"]
+    out["train"]["penalty_share"] = share
+    print(f"    (e) {LM_FULL} bf16 trained (B {LM_TRAIN['batch']}, S {LM_TRAIN['seq']}, "
+          f"{LM_TRAIN['steps']} steps, lr {LM_TRAIN['lr']}): with the order-"
+          f"{LM_TRAIN['ntp_order']} penalty CE {with_p['ce'][0]:.4f} -> "
+          f"{with_p['ce'][-1]:.4f}, penalty {with_p['smooth'][0]:.3e} -> "
+          f"{with_p['smooth'][-1]:.3e}, {with_p['median_step_ms']:.1f} ms/step (median after "
+          f"the first), peak {with_p['peak_bytes'] / 2**30:.2f} GiB; without it "
+          f"{without['median_step_ms']:.1f} ms/step, peak "
+          f"{without['peak_bytes'] / 2**30:.2f} GiB: the penalty is {100 * share:.1f}% of "
+          f"a step at S {LM_TRAIN['seq']} (the penalty rides {REG_TOKENS} tokens whatever "
+          f"S) | {smi}")
+    out["e_seconds"] = time.perf_counter() - t_e
+    print(f"    (a)-(d) took {out['a_to_d_seconds']:.1f} s, (e) {out['e_seconds']:.1f} s")
+    print(f"    cuts: (e) B {LM_TRAIN['batch']} x S {LM_TRAIN['seq']}, not train_4k's B 256 "
+          f"(sharded across cards in the reference; on one card the phase's "
+          f"{LM_PHASE_LIMIT_S:.0f} s bounds the steps); (b) f32, not bf16")
+
+    launches = ops.launch_counts()
+    require(not any(launches.values()), f"LM path launched the port's kernels: {launches}")
+    seconds = time.perf_counter() - t_phase
+    out.update(launches=launches, seconds=seconds, nvidia_smi=smi)
+    report["lm"] = out
+    require(seconds <= LM_PHASE_LIMIT_S,
+            f"LM phase took {seconds:.1f} s (limit {LM_PHASE_LIMIT_S:.0f} s)")
+    return {"lm": launches}
+
+
+def _trace_line(t: dict) -> str:
+    prof = t["profile"]
+    events = f", CUDA events {t['event_ms']:.2f} ms" if "event_ms" in t else ""
+    if prof is None:
+        return f"wall {t['wall_ms']:.2f} ms{events}; device busy not measured (no device event)"
+    return (f"wall {t['wall_ms']:.2f} ms{events}, device busy {prof['busy_ms']:.2f} ms "
+            f"({100 * t['busy_share']:.1f}% of the wall) in "
+            f"{prof['kernels_per_call']:.0f} device ops")
+
+
+def lm_traces(seed: int, report: dict) -> dict:
+    """Phase 6f: where a step of the LM path spends its wall, qwen3-0.6b at
+    its published widths, bfloat16, launch counters zeroed before and read
+    after: one decode step at 6d (c)'s shape (``time_steps``: wall, CUDA
+    events, then a profiled run with its host ops), and one training step
+    with the order-3 penalty at 6d (e)'s shape (the wall of an unprofiled
+    step after a warm one, then ``profile_ms`` of the device activity
+    alone).  Reads the device-busy share and the device ops a token or a
+    step."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import decode_step, init_model, prefill
+    from repro_torch.optim import adam_init
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    ops.reset_launch_counts()
+    base = get_arch(LM_FULL)
+    params = init_model(base, seed, device=DEVICE)
+    prompts = synthetic_batch(base, ShapeCfg("serve", LM_SERVE["prompt_len"], LM_SERVE["batch"],
+                                             "prefill"), 0, device=DEVICE)
+    out: dict = {}
+    with torch.no_grad():
+        lg, st = prefill(params, base, prompts, pad_to=LM_SERVE["prompt_len"] + LM_SERVE["gen"])
+        tok = lg.argmax(-1)[:, None]
+        out["decode"] = time_steps(lambda: decode_step(params, base, tok, st), 5)
+    del st
+    print(f"    decode step (B {LM_SERVE['batch']}, {LM_SERVE['prompt_len']} cached): "
+          f"{_trace_line(out['decode'])}")
+    shape = ShapeCfg("lm_train", LM_TRAIN["seq"], LM_TRAIN["batch"], "train")
+    step = train.train_step(base, LM_TRAIN["lr"], LM_TRAIN["ntp_order"])
+    opt, batch = adam_init(params), synthetic_batch(base, shape, 0, device=DEVICE)
+    out["penalty_step"] = time_steps(lambda: step(params, opt, batch), 1, profiled=False)
+    t_trace = time.perf_counter()
+    prof = profile_ms(lambda: step(params, opt, batch), 1, host_ops=False)
+    out["penalty_step"].update(
+        profile=prof, trace_seconds=time.perf_counter() - t_trace,
+        busy_share=prof["busy_ms"] / out["penalty_step"]["wall_ms"] if prof else None)
+    print(f"    training step with the order-{LM_TRAIN['ntp_order']} penalty (B "
+          f"{LM_TRAIN['batch']} x S {LM_TRAIN['seq']}): {_trace_line(out['penalty_step'])} "
+          f"(device activity alone traced, in {out['penalty_step']['trace_seconds']:.1f} s)"
+          f" | {smi}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    require(not any(launches.values()), f"LM path launched the port's kernels: {launches}")
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    report["lm_traces"] = out
+    return {"lm_traces": launches}
+
+
+def lm_wide_archs(seed: int, report: dict) -> dict:
+    """Phase 6e: the five other attention archs of LM_WIDE at their
+    published widths and depths, launch counters zeroed before and read
+    after (none of the port's kernels).  Each is served at bfloat16, its
+    published dtype, by ``launch.serve.run`` (greedy; the tokens in range,
+    prefill ms and decode ms a token).  Then prefill of S-1 tokens and one
+    decode step against the full forward's last logits, over the prompt's
+    whole length, past the local window where the arch has one: at float64
+    with the float32 islands lifted within TOL_LM_WIDE_F64 of the logit
+    scale, and at float32 on the same weights no further from that float64
+    result than LM_WIDE_F32_FACTOR x the float32 full forward.  The check
+    runs LM_WIDE's layers (gemma2-27b 6 of 46, llava 16 of 32: their
+    float64 weights and scores must fit the card; whisper 4 + 4 of 32 + 32,
+    whose random stacks turn float64 rounding into an O(1) change at full
+    depth: the phase prints how far a LM_PERTURB change of the embedding
+    table moves the float64 logits at the check's depth and, for whisper,
+    at full depth)."""
+    import contextlib
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    from repro_torch.tree import num_params
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    out: dict = {}
+    ops.reset_launch_counts()
+    for arch, (bsz, prompt, gen, check_layers, why) in LM_WIDE.items():
+        t_arch = time.perf_counter()
+        cfg = get_arch(arch)
+        seq = prompt + cfg.vlm_image_tokens
+        local = "local" in cfg.attn_pattern
+        require(not local or seq > cfg.window,
+                f"LM {arch}: {seq} tokens do not outrun the window {cfg.window}")
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, seed, device=DEVICE)
+        n = num_params(params)
+        res = serve.run(cfg, bsz, seq, gen, params=params, device=DEVICE)
+        toks = res["tokens"]
+        require(toks.shape == (bsz, gen) and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab, f"LM {arch} serve: tokens {toks.shape}")
+        peak = torch.cuda.max_memory_allocated()
+        times = {k: res[k] for k in ("prefill_ms", "decode_ms", "ms_per_token")}
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same weights at float32 and at float64 (init draws in float32);
+        # at float64 also how far the stack amplifies a tiny perturbation,
+        # at full depth too where chaos cut the check
+        layers = check_layers or cfg.n_layers
+        res, sens = {}, {}
+        runs = [("float32", layers), ("float64", layers)]
+        if why == "chaos":
+            runs.append(("float64", cfg.n_layers))
+        for dt, depth in runs:
+            c = dataclasses.replace(cfg, dtype=dt, n_layers=depth)
+            if why == "chaos" and cfg.encoder is not None:
+                c = dataclasses.replace(c, encoder=dataclasses.replace(
+                    cfg.encoder, n_layers=min(depth, cfg.encoder.n_layers)))
+            params = init_model(c, seed, device=DEVICE)
+            batch = synthetic_batch(c, ShapeCfg("lm", seq, bsz, "prefill"), 0, device=DEVICE)
+            with lifted_islands() if dt == "float64" else contextlib.nullcontext():
+                if depth == layers:
+                    res[dt] = [t.double() for t in _lm_decode_and_full(params, c, batch)]
+                if dt == "float64":
+                    want = res[dt][1] if depth == layers else _lm_last_logits(params, c, batch)
+                    sens[depth] = _lm_sensitivity(params, c, batch, want)
+            del params, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        (d32, f32), (d64, f64) = res["float32"], res["float64"]
+        scale = float(f64.abs().max())
+        e64 = float((d64 - f64).abs().max()) / scale
+        e_full, e_dec = (float((t - f64).abs().max()) / scale for t in (f32, d32))
+        bound32 = max(LM_WIDE_F32_FLOOR, LM_WIDE_F32_FACTOR * e_full)
+        ref_bound = _allclose(d32, f32, LM_DECODE_RTOL, LM_DECODE_ATOL)
+        require(e64 <= TOL_LM_WIDE_F64, f"LM {arch}: float64 decode vs full forward {e64:.2e} "
+                                        f"of the logit scale (TOL_LM_WIDE_F64 {TOL_LM_WIDE_F64})")
+        require(e_dec <= bound32, f"LM {arch}: float32 decode {e_dec:.2e} from the float64 "
+                                  f"result, the full forward {e_full:.2e}")
+        seconds = time.perf_counter() - t_arch
+        out[arch] = {"n_params": n, "batch": bsz, "prompt": prompt, "tokens": seq, "gen": gen,
+                     **times, "check_layers": layers, "f64_decode_vs_full": e64,
+                     "f32_full_vs_f64": e_full, "f32_decode_vs_f64": e_dec,
+                     "f32_decode_vs_full_of_ref_bound": ref_bound,
+                     "f64_perturbed_by_depth": sens, "cut": why,
+                     "serve_peak_bytes": peak, "seconds": seconds}
+        print(f"    {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, head_dim {cfg.hd}, "
+              f"vocab {cfg.vocab}, {n} parameters; bf16 served B {bsz} x {seq} tokens"
+              f"{f' ({cfg.vlm_image_tokens} image)' if cfg.vlm_image_tokens else ''}"
+              f"{f', {cfg.encoder.seq} encoder frames' if cfg.encoder else ''}"
+              f"{f', window {cfg.window}' if local else ''}, {gen} greedy: prefill "
+              f"{out[arch]['prefill_ms']:.2f} ms, decode {out[arch]['ms_per_token']:.2f} "
+              f"ms/token, peak {peak / 2**30:.2f} GiB; prefill + decode vs the full "
+              f"forward at {layers} layers: f64 (islands lifted) {e64:.1e} of the logit "
+              f"scale; f32 decode {e_dec:.2e} / full {e_full:.2e} from the f64 result "
+              f"(f32 decode vs full {ref_bound:.2f} of the reference test's bound); a "
+              f"2^-50 change of the table moves the f64 logits "
+              f"{', '.join(f'{v:.1e} at {k} layers' for k, v in sens.items())}; "
+              f"{seconds:.1f} s")
+    launches = ops.launch_counts()
+    require(not any(launches.values()), f"LM path launched the port's kernels: {launches}")
+    seconds = time.perf_counter() - t_phase
+    out = {"archs": out, "launches": launches, "seconds": seconds, "nvidia_smi": smi}
+    cut = "; ".join(f"{a}'s decode check at {v['check_layers']} of {get_arch(a).n_layers} "
+                    f"layers{' (encoder too)' if v['cut'] == 'chaos' and get_arch(a).encoder else ''}"
+                    f" ({v['cut']})" for a, v in out["archs"].items() if v["cut"])
+    print(f"    cuts: {cut or 'none'}; every arch at its published widths and, served, its "
+          f"full depth | {smi}")
+    report["lm_wide"] = out
+    require(seconds <= LM_WIDE_LIMIT_S,
+            f"LM wide phase took {seconds:.1f} s (limit {LM_WIDE_LIMIT_S:.0f} s)")
+    return {"lm_wide": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3965,6 +4525,16 @@ def main(argv=None) -> int:
                 f"checkpoint, the Trainer (ckpt_every {CKPT_EVERY}, one failure, preemption), "
                 f"examples/torch_serve_operator.py")
     new_paths.update(train_checkpoint_serve(args.seed, report))
+    phase("6d", f"the LM substrate: six attention archs reduced (card vs CPU, prefill + "
+                f"decode, blocked attention), {LM_FULL} at full width: f32 decode, bf16 "
+                f"serving, the f64 jet regularizer, bf16 Sobolev training")
+    new_paths.update(lm_full_width(args.seed, report))
+    phase("6e", "the LM substrate's five other attention archs at their published widths: "
+                "bf16 served, prefill + decode against the full forward at f64 and f32")
+    new_paths.update(lm_wide_archs(args.seed, report))
+    phase("6f", f"the LM path traced: a decode step and a training step with the penalty, "
+                f"{LM_FULL} bf16")
+    new_paths.update(lm_traces(args.seed, report))
     phase("7", "K1 jet_dense at the shapes the training phases launched it")
     training_times = time_training_shapes(shapes.counts, gen, report)
     phase("7b", "the run-time-order kernels: K1 at the Burgers k = 4 shapes, K1-K5 at "

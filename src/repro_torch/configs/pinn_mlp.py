@@ -3,7 +3,7 @@
 The Burgers trainer (``repro_torch.pinn.trainer.train``) builds this net:
 ``PINNRunConfig(width=24, depth=3)`` with d_in = d_out = 1."""
 
-from .record import ArchConfig
+from .base import ArchConfig
 
 CONFIG = ArchConfig(
     name="pinn-mlp",

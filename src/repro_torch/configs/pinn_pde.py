@@ -19,7 +19,7 @@ d_in input coordinates, so n_heads/head_dim below describe the default
 attention shape, not a sequence model).  d_in follows the operator
 (2 for the (t, x) PDEs, 3 for advection-diffusion's (t, x, y))."""
 
-from .record import ArchConfig
+from .base import ArchConfig
 
 CONFIG = ArchConfig(
     name="pinn-pde",

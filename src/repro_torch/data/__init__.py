@@ -1,3 +1,3 @@
-"""Data pipelines: PINN collocation sampling."""
+"""Data pipelines: PINN collocation sampling and synthetic LM token batches."""
 
-from . import collocation
+from . import collocation, tokens

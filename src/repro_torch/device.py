@@ -12,12 +12,15 @@ import torch
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
-    """``None`` -> the current CUDA device (raises without one); anything
-    else -> ``torch.device(device)`` unchanged."""
+    """``None`` -> the current CUDA device; anything else ->
+    ``torch.device(device)`` unchanged.  Either way a CUDA device raises
+    when there is none."""
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type != "cuda":
+            return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU explicitly")
-    return torch.device("cuda", torch.cuda.current_device())
+    return device if device is not None else torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,165 @@
+"""Shared building blocks: norms, RoPE, MLPs, embeddings, softcaps.
+
+Parameters are plain dicts of tensors, the tree the JAX package's
+``models/layers.py`` builds, key for key, so
+``repro_torch.bridge.params_from_numpy`` carries its parameters across
+unchanged.  The arithmetic is the reference's, float32 islands included:
+``rms_norm`` takes its mean square and ``rope`` its angles in float32
+whatever the model's dtype, as the reference does.
+
+The reference pairs every init with a ``PartitionSpec`` twin for its
+sharded dry-run; that twin belongs to the sharding layer, which the port
+has not taken over yet, so the makers here build values only.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig
+
+Params = Dict[str, Any]
+
+
+class Maker:
+    """Creates initialized parameters of ``dtype`` on ``device``, drawing
+    from ``generator`` (which must live on ``device``) in call order:
+    fan-in normal draws in float32, rounded to ``dtype``."""
+
+    def __init__(self, generator: torch.Generator, dtype: torch.dtype,
+                 device: torch.device):
+        self.generator = generator
+        self.dtype = dtype
+        self.device = device
+
+    def param(self, shape, scale: float | None = None) -> torch.Tensor:
+        leaf = torch.randn(tuple(shape), generator=self.generator, dtype=torch.float32,
+                           device=self.device)
+        return leaf.mul_(fan_in_scale(shape) if scale is None else scale).to(self.dtype)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
+
+
+def fan_in_scale(shape) -> float:
+    """The fan-in normal init's standard deviation for a leaf of ``shape``."""
+    return (shape[-2] if len(shape) >= 2 else shape[-1]) ** -0.5
+
+
+class StackedMaker(Maker):
+    """Maker that prepends a layer-group axis to every parameter it creates,
+    so one init function written for a single layer builds the
+    (n_groups, ...) leaves the group loop indexes.  Each group's slice is
+    drawn on its own into the stacked leaf (the scale that of the stacked
+    shape), so no float32 draw of a whole stacked leaf is ever held."""
+
+    def __init__(self, base: Maker, lead: int):
+        super().__init__(base.generator, base.dtype, base.device)
+        self._base = base
+        self._lead = lead
+
+    def param(self, shape, scale: float | None = None) -> torch.Tensor:
+        full = (self._lead,) + tuple(shape)
+        scale = fan_in_scale(full) if scale is None else scale
+        leaf = torch.empty(full, dtype=self.dtype, device=self.device)
+        for i in range(self._lead):
+            leaf[i] = self._base.param(shape, scale=scale)
+        return leaf
+
+    def zeros(self, shape) -> torch.Tensor:
+        return self._base.zeros((self._lead,) + tuple(shape))
+
+
+def recompute(fn, *args, when: bool = True):
+    """``fn(*args)``, recomputed in the backward instead of saved (the
+    reference's ``jax.checkpoint``) when ``when`` holds and autograd
+    records."""
+    if when and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    inv = torch.rsqrt(torch.mean(x32 * x32, -1, keepdim=True) + eps)
+    return (x32 * inv).to(dt) * (1.0 + gamma.to(dt))
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) integers."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([(x1 * cos - x2 * sin).to(x.dtype),
+                      (x2 * cos + x1 * sin).to(x.dtype)], dim=-1)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form of GELU (the reference's ``approximate=True``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# dense FFNs
+# ---------------------------------------------------------------------------
+
+def init_mlp_block(mk: Maker, cfg: ArchConfig) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {"wi": mk.param((d, 2, f)),  # fused gate+up
+                "wo": mk.param((f, d))}
+    if cfg.mlp == "gelu_mlp":
+        return {"wi": mk.param((d, f)), "wo": mk.param((f, d))}
+    raise NotImplementedError(
+        f"mlp {cfg.mlp!r} is not ported yet (ROADMAP Queue 1 item 6b)")
+
+
+def apply_mlp_block(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp in ("swiglu", "geglu"):
+        gu = torch.einsum("bsd,dtf->bstf", x, p["wi"])
+        gate, up = gu[..., 0, :], gu[..., 1, :]
+        act = F.silu(gate) if cfg.mlp == "swiglu" else gelu(gate)
+        return torch.einsum("bsf,fd->bsd", act * up, p["wo"])
+    if cfg.mlp == "gelu_mlp":
+        return torch.einsum("bsf,fd->bsd", gelu(x @ p["wi"]), p["wo"])
+    raise NotImplementedError(
+        f"mlp {cfg.mlp!r} is not ported yet (ROADMAP Queue 1 item 6b)")
+
+
+# ---------------------------------------------------------------------------
+# embeddings / logits
+# ---------------------------------------------------------------------------
+
+def init_embed(mk: Maker, cfg: ArchConfig) -> Params:
+    p = {"table": mk.param((cfg.vocab, cfg.d_model), scale=cfg.d_model ** -0.5)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = mk.param((cfg.d_model, cfg.vocab))
+    return p
+
+
+def embed(p: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = p["table"][tokens]
+    # the scale rounded to the table's dtype first, as the reference does
+    return x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+
+
+def logits(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        out = torch.einsum("bsd,vd->bsv", x, p["table"])
+    else:
+        out = torch.einsum("bsd,dv->bsv", x, p["lm_head"])
+    return softcap(out, cfg.logit_softcap)

@@ -9,6 +9,8 @@ their ``main(argv)`` on the CPU at a few steps and narrow widths.
 * serve_operator: train -> checkpoint -> serve for every engine spec, each
   served table against a direct call within 1e-12 and the specs against
   each other within 1e-9;
+* serve_lm: reduced gemma3 prefilled and decoded, greedy;
+* sobolev_lm: a few steps of CE + the order-3 jet penalty on reduced qwen3;
 * each refuses to run without the card unless told ``--device cpu``.
 """
 
@@ -26,7 +28,7 @@ from repro_torch.tree import bit_equal
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 NAMES = ("torch_quickstart", "torch_burgers_profile", "torch_pde_operator",
-         "torch_serve_operator")
+         "torch_serve_operator", "torch_serve_lm", "torch_sobolev_lm")
 TOL_DIRECT = 1e-12
 TOL_SPECS = 1e-9
 
@@ -90,6 +92,21 @@ def test_serve_operator_every_spec_agrees_with_direct_calls(tmp_path):
         for got, want in zip(s["tables"], ref):
             assert got.shape == want.shape == (2, 3, 6, 1)
             assert float((got - want).abs().max()) <= TOL_SPECS * float(want.abs().max())
+
+
+def test_serve_lm_prefills_and_decodes_gemma3():
+    out = _example("torch_serve_lm").main(["--arch", "gemma3-4b", "--batch", "2",
+                                           "--prompt-len", "12", "--gen", "4",
+                                           "--device", "cpu"])
+    assert out["tokens"].shape == (2, 4) and out["ms_per_token"] > 0
+
+
+def test_sobolev_lm_trains_with_the_jet_penalty():
+    out = _example("torch_sobolev_lm").main(["--steps", "3", "--batch", "2", "--seq", "16",
+                                             "--device", "cpu"])
+    assert len(out["ce"]) == len(out["smooth"]) == 3
+    assert all(math.isfinite(c) and c > 0 for c in out["ce"])
+    assert all(math.isfinite(s) and s > 0 for s in out["smooth"])
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -95,8 +95,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
     from repro_torch.core.network import DenseMLP
     from repro_torch.core.ntp import init_mlp
     from repro_torch.serving import DerivativeServer
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models import decode_state_specs, init_model
+    from repro_torch.models.attention import init_kv_cache
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lm = get_arch("qwen3-0.6b").reduced()
     net = DenseMLP(d_in=2, width=4, depth=2, d_out=1)
     gen = torch.Generator().manual_seed(0)
     params = net.init(gen, torch.float64, device="cpu")
@@ -108,7 +114,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
                  lambda: DerivativeServer.from_checkpoint(str(tmp_path), net),
                  lambda: bridge.load_jax_checkpoint(str(tmp_path), net),
                  lambda: Trainer(TrainerConfig(ckpt_dir=str(tmp_path)), None, None),
-                 lambda: bridge.params_from_numpy(bridge.params_to_numpy(params))):
+                 lambda: bridge.params_from_numpy(bridge.params_to_numpy(params)),
+                 lambda: init_model(lm, 0),
+                 lambda: init_model(lm, 0, device="cuda"),
+                 lambda: synthetic_batch(lm, ShapeCfg("t", 8, 1, "train"), 0),
+                 lambda: init_kv_cache(lm, 1, 8, 2),
+                 lambda: decode_state_specs(lm, 1, 8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     with DerivativeServer(net, params, "ntp/cuda", device="cpu") as srv:
