@@ -169,6 +169,21 @@ Phases, each failing loudly with a non-zero exit:
    being chaotic: the phase measures it);
    6f. the LM path traced: one decode step of 6d (c) and one training step
    with the penalty of 6d (e), device-busy share and device ops;
+   6g. the recurrent and MoE half (zamba2-2.7b, rwkv6-3b, mixtral-8x7b,
+   llama4-maverick-400b-a17b), within LM_RM_LIMIT_S, launch counters
+   zeroed before and read after (none of the port's kernels): (a) reduced,
+   float32, card against CPU (logits, loss, aux, gradients), step-wise
+   decode against the chunked forward, prefill + decode against the full
+   forward; (b) bfloat16 served by ``launch.serve.run`` at published
+   widths (the recurrent archs warmed step by step; mixtral at 16 of 32
+   layers, llama4 at 2 of 48, for memory), prefill ms, decode ms a token,
+   peak, the MoE dispatch buffers' share; (c) the same decode checks at
+   float64 with the islands lifted (zamba2 at 24 of 54 layers, its random
+   stack being chaotic: the phase measures it; mixtral at 4 layers, llama4
+   at 2 with 16 experts, for memory) and the perturbation's reach; (d) zamba2
+   trained at full width and depth by ``launch.train``'s step, and one
+   training-mode loss + backward on mixtral at 2 layers (balance loss,
+   tokens surviving the capacity drops);
 7. K1 at the shapes the training phases launched it most (recorded while
    they ran), beside its plain version and bound; 7b. the run-time-order
    kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
@@ -438,6 +453,45 @@ LM_PERTURB = 2.0 ** -50                # relative change of the embedding table
 TOL_LM_WIDE_F64 = 1e-9                 # lifted float64: decode vs full, of the logit scale
 LM_WIDE_F32_FACTOR, LM_WIDE_F32_FLOOR = 4.0, 1e-5
 LM_WIDE_LIMIT_S = 240.0
+
+# phase 6g: the recurrent and MoE half of the LM substrate (models/gla.py,
+# ssm.py, rwkv.py, moe.py, zamba2's shared block).  (a) reduced, the same
+# parameters on the card and the CPU, at float64 and float32 (see
+# lm_rm_reduced), then the reference tests' own checks on the card:
+# step-wise decode against the chunked forward (LM_STEPWISE_BOUND on the
+# logits) for the recurrent archs, prefill + decode against the full
+# forward for the MoE ones.
+LM_RM_ARCHS = ("zamba2-2.7b", "rwkv6-3b", "mixtral-8x7b", "llama4-maverick-400b-a17b")
+LM_STEPWISE_BOUND = 5e-3
+TOL_LM_RM_CARD_F64 = 1e-9     # (a): f64 card vs CPU, islands lifted, of each tensor's scale
+# (b) served at bfloat16 by launch.serve.run at published widths: batch
+# rows, prompt tokens (warmed step by step for the recurrent archs), tokens
+# generated, layers (None: all) and why cut.  mixtral's prompt outruns its
+# window (4096), so its local mask applies.
+LM_RM_SERVE = {"zamba2-2.7b": (4, 64, 16, None, ""),
+               "rwkv6-3b": (4, 64, 16, None, ""),
+               "mixtral-8x7b": (1, 4608, 16, 16, "memory: its 32 layers are 93 GiB in bf16"),
+               "llama4-maverick-400b-a17b": (1, 1024, 8, 2, "memory: one MoE layer of 128 "
+                                                            "experts is 32 GB in bf16")}
+# (c) float64 with the float32 islands lifted: batch rows, tokens, layers
+# (None: all), experts (None: all) and why cut.  Step-wise decode against
+# the chunked forward at every position (recurrent), prefill + decode
+# against the full forward (MoE), within TOL_LM_RM_F64 of the logit scale.
+# "chaos": zamba2's random stack amplifies a 2^-50 change of the table to
+# 4.2e-10 of the logits at 54 layers (5.3e-12 at 24; H100 80GB HBM3, 700 W), and
+# float64 rounding with it (1.8e-9 at 54 layers, 4.7e-11 at 24): its check
+# runs 24 layers and the phase prints the reach at 54.
+LM_RM_CHECK = {"zamba2-2.7b": (1, 64, 24, None, "chaos"),
+               "rwkv6-3b": (1, 64, None, None, ""),
+               "mixtral-8x7b": (1, 4608, 4, None, "memory: a layer is 11.6 GB in f64"),
+               "llama4-maverick-400b-a17b": (1, 1024, 2, 16, "memory: 128 experts of a layer "
+                                                             "are 129 GB in f64")}
+TOL_LM_RM_F64 = 1e-9
+# (d) training at bfloat16: launch.train's step on zamba2 at full width and
+# depth, and one training-mode loss + backward on mixtral at 2 layers
+LM_RM_TRAIN = dict(arch="zamba2-2.7b", batch=1, seq=2048, steps=2, lr=1e-4)
+LM_MOE_TRAIN = dict(arch="mixtral-8x7b", layers=2, batch=1, seq=4096)
+LM_RM_LIMIT_S = 240.0
 
 
 class SmokeFailure(RuntimeError):
@@ -3961,17 +4015,18 @@ class _Wide:
 
 def lifted_islands():
     """A context in which the LM modules' float32 islands (RMS norm's mean
-    square, RoPE's angles, attention scores) compute in float64, as the
+    square, RoPE's angles, attention scores, the GLA recurrence and its
+    state, the MoE router) compute in float64, as the
     CPU tests lift them (``tests/_torch_lm.py``): a float64 model then
     computes in float64 throughout."""
     import contextlib
     from unittest import mock
 
     import torch
-    from repro_torch.models import attention, layers, transformer
+    from repro_torch.models import attention, gla, layers, moe, rwkv, ssm, transformer
 
     stack = contextlib.ExitStack()
-    for mod in (layers, attention, transformer):
+    for mod in (layers, attention, transformer, gla, ssm, rwkv, moe):
         stack.enter_context(mock.patch.object(mod, "torch", _Wide(torch, torch.float64)))
     return stack
 
@@ -4373,6 +4428,392 @@ def lm_wide_archs(seed: int, report: dict) -> dict:
     return {"lm_wide": launches}
 
 
+def _lm_stepwise(params, cfg, tokens):
+    """Logits (B, S, V) of decoding ``tokens`` (B, S) one at a time from
+    ``decode_state_specs`` at position 0 (a recurrent arch's serving)."""
+    import torch
+    from repro_torch.models import decode_state_specs, decode_step
+
+    b, s = tokens.shape
+    st = decode_state_specs(cfg, b, s, device=tokens.device)
+    st["pos"] = torch.zeros((), dtype=torch.long, device=tokens.device)
+    out = []
+    with torch.no_grad():
+        for t in range(s):
+            lg, st = decode_step(params, cfg, tokens[:, t:t + 1], st)
+            out.append(lg)
+    return torch.stack(out, 1)
+
+
+def _lm_all_logits(params, cfg, batch):
+    import torch
+    from repro_torch.models import forward_seq
+    from repro_torch.models.layers import logits
+
+    with torch.no_grad():
+        return logits(params["embed"], forward_seq(params, cfg, batch)[0], cfg)
+
+
+def _lm_loss_and_grads(params, cfg, batch):
+    """(loss, aux, {leaf key: gradient}) of ``train_loss``."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.models import train_loss
+
+    flat = {k: v.detach().requires_grad_() for k, v in bridge.by_key(params).items()}
+    loss, metrics = train_loss(bridge.tree_map(lambda k, _: flat[k], params), cfg, batch)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return loss.detach(), metrics["aux"].detach(), dict(zip(flat, grads))
+
+
+def _lm_outputs(params, cfg, batch) -> dict:
+    """The whole sequence's logits, ``train_loss``, its aux, the whole
+    gradient (every leaf, flattened and joined) and each gradient leaf by
+    key, on the CPU."""
+    import torch
+
+    loss, aux, grads = _lm_loss_and_grads(params, cfg, batch)
+    out = {"logits": _lm_all_logits(params, cfg, batch), "loss": loss, "aux": aux,
+           "gradient": torch.cat([g.flatten() for g in grads.values()])}
+    out.update({f"grad {k}": g for k, g in grads.items()})
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def _lm_errs(got: dict, want: dict) -> dict:
+    """Each tensor's max |got - want| / max |want| (0 where both are 0)."""
+    return {k: (rel_err(got[k], w, 0) if float(w.abs().max()) else float(got[k].abs().max()))
+            for k, w in want.items()}
+
+
+def moe_buffer_bytes(cfg, n_tokens: int, training: bool, itemsize: int) -> int:
+    """Bytes of one MoE layer's dispatch buffers for ``n_tokens``: the
+    packed input, the gate/up product, its activation and the experts'
+    output, each (groups, experts, capacity) rows of D, 2F, F and D."""
+    from repro_torch.models import moe
+
+    g, _, cap = moe.dispatch_geometry(cfg, n_tokens, training)
+    return g * cfg.moe.n_experts * cap * (2 * cfg.d_model + 3 * cfg.d_ff) * itemsize
+
+
+def lm_rm_reduced(seed: int, out: dict) -> None:
+    """6g (a): the four archs reduced, the same parameters on the card and
+    on the CPU: the logits of the whole sequence, ``train_loss``, its MoE
+    aux and the gradient.  At float64 with the islands lifted the card's
+    are the CPU's within TOL_LM_RM_CARD_F64 of each tensor's scale, every
+    gradient leaf on its own.  At float32 both are held to that float64
+    result (the CPU tests' float32 rule): the logits, loss, aux and whole
+    gradient (of its largest entry) within TOL_LM_CARD_CPU, or within
+    LM_WIDE_F32_FACTOR x the CPU port's own float32 error where that is
+    larger (zamba2's random reduced stack leaves its gradient 3.5e-4 of
+    float32 noise, a single leaf, ``a_log``, 9.1e-3 on the CPU and 3.7e-2
+    on an H100 80GB HBM3 at 700 W).
+    Then on the card the reference tests' checks: step-wise decode against
+    the chunked forward at every position (LM_STEPWISE_BOUND) for the
+    recurrent archs, prefill of S-1 tokens and one decode step against the
+    full forward for the MoE ones."""
+    import dataclasses
+
+    import torch
+    from repro_torch.bridge import to_device, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models import init_model
+
+    for arch in LM_RM_ARCHS:
+        cfg = get_arch(arch).reduced()
+        cfg64 = dataclasses.replace(cfg, dtype="float64")
+        cpu_params = init_model(cfg, seed, device="cpu")
+        cpu64 = tree_map(lambda _, t: t.double(), cpu_params)
+        cpu_batch = synthetic_batch(cfg, ShapeCfg("lm", LM_S, LM_B, "prefill"), 0, device="cpu")
+        params, batch = to_device(cpu_params, DEVICE), to_device(cpu_batch, DEVICE)
+        with lifted_islands():
+            want = _lm_outputs(cpu64, cfg64, cpu_batch)
+            e64 = _lm_errs(_lm_outputs(to_device(cpu64, DEVICE), cfg64, batch), want)
+        e64.pop("gradient")
+        whole = {k: want[k] for k in ("logits", "loss", "aux", "gradient")}
+        e_card = _lm_errs(_lm_outputs(params, cfg, batch), whole)
+        e_cpu = _lm_errs(_lm_outputs(cpu_params, cfg, cpu_batch), whole)
+        bound32 = max(TOL_LM_CARD_CPU, LM_WIDE_F32_FACTOR * max(e_cpu.values()))
+        worst64, worst32 = (max(e.items(), key=lambda kv: kv[1]) for e in (e64, e_card))
+        require(worst64[1] <= TOL_LM_RM_CARD_F64,
+                f"LM {arch}: f64 card vs CPU {worst64[0]} {worst64[1]:.2e}")
+        require(worst32[1] <= bound32, f"LM {arch}: f32 card {worst32[0]} {worst32[1]:.2e} from "
+                                       f"the f64 result (bound {bound32:.2e})")
+        aux = float(want["aux"])
+        require((aux > 0) == (cfg.moe is not None), f"LM {arch}: aux {aux}")
+        if cfg.block_type == "attn":
+            check = _lm_prefill_decode(params, cfg, batch)
+            require(check <= 1.0, f"LM {arch}: prefill + decode {check:.3f} of the bound")
+            what = f"prefill + decode {check:.3f} of the bound"
+        else:
+            logits = _lm_all_logits(params, cfg, batch)
+            check = float((_lm_stepwise(params, cfg, batch["tokens"]) - logits).abs().max())
+            require(check < LM_STEPWISE_BOUND,
+                    f"LM {arch}: step-wise decode {check:.2e} from the chunked forward")
+            what = f"step-wise decode {check:.1e} from the chunked forward (bound " \
+                   f"{LM_STEPWISE_BOUND})"
+        out[arch] = {"f64_card_vs_cpu": e64, "f32_card": e_card, "f32_cpu": e_cpu,
+                     "f32_bound": bound32, "check": check, "aux": aux}
+        print(f"    (a) {arch} reduced: f64 card vs CPU (logits, loss, aux, {len(e64) - 3} "
+              f"gradient leaves) worst {worst64[1]:.1e} ({worst64[0]}); f32 from the f64 "
+              f"result, card / CPU: logits {e_card['logits']:.1e} / {e_cpu['logits']:.1e}, "
+              f"loss {e_card['loss']:.1e} / {e_cpu['loss']:.1e}, gradient "
+              f"{e_card['gradient']:.1e} / {e_cpu['gradient']:.1e} (bound {bound32:.1e}); aux "
+              f"{aux:.3f}; {what}")
+
+
+def lm_rm_serve(seed: int, smi: str, out: dict) -> None:
+    """6g (b): each arch at its published widths, bfloat16, served by
+    ``launch.serve.run`` (greedy) at LM_RM_SERVE's shape and depth: tokens
+    in range; prefill ms (the step-wise warm-up's for the recurrent archs),
+    decode ms a token, the serving peak; for the recurrent archs one
+    warm-up step traced (``time_steps``: wall, CUDA events, the profiler's
+    device-busy share and device ops), for the MoE archs the bytes of one
+    layer's dropless dispatch buffers at the prompt, beside the peak."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_state_specs, decode_step, init_model
+    from repro_torch.tree import num_params
+
+    for arch, (bsz, prompt, gen, layers, why) in LM_RM_SERVE.items():
+        t_arch = time.perf_counter()
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+        require(cfg.attn_pattern != ("local",) or prompt > cfg.window,
+                f"LM {arch}: a prompt of {prompt} does not outrun the window {cfg.window}")
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, seed, device=DEVICE)
+        n = num_params(params)
+        res = serve.run(cfg, bsz, prompt, gen, params=params, device=DEVICE)
+        peak = torch.cuda.max_memory_allocated()
+        toks = res["tokens"]
+        require(toks.shape == (bsz, gen) and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab, f"LM {arch} serve: tokens {toks.shape}")
+        row = {"n_params": n, "layers": cfg.n_layers, "of_layers": full.n_layers, "batch": bsz,
+               "prompt": prompt, "gen": gen, "stepwise_warmup": cfg.block_type != "attn",
+               **{k: res[k] for k in ("prefill_ms", "decode_ms", "ms_per_token")},
+               "serve_peak_bytes": peak, "cut": why}
+        buf = ""
+        if row["stepwise_warmup"]:
+            # where a warm-up step's wall goes: a decode step from a fresh
+            # state costs what a warm one does
+            st = decode_state_specs(cfg, bsz, prompt + gen, device=DEVICE)
+            st["pos"] = torch.zeros((), dtype=torch.long, device=DEVICE)
+            with torch.no_grad():
+                row["step_trace"] = time_steps(
+                    lambda: decode_step(params, cfg, toks[:, :1], st), 5)
+            del st
+            buf = f"; a warm-up step traced: {_trace_line(row['step_trace'])}"
+        if cfg.moe is not None:
+            row["dispatch_bytes"] = moe_buffer_bytes(cfg, bsz * prompt, False, 2)
+            row["dispatch_share_of_peak"] = row["dispatch_bytes"] / peak
+            buf = (f"; one MoE layer's dropless dispatch buffers at the prompt "
+                   f"{row['dispatch_bytes'] / 2**30:.2f} GiB, "
+                   f"{100 * row['dispatch_share_of_peak']:.1f}% of the peak")
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_arch
+        out[arch] = row
+        print(f"    (b) {arch}: {cfg.n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, "
+              f"vocab {cfg.vocab}, {n} parameters; bf16 served B {bsz} x {prompt} tokens"
+              f"{' (warmed step by step)' if row['stepwise_warmup'] else ''}, {gen} greedy: "
+              f"prefill {row['prefill_ms']:.2f} ms, decode {row['ms_per_token']:.2f} ms/token, "
+              f"peak {peak / 2**30:.2f} GiB{buf}{f'; cut ({why})' if why else ''}; "
+              f"{row['seconds']:.1f} s | {smi}")
+
+
+def lm_rm_check(seed: int, out: dict) -> None:
+    """6g (c): at published widths, float64 with the float32 islands lifted
+    (``lifted_islands``), LM_RM_CHECK's depth and experts: step-wise decode
+    against the chunked forward at every position (recurrent archs), or
+    prefill of S-1 tokens and one decode step against the full forward
+    (MoE), within TOL_LM_RM_F64 of the logit scale; and how far a
+    LM_PERTURB change of the embedding table moves the last logits at that
+    depth (``_lm_sensitivity``: a random deep stack that amplifies it
+    towards 1 would part the two paths by rounding alone)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models import init_model
+
+    for arch, (bsz, tokens, layers, experts, why) in LM_RM_CHECK.items():
+        t_arch = time.perf_counter()
+        full = get_arch(arch)
+        depths = [layers or full.n_layers] + ([full.n_layers] if why == "chaos" else [])
+        sens = {}
+        for depth in depths:
+            cfg = dataclasses.replace(full, dtype="float64", n_layers=depth)
+            if experts:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                       n_experts=experts))
+            params = init_model(cfg, seed, device=DEVICE)
+            batch = synthetic_batch(cfg, ShapeCfg("lm", tokens, bsz, "prefill"), 0,
+                                    device=DEVICE)
+            with lifted_islands():
+                if depth != depths[0]:          # chaos: the perturbation's reach only
+                    sens[depth] = _lm_sensitivity(params, cfg, batch,
+                                                  _lm_last_logits(params, cfg, batch))
+                elif cfg.block_type == "attn":
+                    got, want = _lm_decode_and_full(params, cfg, batch)
+                    what = "prefill + decode vs the full forward"
+                    sens[depth] = _lm_sensitivity(params, cfg, batch, want)
+                else:
+                    want = _lm_all_logits(params, cfg, batch)
+                    got = _lm_stepwise(params, cfg, batch["tokens"])
+                    what = f"step-wise decode vs the chunked forward at all {tokens} positions"
+                    sens[depth] = _lm_sensitivity(params, cfg, batch, want[:, -1])
+                if depth == depths[0]:
+                    err = float((got - want).abs().max() / want.abs().max())
+                    del got, want
+            del params, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        seconds = time.perf_counter() - t_arch
+        out[arch] = {"layers": depths[0], "experts": experts, "tokens": tokens,
+                     "f64_err": err, "f64_perturbed_by_depth": sens, "cut": why,
+                     "seconds": seconds}
+        print(f"    (c) {arch} f64 (islands lifted) at {depths[0]} of {full.n_layers} layers"
+              f"{f', {experts} of {full.moe.n_experts} experts' if experts else ''}, B {bsz} x "
+              f"{tokens} tokens: {what} {err:.1e} of the logit scale (TOL_LM_RM_F64 "
+              f"{TOL_LM_RM_F64}); a 2^-50 change of the table moves the logits "
+              f"{', '.join(f'{v:.1e} at {k} layers' for k, v in sens.items())}"
+              f"{f'; cut ({why})' if why else ''}; {seconds:.1f} s")
+        require(err <= TOL_LM_RM_F64, f"LM {arch}: f64 {what} {err:.2e} of the logit scale")
+
+
+def lm_rm_train(seed: int, smi: str, out: dict) -> None:
+    """6g (d): ``launch.train``'s step (``train_step``: ``train_loss``,
+    backward, Adam with clipping) on zamba2 at full width and depth,
+    bfloat16, LM_RM_TRAIN's steps on one batch (finite losses, ms a step,
+    peak); then one training-mode ``train_loss`` + backward on mixtral at
+    its published widths, LM_MOE_TRAIN's depth and shape (finite loss and
+    gradients, the balance loss above 0.5 a MoE layer, ms, peak), and its
+    first MoE layer's training dispatch on normals of that shape (in the
+    model's dtype):
+    more than half the tokens survive the capacity drops (the reference
+    tests' two claims)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch import train
+    from repro_torch.models import init_model, moe
+    from repro_torch.models.transformer import stack_layers
+    from repro_torch.optim import adam_init
+
+    cfg = get_arch(LM_RM_TRAIN["arch"])
+    shape = ShapeCfg("lm_train", LM_RM_TRAIN["seq"], LM_RM_TRAIN["batch"], "train")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, seed, device=DEVICE)
+    opt, batch = adam_init(params), synthetic_batch(cfg, shape, 0, device=DEVICE)
+    step = train.train_step(cfg, LM_RM_TRAIN["lr"])
+    losses, step_ms = [], []
+    for _ in range(LM_RM_TRAIN["steps"]):
+        t0 = time.perf_counter()
+        params, opt, loss, _, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(v) and v > 0 for v in losses), f"LM train {cfg.name}: {losses}")
+    out["zamba2"] = {"losses": losses, "step_ms": step_ms, "peak_bytes": peak}
+    print(f"    (d) {cfg.name} bf16 trained by launch.train's step at full width and depth "
+          f"({cfg.n_layers} layers + the shared block), B {shape.global_batch} x S "
+          f"{shape.seq_len}, lr {LM_RM_TRAIN['lr']}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{' / '.join(f'{v:.0f}' for v in step_ms)} ms a step, peak {peak / 2**30:.2f} GiB "
+          f"| {smi}")
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    full = get_arch(LM_MOE_TRAIN["arch"])
+    cfg = dataclasses.replace(full, n_layers=LM_MOE_TRAIN["layers"])
+    shape = ShapeCfg("moe_train", LM_MOE_TRAIN["seq"], LM_MOE_TRAIN["batch"], "train")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, seed, device=DEVICE)
+    batch = synthetic_batch(cfg, shape, 0, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, aux, grads = _lm_loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del grads
+    n_moe = sum(1 for _, lp in stack_layers(params["stack"], cfg) if "moe" in lp)
+    lp = next(lp for _, lp in stack_layers(params["stack"], cfg) if "moe" in lp)
+    x = torch.randn((shape.global_batch, shape.seq_len, cfg.d_model),
+                    generator=torch.Generator(device=DEVICE).manual_seed(seed), device=DEVICE,
+                    dtype=torch.float32).to(params["final_norm"].dtype)
+    with torch.no_grad():
+        y, aux1 = moe.apply_moe(lp["moe"], cfg, x, training=True)
+    kept = float(torch.any(y != 0, dim=-1).double().mean())
+    _, n_loc, cap = moe.dispatch_geometry(cfg, shape.global_batch * shape.seq_len, True)
+    require(math.isfinite(float(loss)) and float(aux) / n_moe > 0.5 and float(aux1) > 0.5,
+            f"LM {cfg.name} training: loss {float(loss)}, aux {float(aux)} over {n_moe} MoE "
+            f"layers, one layer's {float(aux1)}")
+    require(kept > 0.5, f"LM {cfg.name}: {kept:.3f} of the tokens survive the capacity drops")
+    out["mixtral"] = {"layers": cfg.n_layers, "loss": float(loss), "aux": float(aux),
+                      "moe_layers": n_moe, "layer_aux": float(aux1), "tokens_kept": kept,
+                      "capacity": cap, "tokens_a_group": n_loc, "ms": ms, "peak_bytes": peak}
+    print(f"    (d) {cfg.name} bf16 at {cfg.n_layers} of {full.n_layers} layers, B "
+          f"{shape.global_batch} x S {shape.seq_len}: train_loss + backward (training "
+          f"dispatch, capacity {cap} of {n_loc} tokens a group) {ms:.0f} ms, loss "
+          f"{float(loss):.4f}, aux {float(aux):.3f} over {n_moe} MoE layers; one layer on "
+          f"normals: aux {float(aux1):.3f}, {100 * kept:.1f}% of the tokens kept; peak "
+          f"{peak / 2**30:.2f} GiB | {smi}")
+    del params, batch, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_recurrent_moe(seed: int, report: dict) -> dict:
+    """Phase 6g: the recurrent and MoE half of the LM substrate on the
+    card, launch counters zeroed before and read after (the reference
+    computes it in plain jnp: none of the port's kernels may launch):
+    (a) ``lm_rm_reduced``, (b) ``lm_rm_serve``, (c) ``lm_rm_check``,
+    (d) ``lm_rm_train``, within LM_RM_LIMIT_S."""
+    import torch
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    out: dict = {"reduced": {}, "serve": {}, "check": {}, "train": {}}
+    ops.reset_launch_counts()
+    lm_rm_reduced(seed, out["reduced"])
+    lm_rm_serve(seed, smi, out["serve"])
+    lm_rm_check(seed, out["check"])
+    lm_rm_train(seed, smi, out["train"])
+    launches = ops.launch_counts()
+    require(not any(launches.values()), f"LM path launched the port's kernels: {launches}")
+    seconds = time.perf_counter() - t_phase
+    out.update(launches=launches, seconds=seconds, nvidia_smi=smi)
+    cuts = [f"{a} served at {v['layers']} of {v['of_layers']} layers ({v['cut']})"
+            for a, v in out["serve"].items() if v["cut"]]
+    cuts += [f"{a} checked at f64 at {v['layers']} layers"
+             f"{', %d experts' % v['experts'] if v['experts'] else ''} ({v['cut']})"
+             for a, v in out["check"].items() if v["cut"]]
+    cuts.append(f"mixtral trained at {LM_MOE_TRAIN['layers']} layers (one loss + backward)")
+    print(f"    cuts: {'; '.join(cuts)}; launches {launches}; {seconds:.1f} s | {smi}")
+    report["lm_recurrent_moe"] = out
+    require(seconds <= LM_RM_LIMIT_S,
+            f"LM recurrent/MoE phase took {seconds:.1f} s (limit {LM_RM_LIMIT_S:.0f} s)")
+    torch.cuda.empty_cache()
+    return {"lm_recurrent_moe": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4535,6 +4976,10 @@ def main(argv=None) -> int:
     phase("6f", f"the LM path traced: a decode step and a training step with the penalty, "
                 f"{LM_FULL} bf16")
     new_paths.update(lm_traces(args.seed, report))
+    phase("6g", "the LM substrate's recurrent and MoE half (zamba2, rwkv6, mixtral, llama4): "
+                "reduced card vs CPU, bf16 served at published widths, f64 decode checks, "
+                "bf16 training")
+    new_paths.update(lm_recurrent_moe(args.seed, report))
     phase("7", "K1 jet_dense at the shapes the training phases launched it")
     training_times = time_training_shapes(shapes.counts, gen, report)
     phase("7b", "the run-time-order kernels: K1 at the Burgers k = 4 shapes, K1-K5 at "

@@ -1,14 +1,17 @@
 """Batched LM serving with the PyTorch port: prefill + decode across the
-attention family.
+ten LM archs.
 
     PYTHONPATH=src python examples/torch_serve_lm.py --arch gemma3-4b
     PYTHONPATH=src python examples/torch_serve_lm.py --arch whisper-large-v3 --device cpu
+    PYTHONPATH=src python examples/torch_serve_lm.py --arch zamba2-2.7b --device cpu
 
-The prompt is prefilled in one pass into ring-buffer KV caches (gemma3's
-local layers mask by window, whisper's decoder also reads its encoder's
-cross caches) and decoded token by token: ``repro_torch.launch.serve`` at
+An attention arch's prompt is prefilled in one pass into ring-buffer KV
+caches (gemma3's local layers mask by window, whisper's decoder also reads
+its encoder's cross caches, mixtral and llama4 route through their experts
+dropless); a recurrent arch (zamba2, rwkv6) warms its state token by
+token.  Then each decodes token by token: ``repro_torch.launch.serve`` at
 the arch's reduced config.  Runs on the GPU unless ``--device cpu`` is
-given.  The recurrent families (zamba2, rwkv6) wait for their blocks.
+given.
 """
 
 import argparse

@@ -4,13 +4,14 @@
         --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced --device cuda
 
-The prompt is prefilled in one pass into ring-buffer caches sized for the
-generation, then decoded token by token.  ``--reduced`` and ``--greedy``
-default on and are disabled with ``--no-reduced`` / ``--no-greedy``
-(non-greedy decode samples from the softmax with a seeded generator).
-Runs on the GPU unless ``--device cpu`` is given.  Attention archs only:
-the recurrent families (state warm-up token by token) wait for their
-blocks (ROADMAP Queue 1 item 6b).
+An attention arch's prompt is prefilled in one pass into ring-buffer
+caches sized for the generation; a recurrent arch (mamba2 / rwkv6 blocks,
+zamba2's shared block with them) warms its state token by token from
+``decode_state_specs`` instead, as the reference does.  Then both decode
+token by token.  ``--reduced`` and ``--greedy`` default on and are
+disabled with ``--no-reduced`` / ``--no-greedy`` (non-greedy decode samples
+from the softmax with a seeded generator).  Runs on the GPU unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.data.tokens import synthetic_batch
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, init_model, prefill
+from repro_torch.models import decode_state_specs, decode_step, init_model, prefill
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -73,11 +74,12 @@ def _sync(device: torch.device) -> None:
 def run(cfg: ArchConfig, batch: int, prompt_len: int, gen: int, *, greedy: bool = True,
         sample_seed: int = 0, params=None, device=None) -> dict:
     """Prefill a synthetic prompt batch (step 0) of ``batch`` rows and
-    ``prompt_len`` tokens, then decode ``gen`` tokens.  ``params`` defaults
+    ``prompt_len`` tokens -- in one pass for an attention arch, step-wise
+    for a recurrent one -- then decode ``gen`` tokens.  ``params`` defaults
     to ``init_model(cfg, 0)``.  Returns the generated ``tokens`` (batch,
-    gen) and the host-clock ``prefill_ms`` and ``decode_ms`` (each ended by
-    a synchronize on the card), ``ms_per_token`` over the gen - 1 decode
-    steps."""
+    gen) and the host-clock ``prefill_ms`` (the step-wise warm-up's where
+    it is one) and ``decode_ms`` (each ended by a synchronize on the card),
+    ``ms_per_token`` over the gen - 1 decode steps."""
     device = resolve_device(device)
     if params is None:
         params = init_model(cfg, 0, device=device)
@@ -88,7 +90,15 @@ def run(cfg: ArchConfig, batch: int, prompt_len: int, gen: int, *, greedy: bool 
 
     with torch.no_grad():
         t0 = time.perf_counter()
-        logits, st = prefill(params, cfg, prompts, pad_to=cap)
+        if cfg.block_type == "attn":
+            logits, st = prefill(params, cfg, prompts, pad_to=cap)
+        else:
+            # recurrent state: warmed token by token (prompt_len >= 1 is
+            # enforced at parse time, so logits is always bound here)
+            st = decode_state_specs(cfg, batch, cap, device=device)
+            st["pos"] = torch.zeros((), dtype=torch.long, device=device)
+            for t in range(prompt_len):
+                logits, st = decode_step(params, cfg, prompts["tokens"][:, t:t + 1], st)
         _sync(device)
         t_prefill = time.perf_counter() - t0
 

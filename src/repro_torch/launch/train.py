@@ -9,9 +9,10 @@ Wires together: config registry, synthetic data pipeline, the train step
 clipping), the fault-tolerant ``runtime.Trainer`` (checkpoint/restart,
 straggler watchdog), and the optional n-TangentProp Sobolev regularization
 (``--ntp-order``) -- the paper's technique as a first-class LM-training
-feature.  Runs on the GPU unless ``--device cpu`` is given; one card (the
-reference's sharded step waits for the sharding layer, ROADMAP Queue 1
-item 6b).
+feature.  A MoE arch's balance loss reaches the loss through
+``train_loss`` (``Knobs.aux_coef``).  Runs on the GPU unless ``--device
+cpu`` is given; one card (the reference's sharded step waits for the
+sharding layer, ROADMAP Queue 1 item 6c).
 """
 
 from __future__ import annotations
@@ -38,20 +39,22 @@ NTP_COEF = 1e-4
 
 def train_step(cfg: ArchConfig, lr: float, ntp_order: int = 0):
     """The step ``run`` takes: ``step(params, opt, batch)`` differentiates
-    ``train_loss`` plus ``NTP_COEF * ntp_smoothness`` of order ``ntp_order``
-    when that is above 0, applies ``adam_update(..., grad_clip=1.0)`` and
-    returns (params, opt, loss, ce, smooth), smooth None without the
-    penalty."""
+    ``train_loss`` (the cross-entropy plus ``Knobs.aux_coef`` x a MoE
+    arch's balance loss) plus ``NTP_COEF * ntp_smoothness`` of order
+    ``ntp_order`` when that is above 0, applies ``adam_update(...,
+    grad_clip=1.0)`` and returns (params, opt, loss, metrics, smooth):
+    metrics ``train_loss``'s ``ce`` and ``aux``, detached; smooth None
+    without the penalty."""
 
     def step(params, opt, batch):
         flat = [p.detach().requires_grad_() for p in leaves(params)]
         p = unflatten(params, flat)
-        ce, _ = train_loss(p, cfg, batch)
+        lm_loss, metrics = train_loss(p, cfg, batch)
         smooth = ntp_smoothness(p, cfg, batch, ntp_order) if ntp_order > 0 else None
-        loss = ce if smooth is None else ce + NTP_COEF * smooth
+        loss = lm_loss if smooth is None else lm_loss + NTP_COEF * smooth
         grads = unflatten(params, list(torch.autograd.grad(loss, flat)))
         params, opt = adam_update(grads, opt, params, lr, grad_clip=1.0)
-        return params, opt, loss.detach(), ce.detach(), smooth
+        return params, opt, loss.detach(), {k: v.detach() for k, v in metrics.items()}, smooth
 
     return step
 
@@ -64,21 +67,22 @@ def run(cfg: ArchConfig, shape: ShapeCfg, steps: int, lr: float = 3e-4, ntp_orde
     checkpoint every ``ckpt_every`` steps into ``ckpt_dir``; a run finding
     checkpoints there resumes from the latest).  Returns the final
     ``params`` and ``opt``, the Trainer's ``report``, and per step run
-    (re-runs after a restart included) its ``ce``, ``smooth`` (0.0 without
-    the penalty) and ``step_ms`` (host clock, ended by a synchronize on the
-    card)."""
+    (re-runs after a restart included) its ``ce``, ``aux`` (the MoE balance
+    loss, 0.0 without MoE layers), ``smooth`` (0.0 without the penalty) and
+    ``step_ms`` (host clock, ended by a synchronize on the card)."""
     device = resolve_device(device)
     if ckpt_dir is None:
         ckpt_dir = os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt")
     params = init_model(cfg, seed, device=device)
     opt = adam_init(params)
     step = train_step(cfg, lr, ntp_order)
-    ce_hist, smooth_hist, step_ms = [], [], []
+    ce_hist, aux_hist, smooth_hist, step_ms = [], [], [], []
 
     def step_fn(state, batch):
         t0 = time.perf_counter()
-        params, opt, loss, ce, smooth = step(*state, batch)
-        ce_hist.append(float(ce))
+        params, opt, loss, metrics, smooth = step(*state, batch)
+        ce_hist.append(float(metrics["ce"]))
+        aux_hist.append(float(metrics["aux"]))
         smooth_hist.append(0.0 if smooth is None else float(smooth.detach()))
         step_ms.append((time.perf_counter() - t0) * 1e3)
         return (params, opt), loss
@@ -89,7 +93,7 @@ def run(cfg: ArchConfig, shape: ShapeCfg, steps: int, lr: float = 3e-4, ntp_orde
         straggler_cb=lambda s, dt, ema: print(f"[straggler] step {s}: {dt:.2f}s vs ema {ema:.2f}s"),
         device=device)
     (params, opt), report = trainer.run((params, opt), fail_injector=fail_injector)
-    return {"params": params, "opt": opt, "report": report, "ce": ce_hist,
+    return {"params": params, "opt": opt, "report": report, "ce": ce_hist, "aux": aux_hist,
             "smooth": smooth_hist, "step_ms": step_ms}
 
 

@@ -14,6 +14,7 @@ has not taken over yet, so the makers here build values only.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -25,10 +26,16 @@ from repro_torch.configs.base import ArchConfig
 Params = Dict[str, Any]
 
 
+BIG_LEAF = 2 ** 31  # elements; such a leaf is drawn a slice of its first axis at a time
+
+
 class Maker:
     """Creates initialized parameters of ``dtype`` on ``device``, drawing
     from ``generator`` (which must live on ``device``) in call order:
-    fan-in normal draws in float32, rounded to ``dtype``."""
+    fan-in normal draws in float32, rounded to ``dtype``.  A leaf of
+    BIG_LEAF elements or more (llama4's 128 experts of 5120 x 2 x 8192) is
+    drawn slice by slice along its first axis, so its float32 draw is
+    never held whole (43 GB there)."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype,
                  device: torch.device):
@@ -37,9 +44,16 @@ class Maker:
         self.device = device
 
     def param(self, shape, scale: float | None = None) -> torch.Tensor:
-        leaf = torch.randn(tuple(shape), generator=self.generator, dtype=torch.float32,
+        shape = tuple(shape)
+        scale = fan_in_scale(shape) if scale is None else scale
+        if len(shape) > 1 and math.prod(shape) >= BIG_LEAF:
+            leaf = torch.empty(shape, dtype=self.dtype, device=self.device)
+            for i in range(shape[0]):
+                leaf[i] = self.param(shape[1:], scale=scale)
+            return leaf
+        leaf = torch.randn(shape, generator=self.generator, dtype=torch.float32,
                            device=self.device)
-        return leaf.mul_(fan_in_scale(shape) if scale is None else scale).to(self.dtype)
+        return leaf.mul_(scale).to(self.dtype)
 
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
@@ -124,11 +138,19 @@ def init_mlp_block(mk: Maker, cfg: ArchConfig) -> Params:
                 "wo": mk.param((f, d))}
     if cfg.mlp == "gelu_mlp":
         return {"wi": mk.param((d, f)), "wo": mk.param((f, d))}
-    raise NotImplementedError(
-        f"mlp {cfg.mlp!r} is not ported yet (ROADMAP Queue 1 item 6b)")
+    if cfg.mlp == "rwkv_channel_mix":
+        return {"mix_k": mk.param((d,), scale=0.1),
+                "wk": mk.param((d, f)),
+                "wv": mk.param((f, d)),
+                "wr": mk.param((d, d))}
+    raise ValueError(cfg.mlp)
 
 
-def apply_mlp_block(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp_block(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                    x_prev: torch.Tensor | None = None) -> torch.Tensor:
+    """``x_prev``: the channel mix's token-shift carry (B, 1, D), the last
+    token of the previous segment (decode), or None from a sequence's
+    start; the other MLPs ignore it."""
     if cfg.mlp in ("swiglu", "geglu"):
         gu = torch.einsum("bsd,dtf->bstf", x, p["wi"])
         gate, up = gu[..., 0, :], gu[..., 1, :]
@@ -136,8 +158,21 @@ def apply_mlp_block(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor
         return torch.einsum("bsf,fd->bsd", act * up, p["wo"])
     if cfg.mlp == "gelu_mlp":
         return torch.einsum("bsf,fd->bsd", gelu(x @ p["wi"]), p["wo"])
-    raise NotImplementedError(
-        f"mlp {cfg.mlp!r} is not ported yet (ROADMAP Queue 1 item 6b)")
+    if cfg.mlp == "rwkv_channel_mix":
+        # RWKV channel mix: token-shifted key, squared relu, receptance gate
+        xs = token_shift(x, x_prev)
+        xk = x + (xs - x) * p["mix_k"]
+        k = torch.square(torch.relu(xk @ p["wk"]))
+        r = torch.sigmoid(x @ p["wr"])
+        return r * (k @ p["wv"])
+    raise ValueError(cfg.mlp)
+
+
+def token_shift(x: torch.Tensor, x_prev: torch.Tensor | None) -> torch.Tensor:
+    """RWKV token shift: the previous token's features (zeros, or the
+    carried ``x_prev`` (B, 1, D), at t = 0).  x: (B, S, D)."""
+    first = torch.zeros_like(x[:, :1]) if x_prev is None else x_prev.to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
 
 
 # ---------------------------------------------------------------------------

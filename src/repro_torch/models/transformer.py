@@ -1,11 +1,12 @@
-"""Composable decoder/encoder stacks: the attention family of the LM pool.
+"""Composable decoder/encoder stacks covering all ten LM architectures.
 
 Layer weights are *stacked over groups*: the layer pattern (gemma3's
-5 local : 1 global) defines a group, and a loop over the leading axis of
-the stacked leaves runs the groups (the reference scans them).  Layers that
-don't fill a whole group are unrolled as "rest".  With ``cfg.remat`` each
-group is recomputed in the backward (``torch.utils.checkpoint``), as the
-reference checkpoints its scan body.
+5 local : 1 global, llama4's dense/MoE interleave, zamba2's 6-mamba +
+shared-attention period) defines a group, and a loop over the leading axis
+of the stacked leaves runs the groups (the reference scans them).  Layers
+that don't fill a whole group are unrolled as "rest".  With ``cfg.remat``
+each group is recomputed in the backward (``torch.utils.checkpoint``), as
+the reference checkpoints its scan body.
 
 Entry points (functional; params are plain dict trees, the reference's
 tree leaf for leaf):
@@ -15,12 +16,14 @@ tree leaf for leaf):
   decode_step(params, cfg, token, st)    -> logits, new DecodeState
   decode_state_specs(cfg, batch, seq)    -> a zeroed DecodeState
 
-Ported so far: the dense archs, the VLM stub (patch embeddings through a
-projector) and the encoder-decoder (cross-attention on encoder frames).
-MoE layers, Mamba2/RWKV6 blocks and zamba2's shared attention raise
-``NotImplementedError`` (ROADMAP Queue 1 item 6b); nothing is skipped
-silently.  The reference's sharding hints have no meaning on one card and
-are left out.
+Blocks: attention (dense, MoE every ``moe.period``-th layer, the VLM stub,
+the encoder-decoder's cross-attention), Mamba2 (``ssm.py``) and RWKV-6
+(``rwkv.py``) through the chunked GLA engine (``gla.py``), and zamba2's tied
+``shared`` attention block, applied once per group after the group's
+layers.  The recurrent archs keep no KV cache: ``prefill`` returns their
+position only, and serving warms their state token by token
+(``launch/serve.py``).  The reference's sharding hints have no meaning on
+one card and are left out.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from . import attention as attn
+from . import moe as moe_mod
+from . import rwkv as rwkv_mod
+from . import ssm as ssm_mod
 from .layers import (Maker, Params, StackedMaker, apply_mlp_block, embed, gelu,
                      init_embed, init_mlp_block, logits, recompute, rms_norm)
 
@@ -45,32 +51,27 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.
 
 @dataclasses.dataclass(frozen=True)
 class Knobs:
-    """Performance knobs of the attention family (the reference's; its GLA
-    and RWKV chunk knobs come with those blocks)."""
+    """Performance knobs (the reference's, field for field)."""
 
     q_chunk: int = 512
     kv_chunk: int = 1024
+    gla_chunk: int = 64
+    rwkv_chunk: int = 32
+    gla_pair_bf16: bool = False
     aux_coef: float = 0.01
+
+
+def _attn_cfg(cfg: ArchConfig) -> ArchConfig:
+    """cfg for zamba2's shared full-attention block."""
+    return dataclasses.replace(cfg, block_type="attn", moe=None, mlp="gelu_mlp")
 
 
 def _pattern_at(cfg: ArchConfig, j: int) -> str:
     return cfg.attn_pattern[j % len(cfg.attn_pattern)]
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for the parts of the LM pool the port
-    does not have yet."""
-    missing = []
-    if cfg.block_type != "attn":
-        missing.append(f"block_type {cfg.block_type!r}")
-    if cfg.moe is not None:
-        missing.append("MoE layers")
-    if cfg.hybrid_shared_attn_every:
-        missing.append("the hybrid shared-attention block")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP Queue 1 item 6b: "
-            f"moe.py, ssm.py, rwkv.py, gla.py)")
+def _is_moe(cfg: ArchConfig, j: int) -> bool:
+    return cfg.moe is not None and (j % cfg.moe.period == cfg.moe.period - 1)
 
 
 def model_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -81,14 +82,25 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(mk: Maker, cfg: ArchConfig, cross: bool = False) -> Params:
+def _init_layer(mk: Maker, cfg: ArchConfig, j: int, cross: bool = False) -> Params:
+    if cfg.block_type == "mamba2":
+        return {"ln": mk.zeros((cfg.d_model,)),
+                "mamba": ssm_mod.init_mamba(mk, cfg)}
+    if cfg.block_type == "rwkv6":
+        return {"ln1": mk.zeros((cfg.d_model,)),
+                "tm": rwkv_mod.init_rwkv_tm(mk, cfg),
+                "ln2": mk.zeros((cfg.d_model,)),
+                "cm": init_mlp_block(mk, cfg)}
     lp: Params = {"ln1": mk.zeros((cfg.d_model,)),
                   "attn": attn.init_attn(mk, cfg),
                   "ln2": mk.zeros((cfg.d_model,))}
     if cross:
         lp["lnx"] = mk.zeros((cfg.d_model,))
         lp["xattn"] = attn.init_attn(mk, cfg)
-    lp["ffn"] = init_mlp_block(mk, cfg)
+    if _is_moe(cfg, j):
+        lp["moe"] = moe_mod.init_moe(mk, cfg)
+    else:
+        lp["ffn"] = init_mlp_block(mk, cfg)
     return lp
 
 
@@ -98,9 +110,9 @@ def _init_stack(mk: Maker, cfg: ArchConfig, cross: bool = False,
     g = cfg.group
     n_groups, n_rest = n_layers // g, n_layers % g
     smk = StackedMaker(mk, n_groups)
-    groups = {"layers": [_init_layer(smk, cfg, cross) for _ in range(g)]} \
+    groups = {"layers": [_init_layer(smk, cfg, j, cross) for j in range(g)]} \
         if n_groups else {"layers": []}
-    rest = [_init_layer(mk, cfg, cross) for _ in range(n_rest)]
+    rest = [_init_layer(mk, cfg, n_groups * g + r, cross) for r in range(n_rest)]
     return {"groups": groups, "rest": rest}
 
 
@@ -109,7 +121,6 @@ def init_model(cfg: ArchConfig, seed: int = 0, *, device=None) -> Params:
     device by default), drawn from a generator on that device seeded with
     ``seed``.  The tree is the reference's ``init_model`` tree, key for
     key."""
-    check_ported(cfg)
     device = resolve_device(device)
     mk = Maker(torch.Generator(device=device).manual_seed(seed), model_dtype(cfg), device)
     tree: Dict[str, Any] = {
@@ -117,6 +128,8 @@ def init_model(cfg: ArchConfig, seed: int = 0, *, device=None) -> Params:
         "final_norm": mk.zeros((cfg.d_model,)),
         "stack": _init_stack(mk, cfg, cross=cfg.encoder is not None),
     }
+    if cfg.hybrid_shared_attn_every:
+        tree["shared"] = _init_layer(mk, _attn_cfg(cfg), 0)
     if cfg.encoder is not None:
         tree["enc_stack"] = _init_stack(mk, cfg, n_layers=cfg.encoder.n_layers)
         tree["enc_norm"] = mk.zeros((cfg.d_model,))
@@ -131,13 +144,20 @@ def _layer(p: Params, i: int) -> Params:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in p.items()}
 
 
+def _leading(p: Params) -> int:
+    """The leading (group) axis of a stacked layer tree."""
+    while isinstance(p, dict):
+        p = next(iter(p.values()))
+    return p.shape[0]
+
+
 def stack_layers(stack: Params, cfg: ArchConfig) -> Iterator[Tuple[int, Params]]:
     """(pattern index, layer params) of every layer of ``stack`` in order:
     the groups' layers (indexed within the group, as the reference's scan
     body does), then the rest (by absolute index)."""
     g = cfg.group
     layers = stack["groups"]["layers"]
-    n_groups = layers[0]["ln1"].shape[0] if layers else 0
+    n_groups = _leading(layers[0]) if layers else 0
     for gi in range(n_groups):
         for j in range(g):
             yield j, _layer(layers[j], gi)
@@ -161,8 +181,19 @@ def layer_chunks(stack: Params, cfg: ArchConfig) -> List[Tuple[list, bool]]:
 
 def _sublayer_seq(lp: Params, cfg: ArchConfig, x: torch.Tensor, j: int,
                   knobs: Knobs, *, causal: bool = True,
-                  enc_out: torch.Tensor | None = None):
-    """One layer.  Returns (x, kv, xkv); xkv None without cross-attention."""
+                  enc_out: torch.Tensor | None = None, training: bool = False):
+    """One layer.  Returns (x, kv, xkv, aux): kv None for the recurrent
+    blocks, xkv None without cross-attention, aux (the MoE balance loss)
+    None but for a MoE layer."""
+    if cfg.block_type == "mamba2":
+        x = x + ssm_mod.apply_mamba(lp["mamba"], cfg, rms_norm(x, lp["ln"]),
+                                    chunk=knobs.gla_chunk)
+        return x, None, None, None
+    if cfg.block_type == "rwkv6":
+        x = x + rwkv_mod.apply_rwkv_tm(lp["tm"], cfg, rms_norm(x, lp["ln1"]),
+                                       chunk=knobs.rwkv_chunk, pair_bf16=knobs.gla_pair_bf16)
+        x = x + apply_mlp_block(lp["cm"], cfg, rms_norm(x, lp["ln2"]))
+        return x, None, None, None
     h = rms_norm(x, lp["ln1"])
     if causal:
         window = cfg.window if _pattern_at(cfg, j) == "local" else None
@@ -177,31 +208,48 @@ def _sublayer_seq(lp: Params, cfg: ArchConfig, x: torch.Tensor, j: int,
         c_out, xkv = attn.full_attention(lp["xattn"], cfg, rms_norm(x, lp["lnx"]),
                                          causal=False, kv_x=enc_out, use_rope=False)
         x = x + c_out
-    x = x + apply_mlp_block(lp["ffn"], cfg, rms_norm(x, lp["ln2"]))
-    return x, akv, xkv
+    h = rms_norm(x, lp["ln2"])
+    aux = None
+    if "moe" in lp:
+        f_out, aux = moe_mod.apply_moe(lp["moe"], cfg, h, training=training)
+    else:
+        f_out = apply_mlp_block(lp["ffn"], cfg, h)
+    return x + f_out, akv, xkv, aux
 
 
 def _stack_seq(stack: Params, cfg: ArchConfig, x: torch.Tensor, knobs: Knobs,
                *, causal: bool = True, enc_out: torch.Tensor | None = None,
-               collect_kv: bool = False):
-    """The groups, then the unrolled rest.  Returns (x, collected) with
-    collected = {"kv": [(k, v) per layer], "xkv": [(k, v) or None per
-    layer]}, or None unless ``collect_kv``."""
+               shared: Params | None = None, collect_kv: bool = False,
+               training: bool = False):
+    """The groups (each followed by the ``shared`` block where given), then
+    the unrolled rest.  Returns (x, aux, collected): aux the summed MoE
+    balance loss (float32), collected = {"kv": [(k, v) or None per layer],
+    "xkv": [(k, v) or None per layer]}, or None unless ``collect_kv``.
+    The shared block's caches are not collected: only the recurrent zamba2
+    has it, and its prefill assembles no cache (as the reference's)."""
+    shared_cfg = _attn_cfg(cfg) if shared is not None else None
     kvs, xkvs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run(x, chunk):
+    def run(x, aux, chunk, with_shared):
         out = []
         for j, lp in chunk:
-            x, kv, xkv = _sublayer_seq(lp, cfg, x, j, knobs, causal=causal, enc_out=enc_out)
+            x, kv, xkv, a = _sublayer_seq(lp, cfg, x, j, knobs, causal=causal,
+                                          enc_out=enc_out, training=training)
+            aux = aux if a is None else aux + a
             if collect_kv:
                 out.append((kv, xkv))
-        return x, out
+        if with_shared:
+            x = _sublayer_seq(shared, shared_cfg, x, 0, knobs, causal=causal)[0]
+        return x, aux, out
 
-    for chunk, remat in layer_chunks(stack, cfg):
-        x, out = recompute(run, x, chunk, when=remat)
+    chunks = layer_chunks(stack, cfg)
+    for i, (chunk, remat) in enumerate(chunks):
+        with_shared = shared is not None and i < len(chunks) - 1
+        x, aux, out = recompute(run, x, aux, chunk, with_shared, when=remat)
         kvs += [kv for kv, _ in out]
         xkvs += [xkv for _, xkv in out]
-    return x, ({"kv": kvs, "xkv": xkvs} if collect_kv else None)
+    return x, aux, ({"kv": kvs, "xkv": xkvs} if collect_kv else None)
 
 
 def _fuse_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -211,7 +259,7 @@ def _fuse_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     n_prefix = 0
     if cfg.encoder is not None:
         e = batch["frames"].to(model_dtype(cfg))
-        e, _ = _stack_seq(params["enc_stack"], cfg, e, knobs, causal=False)
+        e, _, _ = _stack_seq(params["enc_stack"], cfg, e, knobs, causal=False)
         enc_out = rms_norm(e, params["enc_norm"])
     x = embed(params["embed"], batch["tokens"], cfg)
     if cfg.vlm_image_tokens:
@@ -223,16 +271,20 @@ def _fuse_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
 
 
 def forward_seq(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-                knobs: Knobs = Knobs(), collect_kv: bool = False):
+                knobs: Knobs = Knobs(), collect_kv: bool = False,
+                training: bool = False):
     """Final hidden states of the whole sequence.  Returns (x, aux,
-    n_prefix, collected); ``aux`` (the MoE balance loss) is 0 for every
-    ported arch."""
-    check_ported(cfg)
+    n_prefix, collected); ``aux`` is the MoE balance loss summed over the
+    MoE layers (0 without them).  ``training`` gates training-only load
+    shaping (MoE capacity drops); inference callers keep the default False
+    so the sequence forward is token-order-equivalent to step-wise
+    decode."""
     x, enc_out, n_prefix = _fuse_inputs(params, cfg, batch, knobs)
-    x, collected = _stack_seq(params["stack"], cfg, x, knobs, causal=True,
-                              enc_out=enc_out, collect_kv=collect_kv)
+    shared = params.get("shared") if cfg.hybrid_shared_attn_every else None
+    x, aux, collected = _stack_seq(params["stack"], cfg, x, knobs, causal=True,
+                                   enc_out=enc_out, shared=shared,
+                                   collect_kv=collect_kv, training=training)
     x = rms_norm(x, params["final_norm"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, n_prefix, collected
 
 
@@ -250,7 +302,10 @@ def _ce_of_chunk(params, cfg, xc, tc):
 
 def train_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                knobs: Knobs = Knobs()):
-    x, aux, n_prefix, _ = forward_seq(params, cfg, batch, knobs)
+    """Mean next-token cross-entropy plus ``knobs.aux_coef`` x the MoE
+    balance loss, from a ``training`` forward.  Returns (loss, {"ce",
+    "aux"})."""
+    x, aux, n_prefix, _ = forward_seq(params, cfg, batch, knobs, training=True)
     tokens = batch["tokens"]
     if n_prefix:
         x = x[:, n_prefix:]
@@ -279,53 +334,110 @@ def train_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 def decode_state_specs(cfg: ArchConfig, batch: int, seq: int, *, device=None) -> Dict[str, Any]:
     """A zeroed decode state for ``batch`` rows and a ring of ``seq``
     entries, at position ``seq - 1``, on ``device`` (the CUDA device by
-    default).  The reference's abstract (shape-only) variant serves its
-    dry-run and is not ported."""
-    check_ported(cfg)
+    default): the attention layers' KV caches (in the model's dtype), the
+    recurrent blocks' states (float32, as the reference keeps them), and
+    the shared block's caches, one per group.  The reference's abstract
+    (shape-only) variant serves its dry-run and is not ported."""
     device = resolve_device(device)
-    st: Dict[str, Any] = {"pos": torch.tensor(seq - 1, dtype=torch.long, device=device),
-                          "kv": attn.init_kv_cache(cfg, batch, seq, cfg.n_layers,
-                                                   model_dtype(cfg), device)}
+    kv_dtype = model_dtype(cfg)
+    st: Dict[str, Any] = {"pos": torch.tensor(seq - 1, dtype=torch.long, device=device)}
+    if cfg.block_type == "attn":
+        st["kv"] = attn.init_kv_cache(cfg, batch, seq, cfg.n_layers, kv_dtype, device)
+    if cfg.block_type == "mamba2":
+        st["mamba"] = ssm_mod.init_mamba_state(cfg, batch, cfg.n_layers, device=device)
+    if cfg.block_type == "rwkv6":
+        st["rwkv"] = rwkv_mod.init_rwkv_state(cfg, batch, cfg.n_layers, device=device)
+    if cfg.hybrid_shared_attn_every:
+        st["shared_kv"] = attn.init_kv_cache(_attn_cfg(cfg), batch, seq,
+                                             cfg.n_layers // cfg.group, kv_dtype, device)
     if cfg.encoder is not None:
         st["cross_kv"] = attn.init_kv_cache(cfg, batch, cfg.encoder.seq, cfg.n_layers,
-                                            model_dtype(cfg), device)
+                                            kv_dtype, device)
     return st
+
+
+# the per-layer stacked entries decode_step writes, and the shared block's
+_STATE_KEYS = ("kv", "mamba", "rwkv", "shared_kv")
 
 
 # ---------------------------------------------------------------------------
 # decode step
 # ---------------------------------------------------------------------------
 
-def _sublayer_decode(lp: Params, cfg: ArchConfig, x, j: int, kv: attn.KVCache,
-                     cross_kv: attn.KVCache | None, pos):
-    """One layer on one token; writes the token's k/v into ``kv``."""
+def _slice(state: tuple, i: int) -> tuple:
+    """Layer ``i``'s slice of each leaf of a stacked state (views)."""
+    return type(state)(*(leaf[i] for leaf in state))
+
+
+def _write(state: tuple, i: int, new: tuple) -> None:
+    """Layer ``i``'s slice of each leaf of ``state``, in place (rounded to
+    the leaf's dtype)."""
+    for leaf, value in zip(state, new):
+        leaf[i].copy_(value)
+
+
+def _sublayer_decode(lp: Params, cfg: ArchConfig, x, j: int, li: int,
+                     st: Dict[str, Any], pos):
+    """Layer ``li`` (pattern index ``j``) on one token.  Writes the layer's
+    slice of ``st``'s KV cache or recurrent state in place."""
+    if cfg.block_type == "mamba2":
+        out, ms = ssm_mod.mamba_decode_step(lp["mamba"], cfg, rms_norm(x, lp["ln"]),
+                                            _slice(st["mamba"], li))
+        _write(st["mamba"], li, ms)
+        return x + out
+    if cfg.block_type == "rwkv6":
+        wkv, shift_tm, shift_cm = _slice(st["rwkv"], li)
+        h = rms_norm(x, lp["ln1"])
+        out, new_wkv, _ = rwkv_mod.rwkv_tm_decode_step(lp["tm"], cfg, h, wkv, shift_tm)
+        x = x + out
+        h2 = rms_norm(x, lp["ln2"])
+        cm_out = apply_mlp_block(lp["cm"], cfg, h2, x_prev=shift_cm)
+        _write(st["rwkv"], li, (new_wkv, h, h2))
+        return x + cm_out
     window = cfg.window if _pattern_at(cfg, j) == "local" else None
-    out, _ = attn.decode_attention(lp["attn"], cfg, rms_norm(x, lp["ln1"]), kv, pos,
-                                   window=window)
+    out, _ = attn.decode_attention(lp["attn"], cfg, rms_norm(x, lp["ln1"]),
+                                   _slice(st["kv"], li), pos, window=window)
     x = x + out
-    if "xattn" in lp and cross_kv is not None:
+    if "xattn" in lp and "cross_kv" in st:
         cout, _ = attn.decode_attention(lp["xattn"], cfg, rms_norm(x, lp["lnx"]),
-                                        cross_kv, pos, window=None, cross=True)
+                                        _slice(st["cross_kv"], li), pos, window=None,
+                                        cross=True)
         x = x + cout
-    return x + apply_mlp_block(lp["ffn"], cfg, rms_norm(x, lp["ln2"]))
+    h = rms_norm(x, lp["ln2"])
+    f_out = (moe_mod.apply_moe(lp["moe"], cfg, h)[0] if "moe" in lp
+             else apply_mlp_block(lp["ffn"], cfg, h))
+    return x + f_out
+
+
+def _shared_decode(shared: Params, cfg: ArchConfig, x, gi: int, st: Dict[str, Any], pos):
+    """zamba2's shared block after group ``gi`` on one token; writes its
+    slice of ``st["shared_kv"]`` in place."""
+    acfg = _attn_cfg(cfg)
+    out, _ = attn.decode_attention(shared["attn"], acfg, rms_norm(x, shared["ln1"]),
+                                   _slice(st["shared_kv"], gi), pos, window=None)
+    x = x + out
+    return x + apply_mlp_block(shared["ffn"], acfg, rms_norm(x, shared["ln2"]))
 
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, st: Dict[str, Any]):
     """token: (B, 1) integers.  Returns (logits (B, V), new state); ``st``
-    is left as it was: its self-attention caches are copied once, as the
-    reference's step copies them, and each layer writes its slot of the
-    copy in place."""
-    check_ported(cfg)
+    is left as it was: its KV caches and recurrent states are copied once,
+    as the reference's step copies them, and each layer writes its slice of
+    the copy in place."""
     pos = st["pos"]
     x = embed(params["embed"], token, cfg)
-    kv = attn.KVCache(st["kv"].k.clone(), st["kv"].v.clone())
-    for li, (j, lp) in enumerate(stack_layers(params["stack"], cfg)):
-        cross = (attn.KVCache(st["cross_kv"].k[li], st["cross_kv"].v[li])
-                 if "cross_kv" in st else None)
-        x = _sublayer_decode(lp, cfg, x, j, attn.KVCache(kv.k[li], kv.v[li]), cross, pos)
     new_st = dict(st)
+    for key in _STATE_KEYS:
+        if key in st:
+            new_st[key] = type(st[key])(*(leaf.clone() for leaf in st[key]))
+    g = cfg.group
+    n_grouped = (cfg.n_layers // g) * g
+    shared = params.get("shared") if cfg.hybrid_shared_attn_every else None
+    for li, (j, lp) in enumerate(stack_layers(params["stack"], cfg)):
+        x = _sublayer_decode(lp, cfg, x, j, li, new_st, pos)
+        if shared is not None and li < n_grouped and li % g == g - 1:
+            x = _shared_decode(shared, cfg, x, li // g, new_st, pos)
     new_st["pos"] = pos + 1
-    new_st["kv"] = kv
     x = rms_norm(x, params["final_norm"])
     return logits(params["embed"], x, cfg)[:, 0], new_st
 
@@ -343,14 +455,21 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     entries -- which is the intended streaming behavior at capacity).  The
     caches are the layers' post-rope k/v in layer order, zero-padded to the
     capacity; the encoder-decoder's cross caches keep the encoder's length
-    (never ring-written).  Returns (last-position logits, DecodeState).
+    (never ring-written).  The recurrent archs (mamba2, rwkv6, and zamba2
+    with its shared block) assemble no state here, as in the reference:
+    they get their position alone, and serving warms their state by
+    step-wise decode.  Returns (last-position logits, DecodeState).
     """
-    x, _, _, collected = forward_seq(params, cfg, batch, knobs, collect_kv=True)
+    attn_cache = cfg.block_type == "attn"
+    x, _, _, collected = forward_seq(params, cfg, batch, knobs, collect_kv=attn_cache)
     lg = logits(params["embed"], x[:, -1:], cfg)[:, 0]
     seq = x.shape[1]
     cap = pad_to or seq
     if cap < seq:
         raise ValueError(f"pad_to {cap} is below the prefilled length {seq}")
+    st: Dict[str, Any] = {"pos": torch.tensor(seq, dtype=torch.long, device=x.device)}
+    if not attn_cache:
+        return lg, st
 
     def stacked(kvs) -> attn.KVCache:
         return attn.KVCache(torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
@@ -358,8 +477,7 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     kv = stacked(collected["kv"])
     if cap > seq:
         kv = attn.KVCache(*(F.pad(c, (0, 0, 0, 0, 0, cap - seq)) for c in kv))
-    st: Dict[str, Any] = {"pos": torch.tensor(seq, dtype=torch.long, device=x.device),
-                          "kv": kv}
+    st["kv"] = kv
     if cfg.encoder is not None:
         st["cross_kv"] = stacked(collected["xkv"])
     return lg, st

@@ -62,23 +62,33 @@ import torch
 
 from repro.configs import get_arch as jget_arch
 from repro.models import attention as jattn
+from repro.models import decode_state_specs as jdecode_state_specs
 from repro.models import decode_step as jdecode_step
 from repro.models import forward_seq as jforward_seq
+from repro.models import gla as jgla
 from repro.models import init_model as jinit_model
 from repro.models import layers as jlayers
+from repro.models import moe as jmoe
 from repro.models import prefill as jprefill
+from repro.models import rwkv as jrwkv
+from repro.models import ssm as jssm
 from repro.models import train_loss as jtrain_loss
 from repro.models import transformer as jtransformer
 from repro.models.transformer import Knobs as JKnobs
 from repro_torch import bridge
 from repro_torch.configs import get_arch
-from repro_torch.models import (Knobs, attention, decode_step, forward_seq, init_model,
-                                layers, prefill, train_loss, transformer)
+from repro_torch.models import (Knobs, attention, decode_state_specs, decode_step,
+                                forward_seq, gla, init_model, layers, moe, prefill, rwkv,
+                                ssm, train_loss, transformer)
 from repro_torch.models.transformer import VLM_EMBED_DIM, stack_layers
 
 B, S = 2, 32
 PORTED = ("qwen3-0.6b", "granite-3-2b", "gemma3-4b", "gemma2-27b",
-          "llava-next-mistral-7b", "whisper-large-v3")
+          "llava-next-mistral-7b", "whisper-large-v3", "mixtral-8x7b",
+          "llama4-maverick-400b-a17b", "zamba2-2.7b", "rwkv6-3b")
+RECURRENT = ("zamba2-2.7b", "rwkv6-3b")
+# the decode state's stacked entries, each a NamedTuple of leaves
+STATE_KEYS = ("kv", "cross_kv", "mamba", "rwkv", "shared_kv")
 MODES = ("float32", "float64")
 TOL = {"float64": 1e-11, "float64-islands": 1e-6, "float32": 1e-5}
 # query and key chunks: see the module docstring
@@ -109,12 +119,23 @@ def islands(mode):
     mode, left in place otherwise."""
     with ExitStack() as stack:
         if mode == "float64":
-            for mod in (jlayers, jattn, jtransformer):
+            for mod in (jlayers, jattn, jtransformer, jgla, jssm, jrwkv, jmoe):
                 stack.enter_context(mock.patch.object(mod, "jnp", _Wide(jnp, jnp.float64)))
-            for mod in (layers, attention, transformer):
+            for mod in (layers, attention, transformer, gla, ssm, rwkv, moe):
                 stack.enter_context(mock.patch.object(mod, "torch",
                                                       _Wide(torch, torch.float64)))
         yield
+
+
+def lift_state(st, mode):
+    """The reference's recurrent states at float64 in the float64 mode.
+    Its ``init_mamba_state`` / ``init_rwkv_state`` take their float32 as a
+    default argument, bound when the module was imported, which the module
+    proxy cannot lift; the port reads ``torch.float32`` at call time."""
+    if mode != "float64":
+        return st
+    return {k: (jax.tree_util.tree_map(lambda a: a.astype(jnp.float64), v)
+                if k in ("mamba", "rwkv") else v) for k, v in st.items()}
 
 
 def _numpy(v):
@@ -169,40 +190,61 @@ def as_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _flat(x, loss, ce, grads, lg_pre, st, lg_dec, st2) -> dict:
-    """One case's outputs by name: hidden states, loss, ce, each gradient
-    leaf, the prefill's and the decode step's logits and cache leaves."""
-    out = {"hidden states": x, "loss": loss, "ce": ce,
+def state_leaves(what, state) -> dict:
+    """A decode state's position and the leaves of its stacked entries by
+    name (``"decode mamba.conv"``), from either package."""
+    out = {f"{what} pos": state["pos"]}
+    for key in STATE_KEYS:
+        if key in state:
+            out.update({f"{what} {key}.{f}": getattr(state[key], f)
+                        for f in state[key]._fields})
+    return out
+
+
+def _flat(x, aux_fwd, loss, ce, aux, grads, lg_pre, st, lg_dec, st2) -> dict:
+    """One case's outputs by name: hidden states, the forward's MoE aux,
+    loss, ce, aux, each gradient leaf, the prefill's and the decode's logits
+    and state leaves (a recurrent arch's decode: every step's logits)."""
+    out = {"hidden states": x, "forward aux": aux_fwd, "loss": loss, "ce": ce, "aux": aux,
            "prefill logits": lg_pre, "decode logits": lg_dec}
     out.update({f"grad {k}": g for k, g in bridge.by_key(grads).items()})
-    for what, state in (("prefill", st), ("decode", st2)):
-        out[f"{what} pos"] = state["pos"]
-        for key in ("kv", "cross_kv"):
-            if key in state:
-                out[f"{what} {key}.k"], out[f"{what} {key}.v"] = state[key][0], state[key][1]
+    out.update(state_leaves("prefill", st))
+    out.update(state_leaves("decode", st2))
     return {k: np.asarray(v) for k, v in out.items()}
 
 
 @lru_cache(maxsize=None)
 def reference(arch, mode):
     """The JAX side of one case, once: (parameters, outputs by name) as
-    numpy."""
+    numpy.  An attention arch decodes one step after prefilling S-1
+    tokens; a recurrent one (no cache from its prefill) decodes all S
+    tokens one at a time from ``decode_state_specs`` at position 0."""
     jcfg, _ = cfgs(arch, mode)
     params, _ = jinit_model(jcfg, jax.random.PRNGKey(0))
     knobs = JKnobs(*CHUNKS[mode])
     batch = _jbatch(make_batch(jcfg))
     cap = S + jcfg.vlm_image_tokens
 
-    def run(p, b):
-        x = jforward_seq(p, jcfg, b, knobs)[0]
+    def run(p, b, st0):
+        x, aux_fwd = jforward_seq(p, jcfg, b, knobs)[:2]
         (loss, metrics), grads = jax.value_and_grad(
             lambda q: jtrain_loss(q, jcfg, b, knobs), has_aux=True)(p)
         lg_pre, st = jprefill(p, jcfg, prefix(b), knobs, pad_to=cap)
-        lg_dec, st2 = jdecode_step(p, jcfg, b["tokens"][:, S - 1:], st, knobs)
-        return x, loss, metrics["ce"], grads, lg_pre, st, lg_dec, st2
+        if st0 is None:
+            lg_dec, st2 = jdecode_step(p, jcfg, b["tokens"][:, S - 1:], st, knobs)
+        else:
+            st2, lg_dec = jax.lax.scan(
+                lambda s_, tok: jdecode_step(p, jcfg, tok[:, None], s_, knobs)[::-1], st0,
+                b["tokens"].T)
+        return (x, aux_fwd, loss, metrics["ce"], metrics["aux"], grads, lg_pre, st,
+                lg_dec, st2)
 
     with islands(mode):
-        out = jax.jit(run)(params, batch)
+        st0 = None
+        if arch in RECURRENT:
+            st0 = lift_state(jdecode_state_specs(jcfg, B, S, abstract=False), mode)
+            st0["pos"] = jnp.asarray(0, jnp.int32)
+        out = jax.jit(run)(params, batch, st0)
     return as_numpy(params), _flat(*as_numpy(out))
 
 
@@ -259,9 +301,9 @@ def forward_seq_matches_reference(arch, mode):
     with torch.no_grad(), islands(mode):
         got, aux, n_prefix, _ = forward_seq(port_params(arch, mode), cfg,
                                             tbatch(make_batch(cfg)), Knobs(*CHUNKS[mode]))
-    assert got.dtype == getattr(torch, dtype_of(mode)) and float(aux) == 0.0
+    assert got.dtype == getattr(torch, dtype_of(mode))
     assert n_prefix == cfg.vlm_image_tokens
-    check(arch, mode, {"hidden states": got})
+    check(arch, mode, {"hidden states": got, "forward aux": aux})
 
 
 def train_loss_and_gradient_match_reference(arch, mode):
@@ -271,7 +313,7 @@ def train_loss_and_gradient_match_reference(arch, mode):
     with islands(mode):
         loss, metrics = train_loss(params, cfg, tbatch(make_batch(cfg)), Knobs(*CHUNKS[mode]))
         grads = torch.autograd.grad(loss, list(by_key.values()))
-    check(arch, mode, {"loss": loss, "ce": metrics["ce"],
+    check(arch, mode, {"loss": loss, "ce": metrics["ce"], "aux": metrics["aux"],
                        **{f"grad {k}": g for k, g in zip(by_key, grads)}})
 
 
@@ -286,15 +328,55 @@ def prefill_and_decode_match_reference(arch, mode):
         lg_pre, st = prefill(params, cfg, prefix(batch), knobs,
                              pad_to=S + cfg.vlm_image_tokens)
         lg_dec, st2 = decode_step(params, cfg, batch["tokens"][:, S - 1:], st)
-    got = {"prefill logits": lg_pre, "decode logits": lg_dec}
-    for what, state in (("prefill", st), ("decode", st2)):
-        got[f"{what} pos"] = state["pos"]
-        for key in ("kv", "cross_kv"):
-            if key in state:
-                got[f"{what} {key}.k"], got[f"{what} {key}.v"] = state[key]
+    got = {"prefill logits": lg_pre, "decode logits": lg_dec,
+           **state_leaves("prefill", st), **state_leaves("decode", st2)}
     assert set(got) == {n for n in reference(arch, mode)[1]
                         if n.startswith(("prefill", "decode"))}
     check(arch, mode, got)
+
+
+def stepwise_decode_matches_reference(arch, mode):
+    """A recurrent arch: the prefill's last logits and position (it builds
+    no state), then all S tokens decoded one at a time from
+    ``decode_state_specs`` at position 0: every step's logits and, after
+    the last, every leaf of the recurrent states (and zamba2's shared
+    block's caches)."""
+    _, cfg = cfgs(arch, mode)
+    params = port_params(arch, mode)
+    batch = tbatch(make_batch(cfg))
+    knobs = Knobs(*CHUNKS[mode])
+    with torch.no_grad(), islands(mode):
+        lg_pre, st = prefill(params, cfg, prefix(batch), knobs, pad_to=S)
+        st2 = decode_state_specs(cfg, B, S, device="cpu")
+        st2["pos"] = torch.tensor(0)
+        steps = []
+        for t in range(S):
+            lg, st2 = decode_step(params, cfg, batch["tokens"][:, t:t + 1], st2)
+            steps.append(lg)
+    assert sorted(st) == ["pos"]
+    got = {"prefill logits": lg_pre, "decode logits": torch.stack(steps),
+           **state_leaves("prefill", st), **state_leaves("decode", st2)}
+    assert set(got) == {n for n in reference(arch, mode)[1]
+                        if n.startswith(("prefill", "decode"))}
+    check(arch, mode, got)
+
+
+def stepwise_decode_is_the_chunked_forward(arch):
+    """The port against itself, as the reference's own test (and its
+    bound): decoding token by token gives the chunked forward's logits at
+    every position."""
+    _, cfg = cfgs(arch, "float32")
+    params = port_params(arch, "float32")
+    batch = tbatch(make_batch(cfg, seed=2))
+    with torch.no_grad():
+        want = layers.logits(params["embed"], forward_seq(params, cfg, batch)[0], cfg)
+        st = decode_state_specs(cfg, B, S, device="cpu")
+        st["pos"] = torch.tensor(0)
+        errs = []
+        for t in range(S):
+            lg, st = decode_step(params, cfg, batch["tokens"][:, t:t + 1], st)
+            errs.append(float((lg - want[:, t]).abs().max()))
+    assert max(errs) < 5e-3, (arch, max(errs))
 
 
 def prefill_then_decode_is_the_full_forward(arch):

@@ -9,7 +9,8 @@ their ``main(argv)`` on the CPU at a few steps and narrow widths.
 * serve_operator: train -> checkpoint -> serve for every engine spec, each
   served table against a direct call within 1e-12 and the specs against
   each other within 1e-9;
-* serve_lm: reduced gemma3 prefilled and decoded, greedy;
+* serve_lm: reduced gemma3 prefilled and decoded, greedy; reduced zamba2
+  and rwkv6 warmed step by step (``prefill`` never called), then decoded;
 * sobolev_lm: a few steps of CE + the order-3 jet penalty on reduced qwen3;
 * each refuses to run without the card unless told ``--device cpu``.
 """
@@ -99,6 +100,17 @@ def test_serve_lm_prefills_and_decodes_gemma3():
                                            "--prompt-len", "12", "--gen", "4",
                                            "--device", "cpu"])
     assert out["tokens"].shape == (2, 4) and out["ms_per_token"] > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-3b"])
+def test_serve_lm_warms_the_recurrent_archs_step_by_step(arch, monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(serve, "prefill", lambda *a, **k: pytest.fail("prefill called"))
+    out = _example("torch_serve_lm").main(["--arch", arch, "--batch", "2",
+                                           "--prompt-len", "6", "--gen", "3",
+                                           "--device", "cpu"])
+    assert out["tokens"].shape == (2, 3) and out["prefill_ms"] > 0
 
 
 def test_sobolev_lm_trains_with_the_jet_penalty():

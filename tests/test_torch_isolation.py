@@ -46,6 +46,14 @@ def test_port_modules_import_without_jax_or_reference():
     assert res["bad"] == [] and res["n"] == len(MODULES) >= 16
 
 
+def test_the_lm_blocks_are_held_to_the_import_rule():
+    """The recurrent and MoE blocks and their GLA engine are among the
+    modules imported above and the sources parsed below."""
+    for name in ("gla", "ssm", "rwkv", "moe"):
+        assert f"repro_torch.models.{name}" in MODULES
+        assert (PORT / "models" / f"{name}.py").is_file()
+
+
 def _imported_names(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

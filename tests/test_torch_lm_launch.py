@@ -1,9 +1,14 @@
 """The port's LM launchers on the CPU: ``launch/serve.py`` (the reference's
-CLI cases of ``tests/test_serving.py``, and ``run``), the synthetic token
-pipeline (``data/tokens.py``), and ``launch/train.py``'s ``run`` under the
-fault-tolerant ``Trainer`` with the jet regularizer on: an injected failure
-restores the last checkpoint bit for bit and the run ends where an
-uninterrupted one does."""
+CLI cases of ``tests/test_serving.py``, and ``run``; the recurrent archs'
+step-wise warm-up against the reference's serving loop), the synthetic
+token pipeline (``data/tokens.py``), and ``launch/train.py``'s ``run``
+under the fault-tolerant ``Trainer`` with the jet regularizer on: an
+injected failure restores the last checkpoint bit for bit and the run ends
+where an uninterrupted one does; a MoE arch's balance loss reaches the
+loss and the run's metrics."""
+
+import dataclasses
+import math
 
 import pytest
 
@@ -58,6 +63,48 @@ def test_serve_run_is_deterministic(greedy):
     assert a["tokens"].shape == (2, 5) and torch.equal(a["tokens"], b["tokens"])
     assert int(a["tokens"].min()) >= 0 and int(a["tokens"].max()) < cfg.vocab
     assert a["prefill_ms"] > 0 and a["decode_ms"] > 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_serve_warms_a_recurrent_state_step_by_step(arch, monkeypatch):
+    """A recurrent arch builds no cache in ``prefill``: ``run`` warms its
+    state token by token from ``decode_state_specs`` and never calls
+    ``prefill``.  Its greedy tokens are the reference's serving loop's
+    (``repro/launch/serve.py``: the same warm-up, then decode) on the same
+    parameters and prompts, at float64 with both packages' float32 islands
+    lifted, so near-tied logits cannot part the two argmaxes."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import _torch_lm as H
+    from repro.models import decode_state_specs as jdecode_state_specs
+    from repro.models import decode_step as jdecode_step
+    from repro_torch import bridge
+
+    bsz, prompt_len, gen = 2, 8, 5
+    jcfg, cfg = H.cfgs(arch, "float64")
+    params, _ = H.reference(arch, "float64")
+    monkeypatch.setattr(serve_cli, "prefill", lambda *a, **k: pytest.fail("prefill called"))
+    prompts = synthetic_batch(cfg, ShapeCfg("serve", prompt_len, bsz, "prefill"), 0,
+                              device="cpu")["tokens"]
+    with H.islands("float64"):
+        got = serve_cli.run(cfg, bsz, prompt_len, gen, params=bridge.params_from_numpy(
+            params, device="cpu"), device="cpu")
+        st = H.lift_state(jdecode_state_specs(jcfg, bsz, prompt_len + gen, abstract=False),
+                          "float64")
+        st["pos"] = jnp.asarray(0, jnp.int32)
+        step = jax.jit(lambda p, t, s: jdecode_step(p, jcfg, t, s))
+        toks = jnp.asarray(prompts.numpy(), jnp.int32)
+        for t in range(prompt_len):
+            lg, st = step(params, toks[:, t:t + 1], st)
+        want = []
+        for _ in range(gen):
+            tok = jnp.argmax(lg, -1)[:, None].astype(jnp.int32)
+            want.append(np.asarray(tok))
+            lg, st = step(params, tok, st)
+    assert got["tokens"].tolist() == np.concatenate(want, 1).tolist()
+    assert got["prefill_ms"] > 0 and got["decode_ms"] > 0
 
 
 def test_serve_needs_the_card_unless_told_cpu(monkeypatch):
@@ -135,6 +182,25 @@ def test_train_run_restores_after_a_failure_bit_for_bit(tmp_path):
         assert all(c > 0 for c in out["ce"]) and all(s > 0 for s in out["smooth"])
     # the re-run steps give the losses they gave the first time
     assert rep.losses == clean["report"].losses[:4] + clean["report"].losses[3:]
+
+
+def test_train_run_carries_the_moe_balance_loss(tmp_path):
+    """Reduced mixtral, 2 steps: each step's loss is its cross-entropy
+    plus ``Knobs.aux_coef`` x the balance loss, which ``run`` reports (about
+    1 a MoE layer for near-uniform routing)."""
+    from repro_torch.models import Knobs
+
+    cfg = get_arch("mixtral-8x7b").reduced()
+    out = train_cli.run(cfg, TRAIN_SHAPE, 2, 1e-2, ckpt_dir=str(tmp_path), device="cpu")
+    rep = out["report"]
+    assert rep.steps_run == 2 and len(out["aux"]) == 2
+    for loss, ce, aux in zip(rep.losses, out["ce"], out["aux"]):
+        assert 0.5 * cfg.n_layers < aux < 2.0 * cfg.n_layers
+        assert math.isclose(loss, ce + Knobs().aux_coef * aux, rel_tol=1e-6)
+    # a dense arch's balance loss is 0
+    dense = train_cli.run(dataclasses.replace(get_arch("qwen3-0.6b").reduced(), n_layers=1),
+                          TRAIN_SHAPE, 1, ckpt_dir=str(tmp_path / "dense"), device="cpu")
+    assert dense["aux"] == [0.0] and dense["report"].losses == dense["ce"]
 
 
 def test_train_main_needs_the_card_unless_told_cpu(monkeypatch, tmp_path):

@@ -124,12 +124,17 @@ def test_trainer_preemption_checkpoints_and_exits(tmp_path, how):
 
 
 def test_straggler_watchdog(tmp_path):
+    """Step 10 stalls 0.5 s and is the first step flagged.  Every step
+    sleeps 30 ms first, so the EMA the watchdog compares against sits far
+    above the host's jitter: with microsecond steps a scheduler or GC pause
+    of a loaded worker is already 3x the EMA and would be flagged first."""
     cfg, step = quad_problem(tmp_path, total=20)
     hits = []
 
     def batch_fn(s):
+        time.sleep(0.03)
         if s == 10:
-            time.sleep(0.3)
+            time.sleep(0.5)
         return None
 
     tr = Trainer(cfg, step, batch_fn, straggler_cb=lambda s, dt, ema: hits.append(s),
