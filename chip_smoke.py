@@ -184,6 +184,20 @@ Phases, each failing loudly with a non-zero exit:
    trained at full width and depth by ``launch.train``'s step, and one
    training-mode loss + backward on mixtral at 2 layers (balance loss,
    tokens surviving the capacity drops);
+   6h. the sharding half (``models/sharding_rules.py``, ``launch/mesh.py``,
+   ``launch/sharding.py``, the elastic restore), within LM_SHARD_LIMIT_S,
+   on a (1, 1) ("data", "model") mesh under NCCL at world size 1, launch
+   counters zeroed before and read after (none of the port's kernels):
+   (a) qwen3-0.6b trained at its published widths by
+   ``build_train_step(fsdp=True, policy="tp")`` and by ``launch.train``'s
+   step from one init, bit for bit (ms a step of each, the peaks); (b)
+   rwkv6-3b decoded by ``build_serve_step`` against ``decode_step``, bit for
+   bit (ms a token of each); (c) llama4 at 2 of 48 layers with 16 experts
+   (expert-parallel specs), f64 with the islands lifted, by
+   ``build_prefill_step`` against the unsharded forward (TOL_LM_SHARD_MOE);
+   (d) a qwen3 parameter tree saved from the mesh and restored onto a 1-D
+   mesh, bit for bit; (e) the production plan: per-rank bytes of every
+   arch on both production meshes at every applicable shape;
 7. K1 at the shapes the training phases launched it most (recorded while
    they ran), beside its plain version and bound; 7b. the run-time-order
    kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
@@ -492,6 +506,29 @@ TOL_LM_RM_F64 = 1e-9
 LM_RM_TRAIN = dict(arch="zamba2-2.7b", batch=1, seq=2048, steps=2, lr=1e-4)
 LM_MOE_TRAIN = dict(arch="mixtral-8x7b", layers=2, batch=1, seq=4096)
 LM_RM_LIMIT_S = 240.0
+
+# phase 6h: the LM substrate's sharding half (models/sharding_rules.py,
+# launch/mesh.py, launch/sharding.py, runtime/pipeline.py, the elastic
+# restore), on a (1, 1) ("data", "model") mesh under NCCL at world size 1
+# (NCCL refuses two ranks on one card; gloo runs no all_gather on CUDA
+# tensors): the builders' DTensor steps against the unsharded path.
+# (a) qwen3-0.6b trained at its published widths, bf16, by
+# build_train_step(fsdp=True, policy="tp") and by launch.train's step from
+# one init and the same batches, bit for bit; (b) rwkv6-3b decoded by
+# build_serve_step against decode_step from a fresh state, bf16, bit for
+# bit; (c) llama4 at 2 of 48 layers with 16 of 128 experts (one MoE layer,
+# expert-parallel specs), f64 with the islands lifted, build_prefill_step
+# against forward_seq + logits within TOL_LM_SHARD_MOE of the logit scale
+# (index_add_'s atomics rule out bit equality); (d) a qwen3 parameter tree
+# saved from the (1, 1) mesh and restored onto a 1-D one, bit for bit;
+# (e) the production plan: per-rank bytes of every arch on both production
+# meshes at every applicable shape, from the bound specs alone.
+LM_SHARD_TRAIN = dict(arch="qwen3-0.6b", batch=2, seq=1024, steps=2, lr=3e-4)
+LM_SHARD_DECODE = dict(arch="rwkv6-3b", batch=4, tokens=16)
+LM_SHARD_PREFILL = dict(arch="llama4-maverick-400b-a17b", batch=2, tokens=512, layers=2,
+                        experts=16)
+TOL_LM_SHARD_MOE = 1e-12
+LM_SHARD_LIMIT_S = 180.0
 
 
 class SmokeFailure(RuntimeError):
@@ -4814,6 +4851,317 @@ def lm_recurrent_moe(seed: int, report: dict) -> dict:
     return {"lm_recurrent_moe": launches}
 
 
+def _full(tree):
+    """Every DTensor leaf of ``tree`` as its full tensor (a check reads it;
+    the model never does)."""
+    from repro_torch.tree import leaves, unflatten
+    return unflatten(tree, [leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf
+                            for leaf in leaves(tree)])
+
+
+def lm_shard_train(seed: int, mesh, smi: str, out: dict) -> None:
+    """6h (a): LM_SHARD_TRAIN's arch at its published widths, bf16,
+    ``build_train_step(fsdp=True, policy="tp")`` on ``mesh`` and
+    ``launch.train``'s step from one ``init_model`` and the same batches:
+    every loss and every parameter leaf bit for bit; ms a step of each (the
+    DTensor dispatch's cost) and the peaks."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.sharding import build_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import adam_init
+    from repro_torch.tree import bit_equal
+
+    c = LM_SHARD_TRAIN
+    cfg = get_arch(c["arch"])
+    shape = ShapeCfg("lm_shard", c["seq"], c["batch"], "train")
+    params = init_model(cfg, seed, device=DEVICE)
+    batches = [synthetic_batch(cfg, shape, i, device=DEVICE) for i in range(c["steps"])]
+    built = build_train_step(cfg, mesh, shape, fsdp=True, policy="tp", lr=c["lr"])
+    runs = {}
+    for label, step in (("sharded", built.fn), ("plain", train.train_step(cfg, c["lr"]))):
+        torch.cuda.reset_peak_memory_stats()
+        p, o, losses, ms = params, adam_init(params), [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            p, o, loss, *_ = step(p, o, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.full_tensor() if hasattr(loss, "full_tensor") else loss)
+        runs[label] = (_full(p), torch.stack(losses), ms, torch.cuda.max_memory_allocated())
+        del o
+    (ps, ls, ms_s, peak_s), (pp, lp, ms_p, peak_p) = runs["sharded"], runs["plain"]
+    require(bit_equal(ls, lp), f"6h (a): sharded losses {ls.tolist()} vs {lp.tolist()}")
+    require(bit_equal(ps, pp), "6h (a): sharded parameters differ from launch.train's")
+    out["train"] = {"arch": cfg.name, "losses": ls.tolist(), "sharded_step_ms": ms_s,
+                    "plain_step_ms": ms_p, "sharded_peak_bytes": peak_s,
+                    "plain_peak_bytes": peak_p, "rules": repr(built.rules)}
+    print(f"    (a) {cfg.name} bf16 at its published widths, B {shape.global_batch} x S "
+          f"{shape.seq_len}, {c['steps']} steps: build_train_step(fsdp, tp) bit for bit with "
+          f"launch.train's step (losses {', '.join(f'{v:.4f}' for v in ls.tolist())}); ms a "
+          f"step {' / '.join(f'{v:.0f}' for v in ms_s)} sharded, "
+          f"{' / '.join(f'{v:.0f}' for v in ms_p)} plain; peak {peak_s / 2**30:.2f} / "
+          f"{peak_p / 2**30:.2f} GiB | {smi}")
+    del params, batches, runs, ps, pp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_shard_decode(seed: int, mesh, smi: str, out: dict) -> None:
+    """6h (b): LM_SHARD_DECODE's arch at its published widths, bf16:
+    ``build_serve_step`` decodes its tokens from a fresh state beside
+    ``decode_step``; the logits of every step and every state leaf bit for
+    bit; ms a token of each."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch.sharding import build_serve_step
+    from repro_torch.models import decode_state_specs, decode_step, init_model
+    from repro_torch.tree import bit_equal
+
+    c = LM_SHARD_DECODE
+    cfg = get_arch(c["arch"])
+    shape = ShapeCfg("lm_shard", c["tokens"], c["batch"], "decode")
+    params = init_model(cfg, seed, device=DEVICE)
+    tokens = synthetic_batch(cfg, ShapeCfg("lm", c["tokens"], c["batch"], "prefill"), 0,
+                             device=DEVICE)["tokens"]
+    built = build_serve_step(cfg, mesh, shape)
+    runs = {}
+    for label, step in (("sharded", built.fn),
+                        ("plain", lambda p, t, st: decode_step(p, cfg, t, st))):
+        st = decode_state_specs(cfg, c["batch"], c["tokens"], device=DEVICE)
+        logits, ms = [], []
+        with torch.no_grad():
+            for i in range(c["tokens"]):
+                t0 = time.perf_counter()
+                lg, st = step(params, tokens[:, i:i + 1], st)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(lg.full_tensor() if hasattr(lg, "full_tensor") else lg)
+        runs[label] = (torch.stack(logits), _full(st), ms)
+    (ls, ss, ms_s), (lp, sp, ms_p) = runs["sharded"], runs["plain"]
+    require(bit_equal(ls, lp), "6h (b): sharded decode logits differ from decode_step's")
+    require(bit_equal(ss, sp), "6h (b): sharded decode state differs from decode_step's")
+    med_s, med_p = sorted(ms_s)[len(ms_s) // 2], sorted(ms_p)[len(ms_p) // 2]
+    out["decode"] = {"arch": cfg.name, "sharded_token_ms": ms_s, "plain_token_ms": ms_p}
+    print(f"    (b) {cfg.name} bf16 at its published widths, B {c['batch']}: "
+          f"build_serve_step decodes {c['tokens']} tokens bit for bit with decode_step "
+          f"(logits and every state leaf); ms a token (median) {med_s:.1f} sharded, "
+          f"{med_p:.1f} plain | {smi}")
+    del params, runs, ss, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_shard_prefill(seed: int, mesh, out: dict) -> None:
+    """6h (c): LM_SHARD_PREFILL's arch at its published widths, its depth
+    and experts cut for memory (one MoE layer: the expert-parallel specs
+    apply), f64 with the islands lifted: ``build_prefill_step`` against
+    ``forward_seq`` + ``logits`` within TOL_LM_SHARD_MOE of the logit
+    scale."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch.sharding import build_prefill_step
+    from repro_torch.models import init_model, moe
+
+    c = LM_SHARD_PREFILL
+    full = get_arch(c["arch"])
+    cfg = dataclasses.replace(full, dtype="float64", n_layers=c["layers"],
+                              moe=dataclasses.replace(full.moe, n_experts=c["experts"]))
+    shape = ShapeCfg("lm_shard", c["tokens"], c["batch"], "prefill")
+    params = init_model(cfg, seed, device=DEVICE)
+    batch = synthetic_batch(cfg, shape, 0, device=DEVICE)
+    built = build_prefill_step(cfg, mesh, shape)
+    with lifted_islands():
+        t0 = time.perf_counter()
+        got = built.fn(params, batch).full_tensor()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = _lm_last_logits(params, cfg, batch)
+        torch.cuda.synchronize()
+        ms_plain = (time.perf_counter() - t0) * 1e3
+    err = float((got - want).abs().max() / want.abs().max())
+    out["prefill"] = {"arch": cfg.name, "layers": cfg.n_layers, "experts": c["experts"],
+                      "expert_parallel": c["experts"] >= moe.EP_MIN_EXPERTS, "f64_err": err,
+                      "sharded_ms": ms, "plain_ms": ms_plain}
+    print(f"    (c) {cfg.name} f64 (islands lifted) at {cfg.n_layers} of {full.n_layers} "
+          f"layers, {c['experts']} of {full.moe.n_experts} experts (expert parallel), B "
+          f"{c['batch']} x {c['tokens']} tokens: build_prefill_step vs forward_seq + logits "
+          f"{err:.1e} of the logit scale (TOL_LM_SHARD_MOE {TOL_LM_SHARD_MOE}); {ms:.0f} ms "
+          f"sharded, {ms_plain:.0f} ms plain")
+    require(err <= TOL_LM_SHARD_MOE, f"6h (c): prefill {err:.2e} of the logit scale")
+    del params, batch, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_shard_restore(seed: int, mesh, out: dict) -> None:
+    """6h (d): a qwen3 parameter tree (bf16, published widths) placed on
+    ``mesh`` by ``build_train_step``'s shardings (fsdp, tp), saved by the
+    ``CheckpointManager`` from there, and restored with ``shardings=`` onto
+    another mesh (1-D, "data") with the data-parallel policy's placements:
+    every leaf bit for bit, on the target mesh and placements.  (On one rank
+    every placement is ``Replicate()``: an axis of size 1 shards nothing;
+    the gloo ranks of the CPU tests restore across placements.)"""
+    import gc
+    import tempfile
+
+    import torch
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.sharding import (bind_param_shardings, distribute_params,
+                                             make_rules)
+    from repro_torch.models import init_model, param_specs
+    from repro_torch.tree import bit_equal, leaves
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = get_arch(LM_SHARD_TRAIN["arch"])
+    params = init_model(cfg, seed, device=DEVICE)
+    meta = init_model(cfg, abstract=True)
+    flat = init_device_mesh(DEVICE, (1,), mesh_dim_names=("data",))
+    src = bind_param_shardings(mesh, param_specs(cfg), meta,
+                               make_rules(mesh, fsdp=True, policy="tp"))
+    dst = bind_param_shardings(flat, param_specs(cfg), meta,
+                               make_rules(flat, fsdp=False, policy="dp"))
+    placed = distribute_params(params, src)
+    ckpt = CheckpointManager(tempfile.mkdtemp())
+    t0 = time.perf_counter()
+    ckpt.save(0, placed)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.restore(0, placed, shardings=dst)
+    t_restore = time.perf_counter() - t0
+    require(all(b.device_mesh is flat and tuple(b.placements) == s.placements
+                for b, s in _placed_pairs(back, dst)),
+            "6h (d): restored leaves are not on the target mesh and placements")
+    require(bit_equal(_full(back), params), "6h (d): restored parameters differ")
+    out["restore"] = {"leaves": len(leaves(back)), "save_s": t_save, "restore_s": t_restore}
+    print(f"    (d) {cfg.name} bf16 parameters ({len(leaves(back))} leaves) saved from the "
+          f"(1, 1) mesh's (fsdp, tp) placements and restored onto a 1-D mesh with the (dp) "
+          f"placements: bit for bit; save {t_save:.2f} s, restore {t_restore:.2f} s")
+    del params, placed, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _placed_pairs(tree, shardings) -> list:
+    """(leaf, ``Sharding``) pairs of a tree and its shardings."""
+    from repro_torch.launch.sharding import zip_map
+
+    pairs = []
+    zip_map(lambda t, s: pairs.append((t, s)), tree, shardings)
+    return pairs
+
+
+def lm_shard_plan(out: dict) -> None:
+    """6h (e): every arch on both production meshes (``production_sizes``:
+    a mapping, no ranks) at every applicable shape, with the rules the
+    builders use (FSDP where ``wants_fsdp``; sequence-parallel state at
+    B = 1): per-rank bytes of the parameters (plus Adam's m and v for
+    training) and of the decode state, from the bound specs on meta
+    tensors."""
+    from repro_torch.configs import ASSIGNED, SHAPES, get_arch, shape_applicable
+    from repro_torch.launch.mesh import production_sizes
+    from repro_torch.launch.sharding import (arch_param_count, bind_param_shardings,
+                                             make_rules, state_shardings, wants_fsdp)
+    from repro_torch.models import decode_state_specs, init_model, param_specs
+
+    def rank_bytes(tree, shardings) -> int:
+        return sum(math.prod(s.local_shape(t.shape)) * t.element_size()
+                   for t, s in _placed_pairs(tree, shardings))
+
+    plan = {}
+    for arch in ASSIGNED:
+        cfg = get_arch(arch)
+        meta, specs = init_model(cfg, abstract=True), param_specs(cfg)
+        n_params, fsdp = arch_param_count(cfg), wants_fsdp(cfg)
+        for multi in (False, True):
+            mesh = production_sizes(multi)
+            for shape in SHAPES.values():
+                if not shape_applicable(cfg, shape):
+                    continue
+                sp = shape.kind == "decode" and shape.global_batch == 1
+                rules = make_rules(mesh, sp=sp, fsdp=fsdp)
+                p_bytes = rank_bytes(meta, bind_param_shardings(mesh, specs, meta, rules))
+                row = {"params": n_params, "fsdp": fsdp,
+                       "param_bytes": p_bytes,
+                       "adam_bytes": 2 * p_bytes if shape.kind == "train" else 0}
+                if shape.kind == "decode":
+                    st = decode_state_specs(cfg, shape.global_batch, shape.seq_len,
+                                            abstract=True)
+                    row["state_bytes"] = rank_bytes(st, state_shardings(mesh, cfg, shape,
+                                                                        rules))
+                row["total_bytes"] = (row["param_bytes"] + row["adam_bytes"]
+                                      + row.get("state_bytes", 0))
+                key = f"{arch} {'x'.join(map(str, mesh.values()))} {shape.name}"
+                plan[key] = row
+                gib = {k: v / 2**30 for k, v in row.items() if k.endswith("_bytes")}
+                extra = (f" + {gib['adam_bytes']:.2f} GiB Adam" if row["adam_bytes"] else "")
+                extra += (f" + {gib['state_bytes']:.2f} GiB state" if "state_bytes" in row
+                          else "")
+                print(f"    (e) {key}: {n_params / 1e9:.2f} B params{' (FSDP)' if fsdp else ''}"
+                      f", per rank {gib['param_bytes']:.2f} GiB params{extra} = "
+                      f"{gib['total_bytes']:.2f} GiB")
+    out["plan"] = plan
+
+
+def lm_sharding(seed: int, report: dict) -> dict:
+    """Phase 6h: the LM substrate's sharding half on the card, under NCCL at
+    world size 1 on a (1, 1) ("data", "model") mesh, launch counters zeroed
+    before and read after (none of the port's kernels may launch): (a)
+    ``lm_shard_train``, (b) ``lm_shard_decode``, (c) ``lm_shard_prefill``,
+    (d) ``lm_shard_restore``, (e) ``lm_shard_plan``, within
+    LM_SHARD_LIMIT_S."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    out: dict = {}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")     # one host, no network
+    dist.init_process_group("nccl", init_method=f"file://{Path(tempfile.mkdtemp()) / 'init'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_debug_mesh(1, 1, DEVICE)
+        ops.reset_launch_counts()
+        lm_shard_train(seed, mesh, smi, out)
+        lm_shard_decode(seed, mesh, smi, out)
+        lm_shard_prefill(seed, mesh, out)
+        lm_shard_restore(seed, mesh, out)
+        launches = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    lm_shard_plan(out)
+    require(not any(launches.values()), f"LM sharding launched the port's kernels: {launches}")
+    seconds = time.perf_counter() - t_phase
+    out.update(launches=launches, seconds=seconds, nvidia_smi=smi,
+               torch=torch.__version__)
+    print(f"    launches {launches}; {seconds:.1f} s | {smi}")
+    report["lm_sharding"] = out
+    require(seconds <= LM_SHARD_LIMIT_S,
+            f"LM sharding phase took {seconds:.1f} s (limit {LM_SHARD_LIMIT_S:.0f} s)")
+    return {"lm_sharding": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4980,6 +5328,10 @@ def main(argv=None) -> int:
                 "reduced card vs CPU, bf16 served at published widths, f64 decode checks, "
                 "bf16 training")
     new_paths.update(lm_recurrent_moe(args.seed, report))
+    phase("6h", "the LM substrate's sharding half on a (1, 1) mesh under NCCL: qwen3 "
+                "trained, rwkv6 decoded and llama4 prefilled by the step builders against "
+                "the unsharded path, an elastic restore, the production plan")
+    new_paths.update(lm_sharding(args.seed, report))
     phase("7", "K1 jet_dense at the shapes the training phases launched it")
     training_times = time_training_shapes(shapes.counts, gen, report)
     phase("7b", "the run-time-order kernels: K1 at the Burgers k = 4 shapes, K1-K5 at "

@@ -14,7 +14,13 @@ writes:
   (the caller may then overwrite its tensors) and leaves the file writing
   to a thread; :meth:`CheckpointManager.wait` joins it;
 * restore is elastic: each leaf is cast to the dtype of the matching leaf
-  of ``like`` and placed on that leaf's device.
+  of ``like`` and placed on that leaf's device, or, given ``shardings``
+  (a tree of ``(mesh, placements)`` pairs, ``launch.sharding.Sharding``),
+  distributed as a DTensor onto that mesh, which may differ from the
+  writer's;
+* a tree holding DTensors is saved as full tensors: every rank takes part
+  in gathering them (``full_tensor``), rank 0 writes, and a blocking save
+  returns on every rank once the files are in place.
 
 numpy has no bfloat16 here: a bfloat16 leaf is written widened to float32
 (exact), and ``restore`` casts it back through ``like``.  The JAX package
@@ -33,14 +39,46 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.bridge import by_key, leaf_keys, tree_map
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` that shares no storage with it."""
+    """A host copy of ``t`` (the full tensor of a DTensor) that shares no
+    storage with it."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
     return t.detach().to("cpu", dtype, copy=True).numpy()
+
+
+def _distributed(tree) -> bool:
+    """Whether ``tree`` holds a DTensor (its save is collective)."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(leaf, DTensor) for leaf in by_key(tree).values())
+
+
+def _placed(t: torch.Tensor, ref: torch.Tensor, sharding) -> torch.Tensor:
+    """``t`` in ``ref``'s dtype, distributed by ``sharding`` (a ``(mesh,
+    placements)`` pair), else on ``ref``'s device."""
+    from torch.distributed.tensor import distribute_tensor
+    if sharding is None:
+        return t.to(device=ref.device, dtype=ref.dtype)
+    mesh, placements = sharding
+    return distribute_tensor(t.to(device=mesh.device_type, dtype=ref.dtype), mesh,
+                             tuple(placements))
+
+
+def _pairs(tree, other) -> list:
+    """``other``'s leaves in ``tree``'s leaf order (``other`` has ``tree``'s
+    structure; its leaves may be any object)."""
+    if isinstance(tree, torch.Tensor):
+        return [other]
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _pairs(v, other[k])]
+    return [x for v, o in zip(tree, other) for x in _pairs(v, o)]
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -87,8 +125,15 @@ class CheckpointManager:
         thread writes the files (one at a time: the previous save is
         waited for first)."""
         host_arrays = {key: _host(leaf) for key, leaf in by_key(tree).items()}
+        collective = _distributed(tree)
+        if collective and dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return
         if blocking:
             self._write(step, host_arrays)
+            if collective:
+                dist.barrier()
         else:
             self.wait()
             self._thread = threading.Thread(
@@ -155,13 +200,18 @@ class CheckpointManager:
                 f"  checkpoint leaves absent from `like`: {extra or 'none'}\n"
                 f"(checkpoint: {path})")
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
         """``like``'s tree with each leaf read from step ``step``, cast to
         the dtype of ``like``'s leaf and on that leaf's device (the dtype
-        and the device may differ from the writer's)."""
+        and the device may differ from the writer's); with ``shardings``
+        (``like``'s structure, a ``(mesh, placements)`` pair a leaf) each
+        leaf is a DTensor on its mesh (elastic: the target mesh may differ
+        from the writer's)."""
         path = os.path.join(self.dir, f"step_{step:010d}")
         with np.load(os.path.join(path, "shard_0.npz")) as z:
             arrays = {k: z[k] for k in z.files}
-        self._check_leaves(step, path, set(arrays), set(leaf_keys(like)))
-        return tree_map(lambda key, ref: _tensor(arrays[key]).to(
-            device=ref.device, dtype=ref.dtype), like)
+        keys = leaf_keys(like)
+        self._check_leaves(step, path, set(arrays), set(keys))
+        where = dict(zip(keys, _pairs(like, shardings) if shardings is not None
+                         else [None] * len(keys)))
+        return tree_map(lambda key, ref: _placed(_tensor(arrays[key]), ref, where[key]), like)

@@ -11,8 +11,8 @@ straggler watchdog), and the optional n-TangentProp Sobolev regularization
 (``--ntp-order``) -- the paper's technique as a first-class LM-training
 feature.  A MoE arch's balance loss reaches the loss through
 ``train_loss`` (``Knobs.aux_coef``).  Runs on the GPU unless ``--device
-cpu`` is given; one card (the reference's sharded step waits for the
-sharding layer, ROADMAP Queue 1 item 6c).
+cpu`` is given, on one card; the reference's sharded step is
+``launch.sharding.build_train_step`` on a device mesh.
 """
 
 from __future__ import annotations

@@ -27,21 +27,66 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from .layers import Maker, Params, recompute, rms_norm, rope, softcap
+from .sharding_rules import Spec
 
 NEG = -2.0e38  # safe -inf for fp32 masks
 
 
+def attn_specs(cfg: ArchConfig):
+    """Pick shardable dims for the 16-way model axis (the reference's
+    choice): shard heads (Megatron -- softmax stays local); if the head
+    count doesn't divide (gemma3: 8 q heads, llama4: 40, whisper: 20),
+    shard head_dim (pays a contraction all-reduce); kv projections that
+    divide neither way are replicated.  ``cfg.attn_sharding ==
+    "replicate"`` replicates every attention weight.  Returns (q, kv, o)
+    specs."""
+    from repro_torch.configs.base import MODEL_AXIS as MA
+
+    none3 = Spec(None, None, None)
+    if cfg.attn_sharding == "replicate":
+        return none3, none3, none3
+
+    def pick(n_heads, hd):
+        if n_heads % MA == 0:
+            return Spec(None, "model", None), "heads"
+        if hd % MA == 0:
+            return Spec(None, None, "model"), "hd"
+        return none3, "none"
+
+    q_spec, q_kind = pick(cfg.n_heads, cfg.hd)
+    kv_spec, kv_kind = pick(cfg.n_kv_heads, cfg.hd)
+    if q_kind == "heads" and kv_kind != "heads":
+        # replicating the (small) kv projection keeps scores/softmax local
+        kv_spec = none3
+    elif q_kind == "hd" and cfg.hd % MA == 0:
+        kv_spec = Spec(None, None, "model")  # align kv on hd
+    if q_kind == "heads":
+        o_spec = Spec("model", None, None)
+    elif q_kind == "hd":
+        o_spec = Spec(None, "model", None)
+    else:
+        o_spec = none3
+    return q_spec, kv_spec, o_spec
+
+
+def q_hd_sharded(cfg: ArchConfig) -> bool:
+    """True when attention shards head_dim (heads don't divide the axis)."""
+    q_spec, _, _ = attn_specs(cfg)
+    return len(q_spec) == 3 and q_spec[2] == "model"
+
+
 def init_attn(mk: Maker, cfg: ArchConfig) -> Params:
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q_spec, kv_spec, o_spec = attn_specs(cfg)
     p = {
-        "wq": mk.param((d, h, hd)),
-        "wk": mk.param((d, kvh, hd)),
-        "wv": mk.param((d, kvh, hd)),
-        "wo": mk.param((h, hd, d)),
+        "wq": mk.param((d, h, hd), q_spec),
+        "wk": mk.param((d, kvh, hd), kv_spec),
+        "wv": mk.param((d, kvh, hd), kv_spec),
+        "wo": mk.param((h, hd, d), o_spec),
     }
     if cfg.qk_norm:
-        p["q_norm"] = mk.zeros((hd,))
-        p["k_norm"] = mk.zeros((hd,))
+        p["q_norm"] = mk.zeros((hd,), Spec(None))
+        p["k_norm"] = mk.zeros((hd,), Spec(None))
     return p
 
 
@@ -192,6 +237,32 @@ class KVCache(NamedTuple):
     v: torch.Tensor  # (B, S, KVH, hd)
 
 
+def _ring_write(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
+    """``buf[:, slot] = new`` in place: the ring write of one token's k or v
+    (B, 1, KVH, hd) into a (B, S, KVH, hd) cache.  DTensor has no strategy
+    for ``index_copy_``; on a DTensor cache each rank writes its own shard
+    (``new`` laid out like it, the slot moved into the rank's sequence
+    shard, written only where it falls), so no rank touches another's."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(buf, DTensor):
+        buf.index_copy_(1, slot.reshape(1), new.to(buf.dtype))
+        return
+    mesh, plc = buf.device_mesh, tuple(buf.placements)
+    new = new.to(buf.dtype).redistribute(
+        mesh, tuple(Replicate() if p == Shard(1) else p for p in plc))
+    slot = slot.full_tensor() if isinstance(slot, DTensor) else slot
+    local = buf.to_local()
+    start, coord = 0, mesh.get_coordinate()
+    for m, p in enumerate(plc):   # the shard index over the seq-sharding mesh dims
+        if p == Shard(1):
+            start = start * mesh.size(m) + coord[m]
+    start *= local.shape[1]
+    at = slot - start
+    inside = (at >= 0) & (at < local.shape[1])
+    at = at.clamp(0, local.shape[1] - 1).reshape(1)
+    local.index_copy_(1, at, torch.where(inside, new.to_local(), local.index_select(1, at)))
+
+
 def decode_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
                      cache: KVCache, pos: torch.Tensor,
                      *, window: Optional[int],
@@ -206,9 +277,8 @@ def decode_attention(p: Params, cfg: ArchConfig, x: torch.Tensor,
     if not cross:
         q = rope(q, pos[None], cfg.rope_theta)
         k_new = rope(k_new, pos[None], cfg.rope_theta)
-        at = slot.reshape(1)
-        cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
-        cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
+        _ring_write(cache.k, k_new, slot)
+        _ring_write(cache.v, v_new, slot)
     sc = _scores(q, cache.k, cfg)  # (B,KVH,G,1,S)
     if not cross:
         # absolute position of ring slot j given write head at slot(pos):

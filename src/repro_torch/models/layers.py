@@ -7,9 +7,12 @@ unchanged.  The arithmetic is the reference's, float32 islands included:
 ``rms_norm`` takes its mean square and ``rope`` its angles in float32
 whatever the model's dtype, as the reference does.
 
-The reference pairs every init with a ``PartitionSpec`` twin for its
-sharded dry-run; that twin belongs to the sharding layer, which the port
-has not taken over yet, so the makers here build values only.
+Every init takes, leaf by leaf, the logical :class:`~.sharding_rules.Spec`
+the reference gives its ``PartitionSpec``.  One init function builds three
+trees, so they match by construction (the reference's ``Boxed``/``unzip``):
+a :class:`Maker` draws values, one on the ``meta`` device builds
+shape-and-dtype stand-ins (no draw, no allocation), and one made with
+``specs=True`` returns each leaf's logical spec.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
+from .sharding_rules import Spec
+
 Params = Dict[str, Any]
 
 
@@ -35,27 +40,47 @@ class Maker:
     fan-in normal draws in float32, rounded to ``dtype``.  A leaf of
     BIG_LEAF elements or more (llama4's 128 experts of 5120 x 2 x 8192) is
     drawn slice by slice along its first axis, so its float32 draw is
-    never held whole (43 GB there)."""
+    never held whole (43 GB there).
 
-    def __init__(self, generator: torch.Generator, dtype: torch.dtype,
-                 device: torch.device):
+    On the ``meta`` device it draws nothing and returns empty stand-ins of
+    the leaves' shapes and dtype; with ``specs=True`` it returns each
+    leaf's logical spec instead (vocabulary: "model" for tensor
+    parallelism, "fsdp" for weight sharding, None replicated; bound to mesh
+    axes in ``launch/sharding.py``)."""
+
+    def __init__(self, generator: torch.Generator | None, dtype: torch.dtype,
+                 device: torch.device, *, specs: bool = False):
         self.generator = generator
         self.dtype = dtype
-        self.device = device
+        self.device = torch.device(device)
+        self.specs = specs
 
-    def param(self, shape, scale: float | None = None) -> torch.Tensor:
+    @property
+    def abstract(self) -> bool:
+        return self.specs or self.device.type == "meta"
+
+    def _abstract(self, shape, spec: Spec):
+        if self.specs:
+            return Spec(*spec)
+        return torch.empty(shape, dtype=self.dtype, device="meta")
+
+    def param(self, shape, spec: Spec, scale: float | None = None):
         shape = tuple(shape)
+        if self.abstract:
+            return self._abstract(shape, spec)
         scale = fan_in_scale(shape) if scale is None else scale
         if len(shape) > 1 and math.prod(shape) >= BIG_LEAF:
             leaf = torch.empty(shape, dtype=self.dtype, device=self.device)
             for i in range(shape[0]):
-                leaf[i] = self.param(shape[1:], scale=scale)
+                leaf[i] = self.param(shape[1:], Spec(*spec[1:]), scale=scale)
             return leaf
         leaf = torch.randn(shape, generator=self.generator, dtype=torch.float32,
                            device=self.device)
         return leaf.mul_(scale).to(self.dtype)
 
-    def zeros(self, shape) -> torch.Tensor:
+    def zeros(self, shape, spec: Spec):
+        if self.abstract:
+            return self._abstract(tuple(shape), spec)
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
 
 
@@ -65,27 +90,37 @@ def fan_in_scale(shape) -> float:
 
 
 class StackedMaker(Maker):
-    """Maker that prepends a layer-group axis to every parameter it creates,
-    so one init function written for a single layer builds the
-    (n_groups, ...) leaves the group loop indexes.  Each group's slice is
-    drawn on its own into the stacked leaf (the scale that of the stacked
-    shape), so no float32 draw of a whole stacked leaf is ever held."""
+    """Maker that prepends a layer-group axis to every parameter it creates
+    (and a None to its spec), so one init function written for a single
+    layer builds the (n_groups, ...) leaves the group loop indexes.  Each
+    group's slice is drawn on its own into the stacked leaf (the scale that
+    of the stacked shape), so no float32 draw of a whole stacked leaf is
+    ever held."""
 
     def __init__(self, base: Maker, lead: int):
-        super().__init__(base.generator, base.dtype, base.device)
+        super().__init__(base.generator, base.dtype, base.device, specs=base.specs)
         self._base = base
         self._lead = lead
 
-    def param(self, shape, scale: float | None = None) -> torch.Tensor:
+    def param(self, shape, spec: Spec, scale: float | None = None):
         full = (self._lead,) + tuple(shape)
+        if self.abstract:
+            return self._base.param(full, Spec(None, *spec), scale=scale)
         scale = fan_in_scale(full) if scale is None else scale
         leaf = torch.empty(full, dtype=self.dtype, device=self.device)
         for i in range(self._lead):
-            leaf[i] = self._base.param(shape, scale=scale)
+            leaf[i] = self._base.param(shape, spec, scale=scale)
         return leaf
 
-    def zeros(self, shape) -> torch.Tensor:
-        return self._base.zeros((self._lead,) + tuple(shape))
+    def zeros(self, shape, spec: Spec):
+        return self._base.zeros((self._lead,) + tuple(shape), Spec(None, *spec))
+
+
+# logical spec aliases (bound to physical axes in launch/sharding.py)
+REPL = Spec()
+COL = Spec(None, "model")            # (d_in, d_out/TP)  column-parallel
+ROW = Spec("model", None)            # (d_in/TP, d_out)  row-parallel
+VOCAB = Spec("model", None)          # embedding table rows over TP
 
 
 def recompute(fn, *args, when: bool = True):
@@ -134,15 +169,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def init_mlp_block(mk: Maker, cfg: ArchConfig) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp in ("swiglu", "geglu"):
-        return {"wi": mk.param((d, 2, f)),  # fused gate+up
-                "wo": mk.param((f, d))}
+        return {"wi": mk.param((d, 2, f), Spec(None, None, "model")),  # fused gate+up
+                "wo": mk.param((f, d), ROW)}
     if cfg.mlp == "gelu_mlp":
-        return {"wi": mk.param((d, f)), "wo": mk.param((f, d))}
+        return {"wi": mk.param((d, f), COL), "wo": mk.param((f, d), ROW)}
     if cfg.mlp == "rwkv_channel_mix":
-        return {"mix_k": mk.param((d,), scale=0.1),
-                "wk": mk.param((d, f)),
-                "wv": mk.param((f, d)),
-                "wr": mk.param((d, d))}
+        return {"mix_k": mk.param((d,), REPL, scale=0.1),
+                "wk": mk.param((d, f), COL),
+                "wv": mk.param((f, d), ROW),
+                "wr": mk.param((d, d), REPL)}
     raise ValueError(cfg.mlp)
 
 
@@ -180,9 +215,9 @@ def token_shift(x: torch.Tensor, x_prev: torch.Tensor | None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_embed(mk: Maker, cfg: ArchConfig) -> Params:
-    p = {"table": mk.param((cfg.vocab, cfg.d_model), scale=cfg.d_model ** -0.5)}
+    p = {"table": mk.param((cfg.vocab, cfg.d_model), VOCAB, scale=cfg.d_model ** -0.5)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = mk.param((cfg.d_model, cfg.vocab))
+        p["lm_head"] = mk.param((cfg.d_model, cfg.vocab), COL)
     return p
 
 

@@ -23,9 +23,10 @@ is a real spare row of the buffer, written and never read (the reference's
 on the card the output equals the reference's to rounding, not bit for bit
 (a token's k <= 2 contributions are its only summands).
 
-The reference's sharding specs and ``shard()`` hints, and its choice of
-expert- or tensor-parallel placement (``EP_MIN_EXPERTS``), have no meaning
-on one card and are left out.
+Expert placement (logical specs, bound in launch/):
+  * E >= 16 (llama4: 128): expert-parallel -- E sharded over "model";
+  * E <  16 (mixtral: 8):  tensor-parallel inside each expert -- d_ff
+    sharded over "model" (E stays replicated).
 """
 
 from __future__ import annotations
@@ -38,16 +39,22 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 
 from .layers import Maker, Params
+from .sharding_rules import Spec, local, shard
 
+EP_MIN_EXPERTS = 16  # model-axis size on both production meshes
 DISPATCH_GROUPS = 32  # the reference's pod x data shards; local dispatch per group
 
 
 def init_moe(mk: Maker, cfg: ArchConfig) -> Params:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    if e >= EP_MIN_EXPERTS:  # expert parallel
+        wi_spec, wo_spec = Spec("model", None, None, None), Spec("model", None, None)
+    else:                    # TP within experts
+        wi_spec, wo_spec = Spec(None, None, None, "model"), Spec(None, "model", None)
     return {
-        "router": mk.param((d, e), scale=d ** -0.5),
-        "wi": mk.param((e, d, 2, f)),
-        "wo": mk.param((e, f, d)),
+        "router": mk.param((d, e), Spec(None, None), scale=d ** -0.5),
+        "wi": mk.param((e, d, 2, f), wi_spec),
+        "wo": mk.param((e, f, d), wo_spec),
     }
 
 
@@ -69,12 +76,60 @@ def dispatch_geometry(cfg: ArchConfig, n: int, training: bool) -> tuple[int, int
     return g, n_loc, cap
 
 
+def _dispatch(xf: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor,
+              e: int, cap: int):
+    """Per group: the (N_loc*k) slots sorted by expert (stable), ranked
+    within their expert from the exclusive cumulative counts, and packed
+    into the (G, E, cap, D) buffer; a slot ranked past ``cap`` goes to the
+    trash row.  Returns (h_in, slot, stok, kept weights), each led by the
+    group axis: no group reads another's rows."""
+    g, n_loc, d = xf.shape
+    k = top_e.shape[-1]
+    flat_e = top_e.reshape(g, n_loc * k)
+    flat_w = top_w.reshape(g, n_loc * k)
+    flat_tok = torch.arange(n_loc, device=xf.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    sw = torch.gather(flat_w, 1, order)
+    stok = flat_tok[order]                                      # (G, N_loc*k)
+    counts = torch.zeros((g, e), dtype=flat_e.dtype, device=xf.device)
+    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    offsets = torch.cumsum(counts, dim=1) - counts              # exclusive
+    rank = torch.arange(n_loc * k, device=xf.device) - torch.gather(offsets, 1, se)
+    keep = rank < cap
+    slot = torch.where(keep, se * cap + rank, e * cap)          # e*cap: the trash row
+    rows = torch.arange(g, device=xf.device)[:, None]
+    buf = xf.new_zeros((g, e * cap + 1, d))
+    buf[rows, slot] = xf[rows, stok]
+    return buf[:, :e * cap].reshape(g, e, cap, d), slot, stok, sw * keep
+
+
+def _combine(h_out: torch.Tensor, slot: torch.Tensor, stok: torch.Tensor,
+             sw: torch.Tensor, n_loc: int) -> torch.Tensor:
+    """Per group: each slot's expert output (zeros from the trash row)
+    times its kept weight, summed into its token's row: (G, E, cap, D) ->
+    (G, N_loc, D)."""
+    g, e, cap, d = h_out.shape
+    rows = torch.arange(g, device=h_out.device)[:, None]
+    out_buf = torch.cat([h_out.reshape(g, e * cap, d), h_out.new_zeros((g, 1, d))], dim=1)
+    gathered = out_buf[rows, slot] * sw.to(out_buf.dtype)[..., None]
+    y = h_out.new_zeros((g * n_loc, d))
+    y.index_add_(0, (rows * n_loc + stok).reshape(-1), gathered.reshape(-1, d))
+    return y.reshape(g, n_loc, d)
+
+
 def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor,
               training: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss).
 
     Dispatch is group-local: the tokens split into ``dispatch_geometry``'s
-    groups, and each routes and packs its own (E, cap) buffer.
+    groups, and each routes and packs its own (E, cap) buffer.  Under a
+    mesh the groups are sharded like the batch, and the dispatch and the
+    combine run on each rank's groups (``sharding_rules.local``: DTensor
+    has no strategy for the sort, the scatter into the trash row or
+    ``index_add_``); the expert buffers carry the expert axis over "model"
+    for expert parallelism, so only the expert products' redistributions
+    move tokens between ranks.
 
     Capacity-factor drops are *training-only* load shaping: with
     ``training=False`` (inference: full forward, prefill, decode) dispatch
@@ -85,44 +140,32 @@ def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor,
     n = b * s
     g, n_loc, cap = dispatch_geometry(cfg, n, training)
     f32 = torch.float32
+    ep = "model" if e >= EP_MIN_EXPERTS else None
 
-    xf = x.reshape(g, n_loc, d)
+    xf = shard(x.reshape(g, n_loc, d), "batch", None, None)
     gates = torch.einsum("gnd,de->gne", xf.to(f32), p["router"].to(f32))
     probs = torch.softmax(gates, dim=-1)
     top_w, top_e = torch.topk(probs, k, dim=-1, sorted=True)   # (G,N_loc,k)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
 
-    # ---- aux loss (Switch): E * sum_e f_e * P_e (global averages)
+    # ---- aux loss (Switch): E * sum_e f_e * P_e (global averages); the
+    # counts by comparison, which stays sharded (an exact integer sum)
     me = probs.mean((0, 1))
-    ce = torch.bincount(top_e.reshape(-1), minlength=e).to(f32) / (n * k)
+    hits = top_e[..., None] == torch.arange(e, device=x.device)
+    ce = hits.sum((0, 1, 2)).to(f32) / (n * k)
     aux = e * torch.sum(me * ce)
 
-    # ---- dispatch: per group, slots sorted by expert (stable), ranked
-    flat_e = top_e.reshape(g, n_loc * k)
-    flat_w = top_w.reshape(g, n_loc * k)
-    flat_tok = torch.arange(n_loc, device=x.device).repeat_interleave(k)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    se = torch.gather(flat_e, 1, order)
-    sw = torch.gather(flat_w, 1, order)
-    stok = flat_tok[order]                                      # (G, N_loc*k)
-    counts = torch.zeros((g, e), dtype=flat_e.dtype, device=x.device)
-    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
-    offsets = torch.cumsum(counts, dim=1) - counts              # exclusive
-    rank = torch.arange(n_loc * k, device=x.device) - torch.gather(offsets, 1, se)
-    keep = rank < cap
-    slot = torch.where(keep, se * cap + rank, e * cap)          # e*cap: the trash row
-    rows = torch.arange(g, device=x.device)[:, None]
-    buf = x.new_zeros((g, e * cap + 1, d))
-    buf[rows, slot] = xf[rows, stok]
-    h_in = buf[:, :e * cap].reshape(g, e, cap, d)
+    # logical specs of the group-led tensors the local steps exchange
+    g3, g2, g4 = Spec("batch", None, None), Spec("batch", None), Spec("batch", None, None, None)
+    h_in, slot, stok, sw = local(lambda xf, te, tw: _dispatch(xf, te, tw, e, cap),
+                                 (g4, g2, g2, g2), (g3, g3, g3))(xf, top_e, top_w)
+    h_in = shard(h_in, "batch", ep, None, None)
 
     gu = torch.einsum("gecd,edtf->gectf", h_in, p["wi"])
     act = F.silu(gu[..., 0, :]) * gu[..., 1, :]
-    h_out = torch.einsum("gecf,efd->gecd", act, p["wo"])
+    h_out = shard(torch.einsum("gecf,efd->gecd", act, p["wo"]), "batch", ep, None, None)
 
-    # ---- combine: the trash row reads zeros
-    out_buf = torch.cat([h_out.reshape(g, e * cap, d), h_out.new_zeros((g, 1, d))], dim=1)
-    gathered = out_buf[rows, slot] * (sw * keep).to(out_buf.dtype)[..., None]
-    y = h_out.new_zeros((g * n_loc, d))
-    y.index_add_(0, (rows * n_loc + stok).reshape(-1), gathered.reshape(-1, d))
+    y = local(lambda ho, sl, st, w: _combine(ho, sl, st, w, n_loc), g3,
+              (g4, g2, g2, g2))(h_out, slot, stok, sw)
+    y = shard(y, "batch", None, None)
     return y.reshape(b, s, d).to(x.dtype), aux

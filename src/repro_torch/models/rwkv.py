@@ -24,6 +24,7 @@ from repro_torch.device import resolve_device
 
 from .gla import chunked_gla, gla_decode_step
 from .layers import Maker, Params, token_shift
+from .sharding_rules import Spec
 
 LORA_R = 64
 
@@ -40,21 +41,21 @@ def init_rwkv_tm(mk: Maker, cfg: ArchConfig) -> Params:
     if h * hd != d:
         raise ValueError(f"{cfg.name}: {h} heads x {hd} is not d_model {d}")
     return {
-        "mix_r": mk.param((d,), scale=0.5),
-        "mix_k": mk.param((d,), scale=0.5),
-        "mix_v": mk.param((d,), scale=0.5),
-        "mix_g": mk.param((d,), scale=0.5),
-        "mix_w": mk.param((d,), scale=0.5),
-        "wr": mk.param((d, d)),
-        "wk": mk.param((d, d)),
-        "wv": mk.param((d, d)),
-        "wg": mk.param((d, d)),
-        "w0": mk.param((d,), scale=1.0),
-        "w_lora_a": mk.param((d, LORA_R)),
-        "w_lora_b": mk.param((LORA_R, d), scale=0.01),
-        "u": mk.param((h, hd), scale=0.5),
-        "ln_x": mk.zeros((d,)),
-        "wo": mk.param((d, d)),
+        "mix_r": mk.param((d,), Spec(None), scale=0.5),
+        "mix_k": mk.param((d,), Spec(None), scale=0.5),
+        "mix_v": mk.param((d,), Spec(None), scale=0.5),
+        "mix_g": mk.param((d,), Spec(None), scale=0.5),
+        "mix_w": mk.param((d,), Spec(None), scale=0.5),
+        "wr": mk.param((d, d), Spec(None, "model")),
+        "wk": mk.param((d, d), Spec(None, "model")),
+        "wv": mk.param((d, d), Spec(None, "model")),
+        "wg": mk.param((d, d), Spec(None, "model")),
+        "w0": mk.param((d,), Spec("model"), scale=1.0),
+        "w_lora_a": mk.param((d, LORA_R), Spec(None, None)),
+        "w_lora_b": mk.param((LORA_R, d), Spec(None, "model"), scale=0.01),
+        "u": mk.param((h, hd), Spec("model", None), scale=0.5),
+        "ln_x": mk.zeros((d,), Spec("model")),
+        "wo": mk.param((d, d), Spec("model", None)),
     }
 
 

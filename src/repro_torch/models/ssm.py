@@ -7,7 +7,7 @@ n_groups = 1 (B/C shared across heads), headdim 64: the zamba2-2.7b layout.
 
 The JAX package's ``models/ssm.py`` op for op, its float32 islands (the
 decay and the recurrent state, ``torch.float32`` read at call time)
-included.  Its sharding specs have no meaning on one card and are left out.
+included, and each parameter's logical sharding spec the reference's.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from repro_torch.device import resolve_device
 
 from .gla import chunked_gla, gla_decode_step
 from .layers import Maker, Params, rms_norm
+from .sharding_rules import Spec
 
 CONV_K = 4
 
@@ -50,14 +51,14 @@ def init_mamba(mk: Maker, cfg: ArchConfig) -> Params:
     d_inner, heads, hd, n = _dims(cfg)
     d_conv = d_inner + 2 * n
     return {
-        "in_proj": mk.param((d, 2 * d_inner + 2 * n + heads)),
-        "conv_w": mk.param((CONV_K, d_conv), scale=CONV_K ** -0.5),
-        "conv_b": mk.zeros((d_conv,)),
-        "a_log": mk.param((heads,), scale=1.0),
-        "dt_bias": mk.param((heads,), scale=1.0),
-        "d_skip": mk.param((heads,), scale=1.0),
-        "norm": mk.zeros((d_inner,)),
-        "out_proj": mk.param((d_inner, d)),
+        "in_proj": mk.param((d, 2 * d_inner + 2 * n + heads), Spec(None, "model")),
+        "conv_w": mk.param((CONV_K, d_conv), Spec(None, "model"), scale=CONV_K ** -0.5),
+        "conv_b": mk.zeros((d_conv,), Spec("model")),
+        "a_log": mk.param((heads,), Spec("model"), scale=1.0),
+        "dt_bias": mk.param((heads,), Spec("model"), scale=1.0),
+        "d_skip": mk.param((heads,), Spec("model"), scale=1.0),
+        "norm": mk.zeros((d_inner,), Spec("model")),
+        "out_proj": mk.param((d_inner, d), Spec("model", None)),
     }
 
 

@@ -15,6 +15,7 @@ tree leaf for leaf):
   prefill(params, cfg, batch)            -> last-pos logits + DecodeState
   decode_step(params, cfg, token, st)    -> logits, new DecodeState
   decode_state_specs(cfg, batch, seq)    -> a zeroed DecodeState
+  param_specs(cfg)                       -> the logical sharding specs
 
 Blocks: attention (dense, MoE every ``moe.period``-th layer, the VLM stub,
 the encoder-decoder's cross-attention), Mamba2 (``ssm.py``) and RWKV-6
@@ -22,8 +23,9 @@ the encoder-decoder's cross-attention), Mamba2 (``ssm.py``) and RWKV-6
 ``shared`` attention block, applied once per group after the group's
 layers.  The recurrent archs keep no KV cache: ``prefill`` returns their
 position only, and serving warms their state token by token
-(``launch/serve.py``).  The reference's sharding hints have no meaning on
-one card and are left out.
+(``launch/serve.py``).  The reference's ``shard()`` hints stand at its
+places (``models/sharding_rules.py``): no-ops without a mesh, DTensor
+redistributions under ``launch/sharding.py``'s step builders.
 """
 
 from __future__ import annotations
@@ -43,8 +45,11 @@ from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .layers import (Maker, Params, StackedMaker, apply_mlp_block, embed, gelu,
                      init_embed, init_mlp_block, logits, recompute, rms_norm)
+from .sharding_rules import Spec, shard
 
 VLM_EMBED_DIM = 1024  # CLIP-large patch width (anyres frontend stub)
+
+NORM = Spec(None)  # norm gains: replicated
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
@@ -84,18 +89,18 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
 
 def _init_layer(mk: Maker, cfg: ArchConfig, j: int, cross: bool = False) -> Params:
     if cfg.block_type == "mamba2":
-        return {"ln": mk.zeros((cfg.d_model,)),
+        return {"ln": mk.zeros((cfg.d_model,), NORM),
                 "mamba": ssm_mod.init_mamba(mk, cfg)}
     if cfg.block_type == "rwkv6":
-        return {"ln1": mk.zeros((cfg.d_model,)),
+        return {"ln1": mk.zeros((cfg.d_model,), NORM),
                 "tm": rwkv_mod.init_rwkv_tm(mk, cfg),
-                "ln2": mk.zeros((cfg.d_model,)),
+                "ln2": mk.zeros((cfg.d_model,), NORM),
                 "cm": init_mlp_block(mk, cfg)}
-    lp: Params = {"ln1": mk.zeros((cfg.d_model,)),
+    lp: Params = {"ln1": mk.zeros((cfg.d_model,), NORM),
                   "attn": attn.init_attn(mk, cfg),
-                  "ln2": mk.zeros((cfg.d_model,))}
+                  "ln2": mk.zeros((cfg.d_model,), NORM)}
     if cross:
-        lp["lnx"] = mk.zeros((cfg.d_model,))
+        lp["lnx"] = mk.zeros((cfg.d_model,), NORM)
         lp["xattn"] = attn.init_attn(mk, cfg)
     if _is_moe(cfg, j):
         lp["moe"] = moe_mod.init_moe(mk, cfg)
@@ -116,27 +121,42 @@ def _init_stack(mk: Maker, cfg: ArchConfig, cross: bool = False,
     return {"groups": groups, "rest": rest}
 
 
-def init_model(cfg: ArchConfig, seed: int = 0, *, device=None) -> Params:
-    """Random parameters of ``cfg`` in its dtype on ``device`` (the CUDA
-    device by default), drawn from a generator on that device seeded with
-    ``seed``.  The tree is the reference's ``init_model`` tree, key for
-    key."""
-    device = resolve_device(device)
-    mk = Maker(torch.Generator(device=device).manual_seed(seed), model_dtype(cfg), device)
+def _init_tree(mk: Maker, cfg: ArchConfig) -> Params:
     tree: Dict[str, Any] = {
         "embed": init_embed(mk, cfg),
-        "final_norm": mk.zeros((cfg.d_model,)),
+        "final_norm": mk.zeros((cfg.d_model,), NORM),
         "stack": _init_stack(mk, cfg, cross=cfg.encoder is not None),
     }
     if cfg.hybrid_shared_attn_every:
         tree["shared"] = _init_layer(mk, _attn_cfg(cfg), 0)
     if cfg.encoder is not None:
         tree["enc_stack"] = _init_stack(mk, cfg, n_layers=cfg.encoder.n_layers)
-        tree["enc_norm"] = mk.zeros((cfg.d_model,))
+        tree["enc_norm"] = mk.zeros((cfg.d_model,), NORM)
     if cfg.vlm_image_tokens:
-        tree["projector"] = {"w1": mk.param((VLM_EMBED_DIM, cfg.d_model)),
-                             "w2": mk.param((cfg.d_model, cfg.d_model))}
+        tree["projector"] = {"w1": mk.param((VLM_EMBED_DIM, cfg.d_model), Spec(None, "model")),
+                             "w2": mk.param((cfg.d_model, cfg.d_model), Spec("model", None))}
     return tree
+
+
+def init_model(cfg: ArchConfig, seed: int = 0, *, device=None,
+               abstract: bool = False) -> Params:
+    """Random parameters of ``cfg`` in its dtype on ``device`` (the CUDA
+    device by default), drawn from a generator on that device seeded with
+    ``seed``.  The tree is the reference's ``init_model`` tree, key for
+    key.  ``abstract=True``: empty ``meta`` tensors of the same shapes and
+    dtypes (no draw, no allocation), for planning."""
+    if abstract:
+        return _init_tree(Maker(None, model_dtype(cfg), torch.device("meta")), cfg)
+    device = resolve_device(device)
+    mk = Maker(torch.Generator(device=device).manual_seed(seed), model_dtype(cfg), device)
+    return _init_tree(mk, cfg)
+
+
+def param_specs(cfg: ArchConfig) -> Params:
+    """The logical sharding spec of every leaf of ``init_model(cfg)``, the
+    same tree built by the same init functions (the reference's
+    ``init_model(cfg, abstract=True)[1]``)."""
+    return _init_tree(Maker(None, model_dtype(cfg), torch.device("meta"), specs=True), cfg)
 
 
 def _layer(p: Params, i: int) -> Params:
@@ -194,7 +214,12 @@ def _sublayer_seq(lp: Params, cfg: ArchConfig, x: torch.Tensor, j: int,
                                        chunk=knobs.rwkv_chunk, pair_bf16=knobs.gla_pair_bf16)
         x = x + apply_mlp_block(lp["cm"], cfg, rms_norm(x, lp["ln2"]))
         return x, None, None, None
+    # Megatron-SP: residuals are S-sharded between groups; gather the
+    # sequence once on attention entry.  Skipped for hd-sharded attention,
+    # where the reference keeps GSPMD's propagated sharding.
     h = rms_norm(x, lp["ln1"])
+    if not attn.q_hd_sharded(cfg):
+        h = shard(h, "batch", None, None)
     if causal:
         window = cfg.window if _pattern_at(cfg, j) == "local" else None
         a_out, akv = attn.blocked_attention(lp["attn"], cfg, h, window=window,
@@ -211,6 +236,9 @@ def _sublayer_seq(lp: Params, cfg: ArchConfig, x: torch.Tensor, j: int,
     h = rms_norm(x, lp["ln2"])
     aux = None
     if "moe" in lp:
+        # batch-align the dispatch input (S-sharded residuals otherwise
+        # reshard inside the grouped dispatch)
+        h = shard(h, "batch", None, None)
         f_out, aux = moe_mod.apply_moe(lp["moe"], cfg, h, training=training)
     else:
         f_out = apply_mlp_block(lp["ffn"], cfg, h)
@@ -231,7 +259,7 @@ def _stack_seq(stack: Params, cfg: ArchConfig, x: torch.Tensor, knobs: Knobs,
     kvs, xkvs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run(x, aux, chunk, with_shared):
+    def run(x, aux, chunk, group):
         out = []
         for j, lp in chunk:
             x, kv, xkv, a = _sublayer_seq(lp, cfg, x, j, knobs, causal=causal,
@@ -239,14 +267,17 @@ def _stack_seq(stack: Params, cfg: ArchConfig, x: torch.Tensor, knobs: Knobs,
             aux = aux if a is None else aux + a
             if collect_kv:
                 out.append((kv, xkv))
-        if with_shared:
+        if group and shared is not None:
             x = _sublayer_seq(shared, shared_cfg, x, 0, knobs, causal=causal)[0]
+        if group:
+            # Megatron-SP residuals: the group-boundary activation (what
+            # remat saves) is sequence-sharded over the model axis
+            x = shard(x, "batch", "model", None)
         return x, aux, out
 
     chunks = layer_chunks(stack, cfg)
     for i, (chunk, remat) in enumerate(chunks):
-        with_shared = shared is not None and i < len(chunks) - 1
-        x, aux, out = recompute(run, x, aux, chunk, with_shared, when=remat)
+        x, aux, out = recompute(run, x, aux, chunk, i < len(chunks) - 1, when=remat)
         kvs += [kv for kv, _ in out]
         xkvs += [xkv for _, xkv in out]
     return x, aux, ({"kv": kvs, "xkv": xkvs} if collect_kv else None)
@@ -280,6 +311,7 @@ def forward_seq(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     so the sequence forward is token-order-equivalent to step-wise
     decode."""
     x, enc_out, n_prefix = _fuse_inputs(params, cfg, batch, knobs)
+    x = shard(x, "batch", None, None)
     shared = params.get("shared") if cfg.hybrid_shared_attn_every else None
     x, aux, collected = _stack_seq(params["stack"], cfg, x, knobs, causal=True,
                                    enc_out=enc_out, shared=shared,
@@ -295,8 +327,12 @@ def _ce_of_chunk(params, cfg, xc, tc):
     """Sum of (lse - picked) over one sequence chunk; logits never outlive
     the chunk."""
     lg = logits(params["embed"], xc, cfg).to(torch.float32)
+    lg = shard(lg, "batch", None, "model")
     lse = torch.logsumexp(lg, dim=-1)
-    picked = torch.gather(lg, -1, tc[..., None])[..., 0]
+    # one-hot contraction instead of a gather: stays sharded over the
+    # vocab (model) axis, and picks each logit exactly (its one nonzero term)
+    hot = (tc[..., None] == torch.arange(lg.shape[-1], device=tc.device)).to(lg.dtype)
+    picked = torch.sum(lg * hot, -1)
     return torch.sum(lse - picked)
 
 
@@ -331,14 +367,16 @@ def train_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 # decode state
 # ---------------------------------------------------------------------------
 
-def decode_state_specs(cfg: ArchConfig, batch: int, seq: int, *, device=None) -> Dict[str, Any]:
+def decode_state_specs(cfg: ArchConfig, batch: int, seq: int, *, device=None,
+                       abstract: bool = False) -> Dict[str, Any]:
     """A zeroed decode state for ``batch`` rows and a ring of ``seq``
     entries, at position ``seq - 1``, on ``device`` (the CUDA device by
     default): the attention layers' KV caches (in the model's dtype), the
     recurrent blocks' states (float32, as the reference keeps them), and
-    the shared block's caches, one per group.  The reference's abstract
-    (shape-only) variant serves its dry-run and is not ported."""
-    device = resolve_device(device)
+    the shared block's caches, one per group.  ``abstract=True``: the same
+    tree of empty ``meta`` tensors (the reference's shape-only variant),
+    for planning."""
+    device = torch.device("meta") if abstract else resolve_device(device)
     kv_dtype = model_dtype(cfg)
     st: Dict[str, Any] = {"pos": torch.tensor(seq - 1, dtype=torch.long, device=device)}
     if cfg.block_type == "attn":
@@ -425,7 +463,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, st: Dict[s
     as the reference's step copies them, and each layer writes its slice of
     the copy in place."""
     pos = st["pos"]
-    x = embed(params["embed"], token, cfg)
+    x = shard(embed(params["embed"], token, cfg), "batch", None, None)
     new_st = dict(st)
     for key in _STATE_KEYS:
         if key in st:

@@ -127,6 +127,32 @@ def islands(mode):
         yield
 
 
+def reference_train_steps(jcfg, jshape, params, batches, jknobs, **kw):
+    """The reference's ``launch.sharding.build_train_step`` on an in-process
+    (1, 1) ("data", "model") mesh, one step a batch from the port's
+    ``params`` and ``batches`` (numpy-converted), float64 with every float32
+    island lifted: the models', Adam's (a sharded gradient norm sums in
+    another order, and float32 Adam would round that into the parameters at
+    1e-9) and the microbatch loop's accumulator (a scan carry, which
+    float64 gradients would otherwise widen).  Returns (losses, the final
+    parameters' leaves)."""
+    from repro.launch import sharding as jsharding
+    from repro.optim import adam as jadam
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    wide = _Wide(jnp, jnp.float64)
+    with islands("float64"), mock.patch.object(jadam, "jnp", wide), \
+            mock.patch.object(jsharding, "jnp", wide):
+        built = jsharding.build_train_step(jcfg, mesh, jshape, knobs=jknobs, **kw)
+        p = jax.tree_util.tree_map(jnp.asarray, bridge.params_to_numpy(params))
+        o, losses = jadam.adam_init(p), []
+        for b in batches:
+            p, o, loss, _ = built.fn(p, o, {"tokens": jnp.asarray(b["tokens"].numpy(),
+                                                                 jnp.int32)})
+            losses.append(float(loss))
+    return losses, jax.tree_util.tree_leaves(p)
+
+
 def lift_state(st, mode):
     """The reference's recurrent states at float64 in the float64 mode.
     Its ``init_mamba_state`` / ``init_rwkv_state`` take their float32 as a

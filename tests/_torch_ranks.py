@@ -1,5 +1,6 @@
-"""What each rank runs in the port's multi-process data-parallel tests
-(``tests/test_torch_parallel.py``).
+"""What each rank runs in the port's multi-process tests: data parallel
+(``tests/test_torch_parallel.py``) and the LM substrate's sharding half
+(``tests/test_torch_sharding_ranks.py``).
 
 ``spawn(world_size, scenario, tmp_path)`` starts ``world_size`` processes
 (spawn start method), each of which joins a gloo process group initialised
@@ -26,17 +27,38 @@ F64 = torch.float64
 
 def spawn(world_size: int, scenario: str, tmp_path, timeout: float = 600.0,
           **kwargs) -> list:
+    return spawn_many({scenario: (world_size, tmp_path, kwargs)}, timeout)[scenario]
+
+
+def spawn_many(jobs: dict, timeout: float = 600.0, meanwhile=None) -> dict:
+    """Several spawns at once: ``{scenario: (world_size, tmp_path,
+    kwargs)}`` -> ``{scenario: [each rank's result]}``.  Each job has its
+    own group (its own ``tmp_path``); all run side by side, the parent runs
+    ``meanwhile()`` while they do (its result under the key
+    ``"meanwhile"``), and a job that fails or outlives ``timeout`` fails
+    the call."""
     import torch.multiprocessing as mp
-    ctx = mp.start_processes(_entry, args=(world_size, str(tmp_path), scenario, kwargs),
-                             nprocs=world_size, join=False, start_method="spawn")
+    ctxs = {name: mp.start_processes(_entry, args=(ws, str(tmp), name, kw), nprocs=ws,
+                                     join=False, start_method="spawn")
+            for name, (ws, tmp, kw) in jobs.items()}
     deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
+    try:
+        done = meanwhile() if meanwhile is not None else None
+        for name, ctx in ctxs.items():
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{name} at world size {jobs[name][0]} outlived "
+                                       f"{timeout} s")
+    finally:
+        for ctx in ctxs.values():
             for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{scenario} at world size {world_size} outlived {timeout} s")
-    return [torch.load(os.path.join(tmp_path, f"rank{r}.pt"), weights_only=False)
-            for r in range(world_size)]
+                if p.is_alive():
+                    p.kill()
+    out = {name: [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                  for r in range(ws)]
+           for name, (ws, tmp, _) in jobs.items()}
+    out["meanwhile"] = done
+    return out
 
 
 def _entry(rank: int, world_size: int, tmp: str, scenario: str, kwargs: dict) -> None:
@@ -375,5 +397,211 @@ def everything(world_size: int, **engine_kwargs) -> dict:
             "gather": gather_signed_zeros(world_size)}
 
 
+# ---------------------------------------------------------------------------
+# the LM substrate's sharding half (tests/test_torch_sharding_ranks.py), on a
+# (2, 2) ("data", "model") mesh of 4 ranks, float64 with the islands lifted
+# ---------------------------------------------------------------------------
+
+SHARD_B, SHARD_S = 4, 32     # the LM cases' batch and sequence (granite's dp: 2 x SHARD_B)
+SHARD_CHUNKS = (8, 8)        # blocked attention's query / key chunks (tests/_torch_lm.py)
+
+
+class _Wide:
+    """A module proxy whose ``float32`` is float64."""
+
+    def __init__(self, module, wide):
+        self._module, self.float32 = module, wide
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+def lifted_islands():
+    """The port's LM modules' and Adam's float32 islands at float64 (the
+    parent lifts the reference's: ``tests/test_torch_sharding_ranks.py``)."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from repro_torch.models import attention, gla, layers, moe, rwkv, ssm, transformer
+    from repro_torch.optim import adam
+    stack = ExitStack()
+    for mod in (layers, attention, transformer, gla, ssm, rwkv, moe, adam):
+        stack.enter_context(mock.patch.object(mod, "torch", _Wide(torch, F64)))
+    return stack
+
+
+def shard_cfg(arch: str):
+    """The reduced float64 config of a sharding case; llama4 with 16
+    experts, so its MoE layers take the expert-parallel specs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MoECfg
+    extra = dict(moe=MoECfg(16, 1, 1.25, period=2)) if arch.startswith("llama4") else {}
+    return get_arch(arch).reduced(dtype="float64", **extra)
+
+
+def shard_case(arch: str, kind: str, batch: int = SHARD_B, steps: int = 2):
+    """(cfg, shape, params, batches) of a sharding case: the port's
+    ``init_model`` at seed 0 and ``synthetic_batch`` at steps 0.. (both
+    deterministic, so the parent rebuilds them for the reference)."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models import init_model
+    cfg = shard_cfg(arch)
+    shape = ShapeCfg(f"shard_{kind}", SHARD_S, batch, kind)
+    params = init_model(cfg, 0, device="cpu")
+    batches = [synthetic_batch(cfg, ShapeCfg("b", SHARD_S, batch, "train"), i, dtype=F64,
+                               device="cpu") for i in range(steps)]
+    return cfg, shape, params, batches
+
+
+def _full(tree):
+    from repro_torch.tree import leaves, unflatten
+    return unflatten(tree, [t.full_tensor() if hasattr(t, "full_tensor") else t
+                            for t in leaves(tree)])
+
+
+SHARD_FSDP_LEAF_MIN = 1 << 10   # the reduced leaves are below FSDP_LEAF_MIN
+
+
+def sharding_train(world_size: int) -> dict:
+    """``build_train_step`` on the (2, 2) mesh: qwen3 two steps at
+    ``policy="tp"``; granite two steps at ``policy="dp"``, ``fsdp=True``,
+    ``accum=2``, with FSDP on every leaf of SHARD_FSDP_LEAF_MIN elements or
+    more.  Returns each case's losses and final parameters (full tensors)
+    and the placements its parameters and tokens took."""
+    from unittest import mock
+
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import Knobs
+    from repro_torch.optim import adam_init
+    from repro_torch.tree import leaves
+
+    mesh = make_debug_mesh(2, 2, "cpu")
+    knobs = Knobs(q_chunk=SHARD_CHUNKS[0], kv_chunk=SHARD_CHUNKS[1])
+    out = {}
+    for arch, batch, kw in (("qwen3-0.6b", SHARD_B, dict(policy="tp")),
+                            ("granite-3-2b", 2 * SHARD_B, dict(policy="dp", fsdp=True, accum=2))):
+        cfg, shape, params, batches = shard_case(arch, "train", batch)
+        with mock.patch.object(sharding, "FSDP_LEAF_MIN", SHARD_FSDP_LEAF_MIN):
+            built = sharding.build_train_step(cfg, mesh, shape, knobs=knobs, **kw)
+        p, o, losses = params, adam_init(params), []
+        with lifted_islands():
+            for b in batches:
+                p, o, loss, _ = built.fn(p, o, b)
+                losses.append(float(loss.full_tensor()))
+        tokens = sharding.input_shardings(mesh, cfg, shape, built.rules)["tokens"]
+        out[arch] = {"losses": losses, "params": _full(p),
+                     "placements": sorted({str(t.placements) for t in leaves(p)}),
+                     "tokens": str(tokens.placements)}
+    return out
+
+
+DECODE_TOKENS = {"rwkv6-3b": SHARD_S, "qwen3-0.6b": 8}
+
+
+def sharding_serve(world_size: int) -> dict:
+    """rwkv6 and qwen3 (its KV ring written shard by shard) decoded by
+    ``build_serve_step`` from a fresh state (DECODE_TOKENS steps: every
+    step's logits, the final state); mixtral (TP inside its experts) and
+    llama4 (16 experts: expert parallel) prefilled by
+    ``build_prefill_step``."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import build_prefill_step, build_serve_step
+    from repro_torch.models import Knobs, decode_state_specs
+
+    mesh = make_debug_mesh(2, 2, "cpu")
+    knobs = Knobs(q_chunk=SHARD_CHUNKS[0], kv_chunk=SHARD_CHUNKS[1])
+    out = {}
+    for arch, n in DECODE_TOKENS.items():
+        cfg, shape, params, (batch,) = shard_case(arch, "decode", steps=1)
+        built = build_serve_step(cfg, mesh, shape, knobs=knobs)
+        logits = []
+        with lifted_islands():
+            st = decode_state_specs(cfg, SHARD_B, SHARD_S, device="cpu")
+            for i in range(n):
+                lg, st = built.fn(params, batch["tokens"][:, i:i + 1], st)
+                logits.append(lg.full_tensor())
+        out[arch] = {"logits": torch.stack(logits), "state": _full(st)}
+    for arch in ("mixtral-8x7b", "llama4-maverick-400b-a17b"):
+        cfg, shape, params, (batch,) = shard_case(arch, "prefill", steps=1)
+        built = build_prefill_step(cfg, mesh, shape, knobs=knobs)
+        with lifted_islands():
+            out[arch] = {"logits": built.fn(params, batch).full_tensor()}
+    return out
+
+
+def pipeline_stage(p, x):
+    """The reference's pipeline test stage: shape-preserving."""
+    return x + torch.tanh(x @ p)
+
+
+def pipeline_case():
+    """(stacked stage weights (4, 8, 8), microbatches (6, 3, 8)) from numpy."""
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.normal(size=(4, 8, 8)) * 0.5)
+    xs = torch.from_numpy(rng.normal(size=(6, 3, 8)))
+    return w, xs
+
+
+def pipeline_loss(out):
+    return (out ** 2).sum() + out.sum()
+
+
+RESTORE_SHAPES = {"a": (8, 6), "b": (4, 10), "c": (12,)}
+
+
+def restore_tree():
+    """A small tree of float64, float32 and bfloat16 leaves from numpy."""
+    rng = np.random.default_rng(1)
+    return {"a": torch.from_numpy(rng.normal(size=RESTORE_SHAPES["a"])),
+            "b": torch.from_numpy(rng.normal(size=RESTORE_SHAPES["b"]).astype(np.float32)),
+            "c": torch.from_numpy(rng.normal(size=RESTORE_SHAPES["c"]).astype(np.float32)
+                                  ).to(torch.bfloat16)}
+
+
+def pipeline_restore(world_size: int, ckpt_dir: str) -> dict:
+    """(c) ``gpipe`` over a 4-stage mesh against the sequential application
+    (outputs; each rank's stage-weight gradient); (d) a tree saved from a
+    (2, 2) mesh with placements ("data", "model") and restored onto
+    ("model", "data") and onto a 1-D (4,) mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import Sharding, distribute_params
+    from repro_torch.models.sharding_rules import Spec
+    from repro_torch.runtime.pipeline import gpipe
+
+    rank = torch.distributed.get_rank()
+    stage_mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("stage",))
+    w, xs = pipeline_case()
+    w = w.requires_grad_()
+    got = gpipe(pipeline_stage, stage_mesh)(w, xs)
+    grad, = torch.autograd.grad(pipeline_loss(got), w)
+
+    mesh = make_debug_mesh(2, 2, "cpu")
+    flat = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+
+    def layout(m, spec):
+        return {k: Sharding(m, Spec(*spec[:len(shape)])) for k, shape in RESTORE_SHAPES.items()}
+
+    # a dim over both axes: rank (d, m) holds JAX's chunk d x 2 + m
+    two_axis = distribute_params({"x": torch.arange(8.0)},
+                               {"x": Sharding(mesh, Spec(("data", "model")))})["x"]
+    tree = restore_tree()
+    ckpt = CheckpointManager(ckpt_dir)
+    ckpt.save(3, distribute_params(tree, layout(mesh, ("data", "model"))))
+    swapped = ckpt.restore(3, tree, shardings=layout(mesh, ("model", "data")))
+    one_d = ckpt.restore(3, tree, shardings=layout(flat, ("data", None)))
+    return {"pipeline": got.detach(), "stage_grad": grad[rank],
+            "coordinate": tuple(mesh.get_coordinate()), "two_axis": two_axis.to_local(),
+            "swapped": _full(swapped), "one_d": _full(one_d),
+            "placements": {k: (str(swapped[k].placements), str(one_d[k].placements))
+                           for k in tree}}
+
+
 SCENARIOS = {"everything": everything, "pinn_loss_parity": pinn_loss_parity,
-             "train_parity": train_parity, "serving_idle": serving_idle}
+             "train_parity": train_parity, "serving_idle": serving_idle,
+             "sharding_train": sharding_train, "sharding_serve": sharding_serve,
+             "pipeline_restore": pipeline_restore}
