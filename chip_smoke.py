@@ -198,6 +198,18 @@ Phases, each failing loudly with a non-zero exit:
    (d) a qwen3 parameter tree saved from the mesh and restored onto a 1-D
    mesh, bit for bit; (e) the production plan: per-rank bytes of every
    arch on both production meshes at every applicable shape;
+   6i. the dry run and its roofline (``launch/dryrun.py``, ``op_static.py``,
+   ``op_analysis.py``), within LM_DRYRUN_LIMIT_S: (a) LM_DRYRUN_CELLS, one
+   cell per fault the sharded steps raised in before their repair, at
+   published widths on fake process groups of 256 / 512 ranks and the
+   card's torch, in two child processes (per-rank GiB, TFLOP, GB,
+   collective GB by kind, the three terms and the bottleneck); (b) 6h
+   (a)'s qwen3 step calibrating ``op_static`` and the roofline on the
+   card: its FLOPs against ``torch.profiler``'s products (checkpoint's
+   early stop off), the (1, 1) mesh's and the fake run's counts equal to
+   the unsharded one, the step against its bound, the predicted peak
+   against ``max_memory_allocated``; launch counters zeroed before and
+   read after (none of the port's kernels);
 7. K1 at the shapes the training phases launched it most (recorded while
    they ran), beside its plain version and bound; 7b. the run-time-order
    kernels timed: K1 at the Burgers k = 4 layers, K1-K5 at orders 10 and
@@ -529,6 +541,34 @@ LM_SHARD_PREFILL = dict(arch="llama4-maverick-400b-a17b", batch=2, tokens=512, l
                         experts=16)
 TOL_LM_SHARD_MOE = 1e-12
 LM_SHARD_LIMIT_S = 180.0
+
+# phase 6i: the dry run and its roofline (launch/dryrun.py, op_static.py,
+# op_analysis.py).  (a) the dry run on the card's torch, in two child
+# processes on a fake process group of 256 / 512 ranks, the production
+# meshes on CUDA, fake tensors: one cell per fault the sharded steps
+# raised before they were repaired, at published widths, the depth cut to
+# a layer (zamba2: its group of 6, the shared block's; llama4: 2, its MoE
+# layer); (b) the calibration on the card: 6h (a)'s qwen3 step, bf16,
+# unsharded and on the (1, 1) NCCL mesh -- op_static's FLOPs against
+# torch.profiler's count of the same products (mm, addmm, bmm, baddbmm,
+# convolution; its total adds one FLOP an element of mul and add, which
+# op_static, like the reference, leaves out) within LM_DRYRUN_FLOP_RTOL,
+# with checkpoint's early stop off (it stops a recomputation inside a
+# product the profiler has already counted),
+# the sharded local count
+# equal to the unsharded one, the measured step no faster than the
+# roofline's bound, the predicted peak (arguments + the fake run's
+# temporaries) within LM_DRYRUN_MEM_RTOL of max_memory_allocated.
+LM_DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "single", 1),
+                   ("gemma3-4b", "long_500k", "single", 1),
+                   ("rwkv6-3b", "decode_32k", "single", 1),
+                   ("mixtral-8x7b", "prefill_32k", "multi", 1),
+                   ("llama4-maverick-400b-a17b", "long_500k", "multi", 2),
+                   ("zamba2-2.7b", "train_4k", "single", 6))
+LM_DRYRUN_FLOP_RTOL = 0.01
+LM_DRYRUN_MEM_RTOL = 0.25
+LM_DRYRUN_STEPS = 3
+LM_DRYRUN_LIMIT_S = 180.0
 
 
 class SmokeFailure(RuntimeError):
@@ -5068,55 +5108,13 @@ def _placed_pairs(tree, shardings) -> list:
 
 
 def lm_shard_plan(out: dict) -> None:
-    """6h (e): every arch on both production meshes (``production_sizes``:
-    a mapping, no ranks) at every applicable shape, with the rules the
-    builders use (FSDP where ``wants_fsdp``; sequence-parallel state at
-    B = 1): per-rank bytes of the parameters (plus Adam's m and v for
+    """6h (e): every arch on both production meshes at every applicable
+    shape, per-rank bytes of the parameters (plus Adam's m and v for
     training) and of the decode state, from the bound specs on meta
-    tensors."""
-    from repro_torch.configs import ASSIGNED, SHAPES, get_arch, shape_applicable
-    from repro_torch.launch.mesh import production_sizes
-    from repro_torch.launch.sharding import (arch_param_count, bind_param_shardings,
-                                             make_rules, state_shardings, wants_fsdp)
-    from repro_torch.models import decode_state_specs, init_model, param_specs
+    tensors (``launch.dryrun.shard_plan``)."""
+    from repro_torch.launch.dryrun import shard_plan
 
-    def rank_bytes(tree, shardings) -> int:
-        return sum(math.prod(s.local_shape(t.shape)) * t.element_size()
-                   for t, s in _placed_pairs(tree, shardings))
-
-    plan = {}
-    for arch in ASSIGNED:
-        cfg = get_arch(arch)
-        meta, specs = init_model(cfg, abstract=True), param_specs(cfg)
-        n_params, fsdp = arch_param_count(cfg), wants_fsdp(cfg)
-        for multi in (False, True):
-            mesh = production_sizes(multi)
-            for shape in SHAPES.values():
-                if not shape_applicable(cfg, shape):
-                    continue
-                sp = shape.kind == "decode" and shape.global_batch == 1
-                rules = make_rules(mesh, sp=sp, fsdp=fsdp)
-                p_bytes = rank_bytes(meta, bind_param_shardings(mesh, specs, meta, rules))
-                row = {"params": n_params, "fsdp": fsdp,
-                       "param_bytes": p_bytes,
-                       "adam_bytes": 2 * p_bytes if shape.kind == "train" else 0}
-                if shape.kind == "decode":
-                    st = decode_state_specs(cfg, shape.global_batch, shape.seq_len,
-                                            abstract=True)
-                    row["state_bytes"] = rank_bytes(st, state_shardings(mesh, cfg, shape,
-                                                                        rules))
-                row["total_bytes"] = (row["param_bytes"] + row["adam_bytes"]
-                                      + row.get("state_bytes", 0))
-                key = f"{arch} {'x'.join(map(str, mesh.values()))} {shape.name}"
-                plan[key] = row
-                gib = {k: v / 2**30 for k, v in row.items() if k.endswith("_bytes")}
-                extra = (f" + {gib['adam_bytes']:.2f} GiB Adam" if row["adam_bytes"] else "")
-                extra += (f" + {gib['state_bytes']:.2f} GiB state" if "state_bytes" in row
-                          else "")
-                print(f"    (e) {key}: {n_params / 1e9:.2f} B params{' (FSDP)' if fsdp else ''}"
-                      f", per rank {gib['param_bytes']:.2f} GiB params{extra} = "
-                      f"{gib['total_bytes']:.2f} GiB")
-    out["plan"] = plan
+    out["plan"] = shard_plan(out=lambda line: print(f"    (e) {line}"))
 
 
 def lm_sharding(seed: int, report: dict) -> dict:
@@ -5160,6 +5158,241 @@ def lm_sharding(seed: int, report: dict) -> dict:
     require(seconds <= LM_SHARD_LIMIT_S,
             f"LM sharding phase took {seconds:.1f} s (limit {LM_SHARD_LIMIT_S:.0f} s)")
     return {"lm_sharding": launches}
+
+
+DRYRUN_CHILD = """
+import json, sys
+from repro_torch.launch import dryrun
+for arch, shape, mesh, layers in json.loads(sys.argv[1]):
+    rec = dryrun.run_cell(arch, shape, mesh, device=sys.argv[2], layers=layers, verbose=False)
+    print("CELL " + json.dumps(rec), flush=True)
+"""
+
+
+def lm_dryrun_cells() -> list:
+    """6i (a): start LM_DRYRUN_CELLS in two child processes (zamba2's cell
+    alone in the second); returns the processes."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    halves = (LM_DRYRUN_CELLS[:-1], LM_DRYRUN_CELLS[-1:])
+    return [subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, json.dumps(cells), DEVICE],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             env=env) for cells in halves]
+
+
+def lm_dryrun_read(procs: list, out: dict) -> None:
+    """6i (a): every cell's record from the children; each must have run to
+    its end."""
+    recs = []
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=LM_DRYRUN_LIMIT_S)
+        require(proc.returncode == 0, f"6i (a): a dry-run child exited {proc.returncode}: "
+                                      f"{stderr[-3000:]}")
+        recs += [json.loads(line[5:]) for line in stdout.splitlines()
+                 if line.startswith("CELL ")]
+    require(len(recs) == len(LM_DRYRUN_CELLS), f"6i (a): {len(recs)} of "
+                                               f"{len(LM_DRYRUN_CELLS)} cells came back")
+    for rec in recs:
+        require("error" not in rec and rec["hlo_gflops"] > 0,
+                f"6i (a): {rec.get('arch')} {rec.get('shape')}: {rec.get('error')}")
+        print(f"    (a) {rec['arch']} {rec['shape']} {rec['mesh']} ({rec['layers']} layers, "
+              f"{rec['n_chips']} ranks, {rec['device']}, torch {rec['torch']}): "
+              f"{rec['per_device_mem_gb']:.2f} GiB a rank, {rec['hlo_gflops'] / 1e3:.3f} TFLOP, "
+              f"{rec['hlo_gbytes']:.2f} GB, collectives GB {rec['collectives']}; terms "
+              f"c/m/x {rec['compute_s']:.4f} / {rec['memory_s']:.4f} / "
+              f"{rec['collective_s']:.4f} s -> {rec['bottleneck']} ({rec['run_s']} s)")
+    out["cells"] = recs
+
+
+def _profiler_flops(step, args) -> tuple[float, dict]:
+    """All the FLOPs that ``torch.profiler(with_flops=True)`` counts over
+    one call of ``step``, and {op: [calls, FLOPs]} of the products among
+    them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dots = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm", "aten::convolution")
+    return (float(sum(e.flops for e in events)),
+            {e.key: [e.count, float(e.flops)] for e in events if e.key in dots})
+
+
+def _op_flops(counter) -> dict:
+    """{op: [calls, FLOPs]} of the products an ``OpCounter`` saw."""
+    out: dict = {}
+    for name, flops, *_, n in counter.log():
+        if flops:
+            calls, total = out.get(name, [0, 0.0])
+            out[name] = [calls + n, total + flops * n]
+    return out
+
+
+def lm_dryrun_calibrate(seed: int, mesh, smi: str, out: dict) -> None:
+    """6i (b): LM_SHARD_TRAIN's qwen3 step, bf16, on the card: unsharded
+    (``launch.train``'s step; timed, profiled, counted by ``op_static`` on
+    the card and on fake tensors) and through ``build_train_step`` on the
+    (1, 1) mesh (counted)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch import dryrun, op_analysis, op_static, train
+    from repro_torch.launch.sharding import build_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import adam_init
+    from repro_torch.tree import leaves, tree_map
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    c = LM_SHARD_TRAIN
+    cfg = get_arch(c["arch"])
+    shape = ShapeCfg("lm_shard", c["seq"], c["batch"], "train")
+    params = init_model(cfg, seed, device=DEVICE)
+    opt = adam_init(params)
+    batch = synthetic_batch(cfg, shape, 0, device=DEVICE)
+    step = train.train_step(cfg, c["lr"])
+    args = (params, opt, batch)
+    step(*args)                                   # warm
+    torch.cuda.synchronize()
+    arg_bytes = sum(t.numel() * t.element_size() for t in leaves(args))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(LM_DRYRUN_STEPS):
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    # the products compared with checkpoint's early stop off: it ends a
+    # group's recomputation by raising inside one product's autograd
+    # wrapper, after the profiler has counted that product and before it
+    # runs (the default run's counts are kept beside)
+    with set_checkpoint_early_stop(False):
+        prof_all, prof_ops = _profiler_flops(step, args)
+        with op_static.OpCounter() as real_counter:
+            step(*args)
+    prof_dots = sum(f for _, f in prof_ops.values())
+    full = real_counter.totals
+    default_prof = _profiler_flops(step, args)[1]
+    with op_static.OpCounter() as default_counter:
+        step(*args)
+    real = default_counter.totals
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        fake = tuple(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=t.device),
+                              a) for a in args)
+    with mode, op_static.OpCounter() as counter:
+        step(*fake)
+    predicted = arg_bytes + counter.peak_bytes
+    built = build_train_step(cfg, mesh, shape, fsdp=True, policy="tp", lr=c["lr"])
+    built.fn(*args)                               # DTensor's propagation, once
+    _, sharded = op_static.analyze(built.fn, *args, mesh=mesh)
+    step_s = sorted(ms)[len(ms) // 2] / 1e3
+    rl = dryrun.roofline(cfg.name, shape, "1x1", cfg, real, {"data": 1, "model": 1}, predicted)
+    model = op_analysis.model_flops(cfg, shape, 1)
+    flop_err = abs(full.flops - prof_dots) / prof_dots
+    mem_err = abs(predicted - peak) / peak
+    share = rl.bound_s / step_s
+    out["calibration"] = {
+        "arch": cfg.name, "batch": shape.global_batch, "seq": shape.seq_len,
+        "step_ms": ms, "op_static_flops": real.flops, "op_static_flops_no_early_stop": full.flops,
+        "profiler_flops": prof_all,
+        "profiler_dot_flops": prof_dots, "flop_rel_err": flop_err,
+        "profiler_products": prof_ops, "op_static_products": _op_flops(real_counter),
+        "early_stop_profiler_products": default_prof,
+        "early_stop_op_static_products": _op_flops(default_counter),
+        "sharded_flops": sharded.flops, "fake_flops": counter.totals.flops,
+        "op_static_bytes": real.bytes, "argument_bytes": arg_bytes,
+        "temp_bytes": counter.peak_bytes, "predicted_peak": predicted,
+        "max_memory_allocated": peak, "mem_rel_err": mem_err,
+        "roofline": rl.asdict(), "bound_s": rl.bound_s, "share": share,
+        "achieved_tflops": real.flops / step_s / 1e12, "model_flops": model,
+        "mfu": model / (step_s * op_analysis.PEAK_FLOPS["bfloat16"]), "nvidia_smi": smi}
+    print(f"    (b) {cfg.name} bf16 B {shape.global_batch} x S {shape.seq_len}, checkpoint's "
+          f"early stop off: op_static {full.flops:.6e} FLOPs, the profiler's products "
+          f"{prof_dots:.6e} ({flop_err:.2e} apart, LM_DRYRUN_FLOP_RTOL {LM_DRYRUN_FLOP_RTOL}), "
+          f"all its ops {prof_all:.6e} (mul / add at one FLOP an element); the default run: "
+          f"op_static {real.flops:.6e}, the profiler's products "
+          f"{sum(f for _, f in default_prof.values()):.6e} (it counts the product each "
+          f"recomputation stops in); fake tensors {counter.totals.flops:.6e}; (1, 1) mesh "
+          f"{sharded.flops:.6e}")
+    print(f"        step {step_s * 1e3:.1f} ms (median of {ms}), roofline c/m {rl.compute_s * 1e3:.2f}"
+          f" / {rl.memory_s * 1e3:.2f} ms -> {rl.bottleneck}, {share:.1%} of the step; "
+          f"{real.flops / step_s / 1e12:.1f} TFLOP/s achieved, model FLOPs / (step x 989 "
+          f"TFLOP/s) {out['calibration']['mfu']:.2%} | {smi}")
+    print(f"        peak: predicted {predicted / 2**30:.2f} GiB (arguments "
+          f"{arg_bytes / 2**30:.2f} + temporaries {counter.peak_bytes / 2**30:.2f}), "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB ({mem_err:.1%} apart, "
+          f"LM_DRYRUN_MEM_RTOL {LM_DRYRUN_MEM_RTOL:.0%})")
+    require(flop_err <= LM_DRYRUN_FLOP_RTOL,
+            f"6i (b): op_static {full.flops} against the profiler's {prof_dots}")
+    require(sharded.flops == real.flops and counter.totals.flops == real.flops,
+            f"6i (b): sharded {sharded.flops}, fake {counter.totals.flops}, "
+            f"unsharded {real.flops}")
+    require(share <= 1.0, f"6i (b): the bound {rl.bound_s} s exceeds the step {step_s} s")
+    require(mem_err <= LM_DRYRUN_MEM_RTOL,
+            f"6i (b): predicted peak {predicted} against {peak}")
+    del params, opt, batch, args, fake, built
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_dryrun(seed: int, report: dict) -> dict:
+    """Phase 6i: the dry run's cells on the card's torch (two children,
+    fake process groups) while the main process calibrates op_static and
+    the roofline on the card (NCCL at world size 1, a (1, 1) mesh); launch
+    counters zeroed before and read after (none of the port's kernels),
+    within LM_DRYRUN_LIMIT_S."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    out: dict = {}
+    report["lm_dryrun"] = out        # filled as the phase goes: kept if it fails
+    procs = lm_dryrun_cells()
+    try:
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dist.init_process_group("nccl", init_method=f"file://{Path(tempfile.mkdtemp()) / 'init'}",
+                                world_size=1, rank=0)
+        failed = None
+        try:
+            mesh = make_debug_mesh(1, 1, DEVICE)
+            ops.reset_launch_counts()
+            try:
+                lm_dryrun_calibrate(seed, mesh, smi, out)
+            except SmokeFailure as e:      # (a)'s cells are read all the same
+                failed = e
+            launches = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+        lm_dryrun_read(procs, out)
+        if failed is not None:
+            raise failed
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    require(not any(launches.values()), f"the dry run launched the port's kernels: {launches}")
+    seconds = time.perf_counter() - t_phase
+    out.update(launches=launches, seconds=seconds, nvidia_smi=smi, torch=torch.__version__)
+    print(f"    launches {launches}; {seconds:.1f} s | {smi}")
+    require(seconds <= LM_DRYRUN_LIMIT_S,
+            f"the dry-run phase took {seconds:.1f} s (limit {LM_DRYRUN_LIMIT_S:.0f} s)")
+    return {"lm_dryrun": launches}
 
 
 def main(argv=None) -> int:
@@ -5332,6 +5565,10 @@ def main(argv=None) -> int:
                 "trained, rwkv6 decoded and llama4 prefilled by the step builders against "
                 "the unsharded path, an elastic restore, the production plan")
     new_paths.update(lm_sharding(args.seed, report))
+    phase("6i", "the dry run and its roofline: the repaired fault cells on fake production "
+                "meshes (torch on the card), op_static and the roofline calibrated on qwen3's "
+                "step")
+    new_paths.update(lm_dryrun(args.seed, report))
     phase("7", "K1 jet_dense at the shapes the training phases launched it")
     training_times = time_training_shapes(shapes.counts, gen, report)
     phase("7b", "the run-time-order kernels: K1 at the Burgers k = 4 shapes, K1-K5 at "

@@ -258,6 +258,7 @@ class BuiltStep:
     rules: Rules
     param_shardings: Any
     opt_state_dtype: Optional[str] = None
+    arg_shardings: Tuple = ()  # a Sharding per leaf of ``arg_specs``
 
 
 def _replicated(t):
@@ -339,15 +340,19 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeCfg, *,
         return new_params, new_opt, loss, metrics
 
     args = (abstract_params, opt_abs, abstract_inputs(cfg, shape))
-    return BuiltStep(train_step, args, rules, p_shard, opt_state_dtype)
+    opt_shard = AdamState(Sharding(mesh, Spec()), p_shard, p_shard)
+    return BuiltStep(train_step, args, rules, p_shard, opt_state_dtype,
+                     (p_shard, opt_shard, in_batch))
 
 
 def build_prefill_step(cfg: ArchConfig, mesh, shape: ShapeCfg, *,
-                       knobs: tfm.Knobs = tfm.Knobs()) -> BuiltStep:
+                       knobs: tfm.Knobs = tfm.Knobs(),
+                       fsdp: Optional[bool] = None) -> BuiltStep:
     """``fn(params, batch) -> (B, V)`` last-position logits.  Models at the
-    FSDP threshold shard weights over data even at inference (TP alone
-    leaves llama4 at ~50 GiB a rank); DTensor all-gathers them at use."""
-    rules = make_rules(mesh, fsdp=wants_fsdp(cfg))
+    FSDP threshold (or ``fsdp``) shard weights over data even at inference
+    (TP alone leaves llama4 at ~50 GiB a rank); they are all-gathered at
+    use."""
+    rules = make_rules(mesh, fsdp=wants_fsdp(cfg) if fsdp is None else fsdp)
     abstract_params = tfm.init_model(cfg, abstract=True)
     p_shard = bind_param_shardings(mesh, tfm.param_specs(cfg), abstract_params, rules)
     in_batch = input_shardings(mesh, cfg, shape, rules)
@@ -360,16 +365,18 @@ def build_prefill_step(cfg: ArchConfig, mesh, shape: ShapeCfg, *,
             return tfm.logits(params["embed"], x[:, -1:], cfg)[:, 0]
 
     return BuiltStep(prefill_step, (abstract_params, abstract_inputs(cfg, shape)), rules,
-                     p_shard)
+                     p_shard, arg_shardings=(p_shard, in_batch))
 
 
 def build_serve_step(cfg: ArchConfig, mesh, shape: ShapeCfg, *,
-                     knobs: tfm.Knobs = tfm.Knobs()) -> BuiltStep:
+                     knobs: tfm.Knobs = tfm.Knobs(),
+                     fsdp: Optional[bool] = None) -> BuiltStep:
     """``fn(params, token, state) -> (logits, state)``: one-token decode
     against a seq_len-deep cache / state laid out by ``state_shardings``
-    (sequence-parallel KV when the batch is 1)."""
+    (sequence-parallel KV when the batch is 1; FSDP as in
+    ``build_prefill_step``)."""
     sp = shape.global_batch == 1
-    rules = make_rules(mesh, sp=sp, fsdp=wants_fsdp(cfg))
+    rules = make_rules(mesh, sp=sp, fsdp=wants_fsdp(cfg) if fsdp is None else fsdp)
     abstract_params = tfm.init_model(cfg, abstract=True)
     p_shard = bind_param_shardings(mesh, tfm.param_specs(cfg), abstract_params, rules)
     st_abs = tfm.decode_state_specs(cfg, shape.global_batch, shape.seq_len, abstract=True)
@@ -384,7 +391,8 @@ def build_serve_step(cfg: ArchConfig, mesh, shape: ShapeCfg, *,
             return tfm.decode_step(params, cfg, place(token, tok_shard), state)
 
     args = (abstract_params, abstract_inputs(cfg, shape)["token"], st_abs)
-    return BuiltStep(serve_step, args, rules, p_shard)
+    return BuiltStep(serve_step, args, rules, p_shard,
+                     arg_shardings=(p_shard, tok_shard, st_shard))
 
 
 def build_step(cfg: ArchConfig, mesh, shape: ShapeCfg, **kw) -> BuiltStep:

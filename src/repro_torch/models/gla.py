@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .layers import recompute
+from .sharding_rules import batch_local, even_placements, on_shards
 
 
 class GLAState(NamedTuple):
@@ -115,13 +116,25 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,Dk,Dv) state, zeros if None.  Returns (y, final_state); y in q's
     dtype, the state in float32.  Raises ``ValueError`` unless
     ``min(chunk, S)`` divides S."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _on_shards(q, k, v, log_decay, u, state, mode=mode, chunk=chunk,
+                          pair_bf16=pair_bf16)
     b, s, h, dk = k.shape
     dv = v.shape[-1]
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"chunk {c} does not divide the sequence length {s}")
     f32 = torch.float32
-    qf, kf, vf, ld = (x.to(f32) for x in (q, k, v, log_decay))
+
+    def wide(x):
+        # a head dim broadcast by stride 0 (mamba's shared B and C) stays
+        # one: .to() would write every head's copy
+        if x.shape[2] > 1 and x.stride(2) == 0:
+            return x[:, :, :1].to(f32).expand(x.shape)
+        return x.to(f32)
+
+    qf, kf, vf, ld = (wide(x) for x in (q, k, v, log_decay))
     uf = None if u is None else u.to(f32)
     if state is None:
         state = torch.zeros((b, h, dk, dv), dtype=f32, device=q.device)
@@ -139,9 +152,51 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(ys, dim=1).to(q.dtype), state
 
 
+def _on_shards(q, k, v, log_decay, u, state, **kw):
+    """``chunked_gla`` of DTensors, run on each rank's batch rows and heads:
+    the recurrence crosses neither, so its chunk loop needs no
+    communication (DTensor would dispatch each of its ops).  Per mesh dim
+    of ``q``: batch sharded -> every input's batch (and the state's),
+    heads sharded -> every input's heads (``u``'s dim 0, the state's dim
+    1), else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    seq, vec, hp, st = [], [], [], []
+    for p in even_placements(q):
+        if p == Shard(0):
+            seq.append(p), vec.append(Replicate()), st.append(Shard(0))
+        elif p == Shard(2):
+            seq.append(p), vec.append(Shard(0)), st.append(Shard(1))
+        else:
+            seq.append(Replicate()), vec.append(Replicate()), st.append(Replicate())
+    seq, vec, st = tuple(seq), tuple(vec), tuple(st)
+    args = [q, k, v, log_decay]
+    plc = [seq] * 4
+    if u is not None:
+        args.append(u), plc.append(vec)
+    if state is not None:
+        args.append(state), plc.append(st)
+
+    def fn(q, k, v, ld, *rest):
+        rest = list(rest)
+        uu = rest.pop(0) if u is not None else None
+        ss = rest.pop(0) if state is not None else None
+        return chunked_gla(q, k, v, ld, u=uu, state=ss, **kw)
+
+    return on_shards(fn, args, plc, (seq, st), mesh)
+
+
 def gla_decode_step(q, k, v, log_decay, state, *, u=None, mode="mamba"):
     """Single-token recurrence.  q,k: (B,H,Dk); v: (B,H,Dv);
-    log_decay: (B,H,Dk) or (B,H,1); state: (B,H,Dk,Dv)."""
+    log_decay: (B,H,Dk) or (B,H,1); state: (B,H,Dk,Dv).  DTensors run on
+    each rank's batch rows (``batch_local``: DTensor (torch 2.11) refuses
+    the products' flatten of batch x sharded heads)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        shared = () if u is None else (u,)
+        return batch_local(lambda q, k, v, ld, st, *uu: gla_decode_step(
+            q, k, v, ld, st, u=uu[0] if uu else None, mode=mode),
+            (q, k, v, log_decay, state), shared, n_out=2)
     f32 = torch.float32
     qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
     d = _bcast(torch.exp(log_decay.to(f32)), kf.shape[-1])

@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
-from .sharding_rules import Spec
+from .sharding_rules import Spec, dense, even_placements, on_shards
 
 Params = Dict[str, Any]
 
@@ -187,19 +187,20 @@ def apply_mlp_block(p: Params, cfg: ArchConfig, x: torch.Tensor,
     token of the previous segment (decode), or None from a sequence's
     start; the other MLPs ignore it."""
     if cfg.mlp in ("swiglu", "geglu"):
-        gu = torch.einsum("bsd,dtf->bstf", x, p["wi"])
-        gate, up = gu[..., 0, :], gu[..., 1, :]
+        # the reference's one einsum into (gate, up) as two products: DTensor
+        # merges the (2, F) of a d_ff-sharded weight into a strided shard
+        gate, up = dense(x, p["wi"][:, 0]), dense(x, p["wi"][:, 1])
         act = F.silu(gate) if cfg.mlp == "swiglu" else gelu(gate)
-        return torch.einsum("bsf,fd->bsd", act * up, p["wo"])
+        return dense(act * up, p["wo"])
     if cfg.mlp == "gelu_mlp":
-        return torch.einsum("bsf,fd->bsd", gelu(x @ p["wi"]), p["wo"])
+        return dense(gelu(dense(x, p["wi"])), p["wo"])
     if cfg.mlp == "rwkv_channel_mix":
         # RWKV channel mix: token-shifted key, squared relu, receptance gate
         xs = token_shift(x, x_prev)
         xk = x + (xs - x) * p["mix_k"]
-        k = torch.square(torch.relu(xk @ p["wk"]))
-        r = torch.sigmoid(x @ p["wr"])
-        return r * (k @ p["wv"])
+        k = torch.square(torch.relu(dense(xk, p["wk"])))
+        r = torch.sigmoid(dense(x, p["wr"]))
+        return r * dense(k, p["wv"])
     raise ValueError(cfg.mlp)
 
 
@@ -221,15 +222,47 @@ def init_embed(mk: Maker, cfg: ArchConfig) -> Params:
     return p
 
 
+def _rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table's rows are gathered on each
+    rank's slice of the vocabulary, a token outside it giving zeros, and
+    summed over the vocabulary's mesh dims (exact: one rank holds each
+    row); DTensor (torch 2.11) has no rule for a gather by tokens sharded
+    over two mesh dims, nor for the gather's backward."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    tp = even_placements(table)
+    kp = even_placements(tokens) if isinstance(tokens, DTensor) else (Replicate(),) * mesh.ndim
+    coord = mesh.get_coordinate()
+    pt, pk, po, idx, n = [], [], [], 0, 1
+    for m in range(mesh.ndim):
+        if tp[m] == Shard(0):
+            idx, n = idx * mesh.size(m) + coord[m], n * mesh.size(m)
+            pt.append(Shard(0)), pk.append(Replicate()), po.append(Partial())
+        elif kp[m] == Shard(0):
+            pt.append(Replicate()), pk.append(Shard(0)), po.append(Shard(0))
+        else:
+            pt.append(Replicate()), pk.append(Replicate()), po.append(Replicate())
+    v0 = idx * (table.shape[0] // n)
+
+    def gather(t, k):
+        rows = k - v0
+        inside = (rows >= 0) & (rows < t.shape[0])
+        return t[rows.clamp(0, t.shape[0] - 1)] * inside[..., None].to(t.dtype)
+
+    return on_shards(gather, (table, tokens), (tuple(pt), tuple(pk)), po, mesh)
+
+
 def embed(p: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = p["table"][tokens]
+    x = _rows(p["table"], tokens)
     # the scale rounded to the table's dtype first, as the reference does
     return x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
 
 
 def logits(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        out = torch.einsum("bsd,vd->bsv", x, p["table"])
+        out = dense(x, p["table"].t())
     else:
-        out = torch.einsum("bsd,dv->bsv", x, p["lm_head"])
+        out = dense(x, p["lm_head"])
     return softcap(out, cfg.logit_softcap)

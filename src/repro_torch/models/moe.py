@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 
 from .layers import Maker, Params
-from .sharding_rules import Spec, local, shard
+from .sharding_rules import Spec, even_placements, local, on_shards, shard
 
 EP_MIN_EXPERTS = 16  # model-axis size on both production meshes
 DISPATCH_GROUPS = 32  # the reference's pod x data shards; local dispatch per group
@@ -118,6 +118,40 @@ def _combine(h_out: torch.Tensor, slot: torch.Tensor, stok: torch.Tensor,
     return y.reshape(g, n_loc, d)
 
 
+def _ffn(h_in, wi, wo):
+    """Every expert's SwiGLU on its (G, E, cap, D) buffer: the reference's
+    one einsum into (gate, up) as two products."""
+    gate = torch.einsum("gecd,edf->gecf", h_in, wi[:, :, 0])
+    up = torch.einsum("gecd,edf->gecf", h_in, wi[:, :, 1])
+    return torch.einsum("gecf,efd->gecd", F.silu(gate) * up, wo)
+
+
+def _experts(h_in, wi, wo):
+    """``_ffn`` on each rank's shards where the buffer is a DTensor
+    (DTensor's own products view their local tensors where the strides
+    forbid it once FSDP splits the experts' weights).  Per mesh dim:
+    experts split (expert parallel) -> the buffer's expert dim alike;
+    d_ff split (tensor parallel) -> the buffer whole, the output partial;
+    the groups split -> the weights gathered (FSDP), the output's groups
+    split alike; else all whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(h_in, DTensor):
+        return _ffn(h_in, wi, wo)
+    ph, pi, po, out = [], [], [], []
+    for p, q, r in zip(even_placements(h_in), even_placements(wi), even_placements(wo)):
+        if q == Shard(0) and r == Shard(0):
+            ph.append(Shard(1)), pi.append(q), po.append(r), out.append(Shard(1))
+        elif q == Shard(3) and r == Shard(1):
+            ph.append(Replicate()), pi.append(q), po.append(r), out.append(Partial())
+        elif p == Shard(0):
+            ph.append(p), pi.append(Replicate()), po.append(Replicate()), out.append(p)
+        else:
+            ph.append(Replicate()), pi.append(Replicate()), po.append(Replicate())
+            out.append(Replicate())
+    return on_shards(_ffn, (h_in, wi, wo), (tuple(ph), tuple(pi), tuple(po)), out,
+                     h_in.device_mesh)
+
+
 def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor,
               training: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss).
@@ -161,9 +195,7 @@ def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor,
                                  (g4, g2, g2, g2), (g3, g3, g3))(xf, top_e, top_w)
     h_in = shard(h_in, "batch", ep, None, None)
 
-    gu = torch.einsum("gecd,edtf->gectf", h_in, p["wi"])
-    act = F.silu(gu[..., 0, :]) * gu[..., 1, :]
-    h_out = shard(torch.einsum("gecf,efd->gecd", act, p["wo"]), "batch", ep, None, None)
+    h_out = shard(_experts(h_in, p["wi"], p["wo"]), "batch", ep, None, None)
 
     y = local(lambda ho, sl, st, w: _combine(ho, sl, st, w, n_loc), g3,
               (g4, g2, g2, g2))(h_out, slot, stok, sw)

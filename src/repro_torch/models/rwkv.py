@@ -24,7 +24,7 @@ from repro_torch.device import resolve_device
 
 from .gla import chunked_gla, gla_decode_step
 from .layers import Maker, Params, token_shift
-from .sharding_rules import Spec
+from .sharding_rules import Spec, batch_local, dense, split_dim
 
 LORA_R = 64
 
@@ -69,33 +69,36 @@ def _mixes(p: Params, x: torch.Tensor, xs: torch.Tensor):
 def _log_decay(p: Params, xw: torch.Tensor) -> torch.Tensor:
     """w_t = exp(-exp(...)): returns log w_t (strictly negative)."""
     f32 = torch.float32
-    lora = torch.tanh(xw.to(f32) @ p["w_lora_a"].to(f32)) @ p["w_lora_b"].to(f32)
+    lora = dense(torch.tanh(dense(xw.to(f32), p["w_lora_a"].to(f32))), p["w_lora_b"].to(f32))
     return -torch.exp(p["w0"].to(f32) + lora)
 
 
-def _group_norm(y: torch.Tensor, gamma: torch.Tensor, h: int, hd: int) -> torch.Tensor:
-    """Per-head RMS norm on the (..., H, hd) readout."""
-    shp = y.shape
-    yh = y.reshape(shp[:-1] + (h, hd)).to(torch.float32)
-    inv = torch.rsqrt(torch.mean(yh * yh, -1, keepdim=True) + 1e-5)
-    yn = (yh * inv).reshape(shp)
-    return yn.to(y.dtype) * (1.0 + gamma.to(y.dtype))
+def _group_norm(y: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """Per-head RMS norm of the (..., H, hd) readout, merged to (..., D),
+    on each rank's batch rows (``batch_local``: the merge's backward splits
+    a sharded gradient, which DTensor (torch 2.11) refuses)."""
+    def norm(y, gamma):
+        yh = y.to(torch.float32)
+        inv = torch.rsqrt(torch.mean(yh * yh, -1, keepdim=True) + 1e-5)
+        yn = (yh * inv).reshape(y.shape[:-2] + (-1,))
+        return yn.to(y.dtype) * (1.0 + gamma.to(y.dtype))
+
+    return batch_local(norm, (y,), (gamma,))
 
 
 def apply_rwkv_tm(p: Params, cfg: ArchConfig, x: torch.Tensor,
                   chunk: int = 32, pair_bf16: bool = False) -> torch.Tensor:
-    b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.hd
     xs = token_shift(x, None)
     xr, xk, xv, xg, xw = _mixes(p, x, xs)
-    r = (xr @ p["wr"]).reshape(b, s, h, hd)
-    k = (xk @ p["wk"]).reshape(b, s, h, hd)
-    v = (xv @ p["wv"]).reshape(b, s, h, hd)
-    g = F.silu(xg @ p["wg"])
-    ld = _log_decay(p, xw).reshape(b, s, h, hd)
+    r = split_dim(dense(xr, p["wr"]), -1, (h, hd))
+    k = split_dim(dense(xk, p["wk"]), -1, (h, hd))
+    v = split_dim(dense(xv, p["wv"]), -1, (h, hd))
+    g = F.silu(dense(xg, p["wg"]))
+    ld = split_dim(_log_decay(p, xw), -1, (h, hd))
     y, _ = chunked_gla(r, k, v, ld, u=p["u"], mode="rwkv", chunk=chunk, pair_bf16=pair_bf16)
-    y = _group_norm(y.reshape(b, s, d), p["ln_x"], h, hd)
-    return (y * g) @ p["wo"]
+    y = _group_norm(y, p["ln_x"])
+    return dense(y * g, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -120,15 +123,14 @@ def rwkv_tm_decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B,1,D); wkv: (B,H,hd,hd); shift: (B,1,D) previous token features.
     Returns (out, the new wkv in its dtype, the new shift: ``x``)."""
-    b, _, d = x.shape
     h, hd = cfg.n_heads, cfg.hd
     xr, xk, xv, xg, xw = _mixes(p, x, shift.to(x.dtype))
-    r = (xr @ p["wr"]).reshape(b, h, hd)
-    k = (xk @ p["wk"]).reshape(b, h, hd)
-    v = (xv @ p["wv"]).reshape(b, h, hd)
-    g = F.silu(xg @ p["wg"])[:, 0]
-    ld = _log_decay(p, xw).reshape(b, h, hd)
+    r = split_dim(dense(xr, p["wr"])[:, 0], -1, (h, hd))
+    k = split_dim(dense(xk, p["wk"])[:, 0], -1, (h, hd))
+    v = split_dim(dense(xv, p["wv"])[:, 0], -1, (h, hd))
+    g = F.silu(dense(xg, p["wg"]))[:, 0]
+    ld = split_dim(_log_decay(p, xw)[:, 0], -1, (h, hd))
     y, new_wkv = gla_decode_step(r, k, v, ld, wkv.to(torch.float32), u=p["u"], mode="rwkv")
-    y = _group_norm(y.reshape(b, d), p["ln_x"], h, hd)
-    out = ((y * g) @ p["wo"])[:, None]
+    y = _group_norm(y, p["ln_x"])
+    out = dense(y * g, p["wo"])[:, None]
     return out, new_wkv.to(wkv.dtype), x

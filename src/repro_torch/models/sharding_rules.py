@@ -31,6 +31,8 @@ import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+import torch
+
 
 class Spec(tuple):
     """A logical or bound partition spec: one entry per leading tensor dim
@@ -169,19 +171,152 @@ def placements(spec: Spec, mesh) -> tuple:
                  for a in names)
 
 
+def _axes(entry) -> tuple:
+    return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+
+
+def fitted(spec: Spec, shape, mesh) -> Spec:
+    """``spec`` with every entry whose dim does not divide its axes' size
+    dropped (left unsharded), as ``launch.sharding.sanitize_spec`` does for
+    the bound specs: DTensor shards an uneven dim, but a later reshape of it
+    raises, and the reference's GSPMD pads where DTensor would not."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for d, entry in enumerate(spec):
+        n = 1
+        for a in _axes(entry):
+            n *= sizes.get(a, 1)
+        out.append(entry if d < len(shape) and shape[d] % n == 0 else None)
+    return Spec(*out)
+
+
 def shard(x, *logical):
     """Constrain ``x`` to logical axes ("batch"/"model"/"seq"/None per dim):
-    ``x`` redistributed to the bound placements on its own mesh.  A no-op
-    when no rules are active or ``x`` is not a DTensor."""
+    ``x`` redistributed to the bound placements on its own mesh, a dim that
+    does not divide its axes left unsharded (``fitted``).  A no-op when no
+    rules are active or ``x`` is not a DTensor."""
     if _ACTIVE is None:
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    target = placements(Spec(*(_ACTIVE.resolve(a) for a in logical)), x.device_mesh)
+    spec = fitted(Spec(*(_ACTIVE.resolve(a) for a in logical)), x.shape, x.device_mesh)
+    target = placements(spec, x.device_mesh)
     if tuple(x.placements) == target:
         return x
     return x.redistribute(x.device_mesh, target)
+
+
+def on_shards(fn, args, in_placements, out_placements, mesh):
+    """``fn`` run on the local tensors of ``args`` redistributed to
+    ``in_placements`` (one tuple an argument), its outputs wrapped with
+    ``out_placements`` (a list for one output, a tuple of tuples for
+    several; None for an argument that is no tensor): ``local_map``, with
+    the gradients' layout stated.  An input
+    replicated over a mesh dim along which an output is split (sharded or
+    partial) gets its gradient partial there -- each rank's share of the
+    work adds to it -- where ``local_map`` would take it as replicated, and
+    drop every rank's share but its own."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    outs = [out_placements] if isinstance(out_placements, list) else list(out_placements)
+    split = [any(o[m] != Replicate() for o in outs) for m in range(mesh.ndim)]
+    grads = tuple(None if plc is None else
+                  tuple(Partial() if split[m] and p == Replicate() else p
+                        for m, p in enumerate(plc)) for plc in in_placements)
+    return local_map(fn, out_placements=out_placements, in_placements=tuple(in_placements),
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def batch_local(fn, batched: tuple, shared: tuple = (), n_out: int = 1):
+    """``fn(*batched, *shared)`` on each rank's rows of the batch-led
+    ``batched`` tensors (their leading dim, as the first of them is split;
+    everything else gathered), ``shared`` gathered whole, its ``n_out``
+    outputs batch-led alike: for a computation no op of which crosses a
+    batch row, where DTensor (torch 2.11) fails on its pads and flattened
+    dims.  ``fn`` itself without a DTensor among ``batched``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    lead = batched[0]
+    if not isinstance(lead, DTensor):
+        return fn(*batched, *shared)
+    mesh = lead.device_mesh
+    rows = tuple(p if p == Shard(0) else Replicate() for p in even_placements(lead))
+    whole = (Replicate(),) * mesh.ndim
+    outs = list(rows) if n_out == 1 else (rows,) * n_out
+    return on_shards(fn, batched + shared, (rows,) * len(batched) + (whole,) * len(shared),
+                     outs, mesh)
+
+
+def even_placements(t) -> tuple:
+    """A DTensor's placements, each ``Shard`` of a dim that its mesh dims
+    do not divide evenly replaced by ``Replicate()``: what a function run on
+    each rank's shards (``local_map``) may take, since it wraps its outputs
+    as even shards (DTensor's own strategies shard unevenly: llama4's 40
+    heads over 16 ranks)."""
+    from torch.distributed.tensor import Replicate, Shard
+    plc = list(t.placements)
+    for d in range(t.ndim):
+        mdims = [m for m, p in enumerate(plc) if p == Shard(d)]
+        n = 1
+        for m in mdims:
+            n *= t.device_mesh.size(m)
+        if t.shape[d] % n:
+            for m in mdims:
+                plc[m] = Replicate()
+    return tuple(plc)
+
+
+def dense(x, w):
+    """``x @ w`` for (..., K) activations and a (K, N) weight, where they
+    are DTensors laid out as a tensor-parallel product.  Per mesh dim: a
+    column-sharded ``w`` (Shard(1)) on a tensor-parallel axis (the active
+    rules' "model"), or on any axis that does not split ``x``'s rows,
+    makes the output's columns sharded and ``x`` gathered (Megatron's
+    sequence-parallel gather); a row-sharded one (Shard(0)) against ``x``
+    sharded along K makes the output partial (row parallel); where ``x``'s
+    rows are split, ``w`` is gathered (FSDP: the weight all-gathered at
+    use) and the output's rows split alike; else both are gathered.
+    GSPMD's choices for these products, taken here rather than searched:
+    DTensor's own search over a product's strategies on the three-dim mesh
+    takes minutes a product (torch 2.13)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor) or not isinstance(w, DTensor):
+        return x @ w
+    k = x.ndim - 1
+    mesh = x.device_mesh
+    tp = set(_ACTIVE.model) if _ACTIVE is not None else set()
+    px, pw, po = [], [], []
+    for name, p, q in zip(mesh.mesh_dim_names, even_placements(x), even_placements(w)):
+        rows = isinstance(p, Shard) and p.dim < k
+        if q == Shard(1) and (name in tp or not rows):
+            px.append(Replicate()), pw.append(q), po.append(Shard(k))
+        elif q == Shard(0) and p == Shard(k):
+            px.append(p), pw.append(q), po.append(Partial())
+        elif rows:
+            px.append(p), pw.append(Replicate()), po.append(p)
+        else:
+            px.append(Replicate()), pw.append(Replicate()), po.append(Replicate())
+    return on_shards(torch.matmul, (x, w), (tuple(px), tuple(pw)), po, mesh)
+
+
+def split_dim(x, dim: int, sizes: tuple):
+    """``x`` with dim ``dim`` split into ``sizes`` (a reshape).  A DTensor
+    whose dim is sharded over mesh dims that the leading size does not
+    divide is first replicated over them: DTensor refuses to split an
+    uneven shard (rwkv6's 40 heads of a 16-way sharded width)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dim = dim % x.ndim
+    if isinstance(x, DTensor):
+        plc = tuple(x.placements)
+        n = 1
+        for m, p in enumerate(plc):
+            if p == Shard(dim):
+                n *= x.device_mesh.size(m)
+        if sizes[0] % n:
+            x = x.redistribute(x.device_mesh,
+                               tuple(Replicate() if p == Shard(dim) else p for p in plc))
+    return x.reshape(x.shape[:dim] + tuple(sizes) + x.shape[dim + 1:])
 
 
 def bind_pspec(spec: Spec, rules: Rules) -> Spec:
@@ -210,27 +345,36 @@ def local(fn: Callable, out_specs, in_specs) -> Callable:
     ``in_specs`` (one per argument, None for a non-tensor) bound by the
     active rules, ``fn`` sees their local tensors, and its outputs are
     wrapped with the bound ``out_specs`` (one spec, or a tuple of specs for
-    a tuple of outputs).  Without active rules, or without a DTensor
-    argument, it is ``fn`` itself.  ``fn`` must be local: it may read no
-    row of another rank's shard."""
+    a tuple of outputs).  A logical axis whose dim does not divide in some
+    argument (``fitted``: a batch of 1 against 16 data ranks) is dropped
+    from every in and out spec, so each rank runs ``fn`` on the whole of
+    that dim.  Without active rules, or without a DTensor argument, it is
+    ``fn`` itself.  ``fn`` must be local: it may read no row of another
+    rank's shard."""
 
     def run(*args):
         from torch.distributed.tensor import DTensor
-        from torch.distributed.tensor.experimental import local_map
         mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)), None)
         if _ACTIVE is None or mesh is None:
             return fn(*args)
 
+        dropped = set()
+        for spec, a in zip(in_specs, args):
+            if spec is None or not isinstance(a, DTensor):
+                continue
+            bound = Spec(*(_ACTIVE.resolve(e) for e in spec))
+            kept = fitted(bound, a.shape, mesh)
+            dropped |= {e for e, k in zip(spec, kept) if e is not None and k is None}
+
         def bind(spec):
-            return None if spec is None else placements(
-                Spec(*(_ACTIVE.resolve(a) for a in spec)), mesh)
+            if spec is None:
+                return None
+            return placements(Spec(*(None if e in dropped else _ACTIVE.resolve(e)
+                                     for e in spec)), mesh)
 
         # local_map reads a tuple as one placement list per output
         outs = (list(bind(out_specs)) if isinstance(out_specs, Spec)
                 else tuple(bind(s) for s in out_specs))
-        return local_map(fn, out_placements=outs,
-                         in_placements=tuple(bind(s) for s in in_specs),
-                         device_mesh=mesh, redistribute_inputs=True)(*args)
+        return on_shards(fn, args, [bind(s) for s in in_specs], outs, mesh)
 
     return run
-

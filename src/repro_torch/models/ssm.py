@@ -22,7 +22,7 @@ from repro_torch.device import resolve_device
 
 from .gla import chunked_gla, gla_decode_step
 from .layers import Maker, Params, rms_norm
-from .sharding_rules import Spec
+from .sharding_rules import Spec, batch_local, dense, shard
 
 CONV_K = 4
 
@@ -71,12 +71,16 @@ def _split(cfg: ArchConfig, zxbcdt: torch.Tensor):
 
 
 def _conv_train(p: Params, xbc: torch.Tensor) -> torch.Tensor:
-    """Causal depthwise conv as a sum of shifted scalings (k=4)."""
-    acc = p["conv_b"] + xbc * p["conv_w"][CONV_K - 1]
-    for i in range(1, CONV_K):
-        shifted = F.pad(xbc, (0, 0, i, 0))[:, : xbc.shape[1]]
-        acc = acc + shifted * p["conv_w"][CONV_K - 1 - i]
-    return F.silu(acc)
+    """Causal depthwise conv as a sum of shifted scalings (k=4), on each
+    rank's batch rows."""
+    def conv(xbc, w, bias):
+        acc = bias + xbc * w[CONV_K - 1]
+        for i in range(1, CONV_K):
+            shifted = F.pad(xbc, (0, 0, i, 0))[:, : xbc.shape[1]]
+            acc = acc + shifted * w[CONV_K - 1 - i]
+        return F.silu(acc)
+
+    return batch_local(conv, (xbc,), (p["conv_w"], p["conv_b"]))
 
 
 def _log_decay(p: Params, dt: torch.Tensor):
@@ -91,7 +95,7 @@ def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
                 chunk: int = 64) -> torch.Tensor:
     b, s, _ = x.shape
     d_inner, heads, hd, n = _dims(cfg)
-    z, xbc, dt = _split(cfg, torch.einsum("bsd,de->bse", x, p["in_proj"]))
+    z, xbc, dt = _split(cfg, shard(dense(x, p["in_proj"]), "batch", None, None))
     xbc = _conv_train(p, xbc)
     xin = xbc[..., :d_inner]
     bmat = xbc[..., d_inner: d_inner + n]
@@ -106,7 +110,7 @@ def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
     y = y + xin.reshape(b, s, heads, hd) * p["d_skip"].to(y.dtype)[:, None]
     y = y.reshape(b, s, d_inner)
     y = rms_norm(y * F.silu(z), p["norm"])
-    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return dense(y, p["out_proj"])
 
 
 # ---------------------------------------------------------------------------
@@ -132,12 +136,14 @@ def mamba_decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
     b = x.shape[0]
     d_inner, heads, hd, n = _dims(cfg)
     f32 = torch.float32
-    z, xbc, dt = _split(cfg, torch.einsum("bsd,de->bse", x, p["in_proj"]))
+    z, xbc, dt = _split(cfg, shard(dense(x, p["in_proj"]), "batch", None, None))
     xbc = xbc[:, 0]  # (B, C_conv)
     # conv with the carried last K-1 inputs, in the wider of the two dtypes
     wide = torch.promote_types(state.conv.dtype, xbc.dtype)
     hist = torch.cat([state.conv.to(wide), xbc[:, None].to(wide)], dim=1)  # (B, K, C)
-    out = p["conv_b"] + torch.einsum("bkc,kc->bc", hist.to(f32), p["conv_w"].to(f32))
+    out = batch_local(lambda h, w, bias: bias + torch.einsum("bkc,kc->bc", h.to(f32),
+                                                             w.to(f32)),
+                      (hist,), (p["conv_w"], p["conv_b"]))
     xbc_c = F.silu(out).to(x.dtype)
     new_conv = hist[:, 1:]
 
@@ -153,5 +159,5 @@ def mamba_decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
     y = y + xin.reshape(b, heads, hd) * p["d_skip"].to(y.dtype)[:, None]
     y = y.reshape(b, 1, d_inner)
     y = rms_norm(y * F.silu(z), p["norm"])
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = dense(y, p["out_proj"])
     return out, MambaState(new_ssm.to(state.ssm.dtype), new_conv.to(state.conv.dtype))

@@ -31,6 +31,7 @@ redistributions under ``launch/sharding.py``'s step builders.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
@@ -45,7 +46,7 @@ from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .layers import (Maker, Params, StackedMaker, apply_mlp_block, embed, gelu,
                      init_embed, init_mlp_block, logits, recompute, rms_norm)
-from .sharding_rules import Spec, shard
+from .sharding_rules import Spec, even_placements, on_shards, shard
 
 VLM_EMBED_DIM = 1024  # CLIP-large patch width (anyres frontend stub)
 
@@ -323,16 +324,51 @@ def forward_seq(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 CE_CHUNK = 512
 
 
+def _ce_terms(lg, top, tc, v0: int):
+    """(sum of exp(lg - top), the target's logit) over the vocab slice
+    ``v0 ..`` that ``lg`` holds: a one-hot contraction instead of a gather,
+    which picks each logit exactly (its one nonzero term)."""
+    se = torch.sum(torch.exp(lg - top), -1)
+    vocab = torch.arange(v0, v0 + lg.shape[-1], device=tc.device)
+    hot = (tc[..., None] == vocab).to(lg.dtype)
+    return se, torch.sum(lg * hot, -1)
+
+
+def _vocab_sums(lg, top, tc):
+    """``_ce_terms`` of (B, S, V) logits, on each rank's vocab slice where
+    they are a DTensor: both sums partial over the vocab's mesh dims, the
+    batch's kept.  (DTensor would expand the sums' gradients to the whole
+    vocab on every rank before slicing them.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(lg, DTensor):
+        return _ce_terms(lg, top, tc, 0)
+    mesh = lg.device_mesh
+    coord = mesh.get_coordinate()
+    pl, pt, po, idx = [], [], [], 0
+    for m, p in enumerate(even_placements(lg)):
+        if p == Shard(2):
+            idx = idx * mesh.size(m) + coord[m]
+            pl.append(p), pt.append(Replicate()), po.append(Partial())
+        elif p == Shard(0):
+            pl.append(p), pt.append(p), po.append(p)
+        else:
+            pl.append(Replicate()), pt.append(Replicate()), po.append(Replicate())
+    n = math.prod(mesh.size(m) for m, p in enumerate(pl) if p == Shard(2))
+    v0 = idx * (lg.shape[-1] // n)
+    return on_shards(lambda lg, top, tc: _ce_terms(lg, top, tc, v0), (lg, top, tc),
+                     (tuple(pl), tuple(pt), tuple(pt)), (tuple(po), tuple(po)), mesh)
+
+
 def _ce_of_chunk(params, cfg, xc, tc):
     """Sum of (lse - picked) over one sequence chunk; logits never outlive
-    the chunk."""
+    the chunk.  The log-sum-exp is the reference's jax.nn.logsumexp (the
+    max held constant), spelled out so that it stays sharded over the
+    vocab (model) axis."""
     lg = logits(params["embed"], xc, cfg).to(torch.float32)
     lg = shard(lg, "batch", None, "model")
-    lse = torch.logsumexp(lg, dim=-1)
-    # one-hot contraction instead of a gather: stays sharded over the
-    # vocab (model) axis, and picks each logit exactly (its one nonzero term)
-    hot = (tc[..., None] == torch.arange(lg.shape[-1], device=tc.device)).to(lg.dtype)
-    picked = torch.sum(lg * hot, -1)
+    top = lg.detach().amax(-1, keepdim=True)
+    se, picked = _vocab_sums(lg, top, tc)
+    lse = torch.log(se) + top[..., 0]
     return torch.sum(lse - picked)
 
 

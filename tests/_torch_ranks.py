@@ -32,14 +32,15 @@ def spawn(world_size: int, scenario: str, tmp_path, timeout: float = 600.0,
 
 def spawn_many(jobs: dict, timeout: float = 600.0, meanwhile=None) -> dict:
     """Several spawns at once: ``{scenario: (world_size, tmp_path,
-    kwargs)}`` -> ``{scenario: [each rank's result]}``.  Each job has its
-    own group (its own ``tmp_path``); all run side by side, the parent runs
-    ``meanwhile()`` while they do (its result under the key
-    ``"meanwhile"``), and a job that fails or outlives ``timeout`` fails
-    the call."""
+    kwargs)}`` -> ``{scenario: [each rank's result]}``; a key may add
+    ":label" to its scenario's name, to run one scenario several times.
+    Each job has its own group (its own ``tmp_path``); all run side by
+    side, the parent runs ``meanwhile()`` while they do (its result under
+    the key ``"meanwhile"``), and a job that fails or outlives ``timeout``
+    fails the call."""
     import torch.multiprocessing as mp
-    ctxs = {name: mp.start_processes(_entry, args=(ws, str(tmp), name, kw), nprocs=ws,
-                                     join=False, start_method="spawn")
+    ctxs = {name: mp.start_processes(_entry, args=(ws, str(tmp), name.split(":")[0], kw),
+                                     nprocs=ws, join=False, start_method="spawn")
             for name, (ws, tmp, kw) in jobs.items()}
     deadline = time.monotonic() + timeout
     try:
@@ -64,13 +65,15 @@ def spawn_many(jobs: dict, timeout: float = 600.0, meanwhile=None) -> dict:
 def _entry(rank: int, world_size: int, tmp: str, scenario: str, kwargs: dict) -> None:
     import torch.distributed as dist
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'init')}",
-                            world_size=world_size, rank=rank)
+    if scenario not in FAKE_GROUP:
+        dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'init')}",
+                                world_size=world_size, rank=rank)
     try:
         out = SCENARIOS[scenario](world_size, **kwargs)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -601,7 +604,128 @@ def pipeline_restore(world_size: int, ckpt_dir: str) -> dict:
                            for k in tree}}
 
 
+GQA_HEADS = dict(n_heads=16, n_kv_heads=2)   # 16 query heads (sharded), 2 kv heads
+GQA_ARCHS = ("qwen3-0.6b", "mixtral-8x7b")
+GQA_DECODE_TOKENS = 6
+
+
+def gqa_cfg(arch: str):
+    """The reduced float64 config of a GQA case: 16 query heads, which the
+    rules shard over "model" (16 divides the production axis), against 2 kv
+    heads, which 4 model ranks do not divide."""
+    from repro_torch.configs import get_arch
+    return get_arch(arch).reduced(dtype="float64", **GQA_HEADS)
+
+
+def gqa_ranks(world_size: int) -> dict:
+    """The uneven GQA split with numbers: each GQA case on a (1, 4) mesh,
+    two training steps of ``build_train_step`` (``policy="tp"``), the last
+    logits of ``build_prefill_step`` and GQA_DECODE_TOKENS steps of
+    ``build_serve_step`` (every step's logits, the final state), and the
+    placements its query and kv projections took."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import Knobs, decode_state_specs, init_model
+    from repro_torch.optim import adam_init
+
+    mesh = make_debug_mesh(1, 4, "cpu")
+    knobs = Knobs(q_chunk=SHARD_CHUNKS[0], kv_chunk=SHARD_CHUNKS[1])
+    out = {}
+    for arch in GQA_ARCHS:
+        cfg = gqa_cfg(arch)
+        params = init_model(cfg, 0, device="cpu")
+        batches = [synthetic_batch(cfg, ShapeCfg("b", SHARD_S, SHARD_B, "train"), i,
+                                   dtype=F64, device="cpu") for i in range(2)]
+        rec = {}
+        with lifted_islands():
+            built = sharding.build_train_step(cfg, mesh, ShapeCfg("t", SHARD_S, SHARD_B, "train"),
+                                              knobs=knobs, policy="tp")
+            p, o, losses = params, adam_init(params), []
+            for b in batches:
+                p, o, loss, _ = built.fn(p, o, b)
+                losses.append(float(loss.full_tensor()))
+            attn = p["stack"]["groups"]["layers"][0]["attn"]
+            rec.update(losses=losses, params=_full(p),
+                       placements={k: str(attn[k].placements) for k in ("wq", "wk")})
+            prefill = sharding.build_prefill_step(cfg, mesh, ShapeCfg("p", SHARD_S, SHARD_B,
+                                                                      "prefill"), knobs=knobs)
+            rec["prefill"] = prefill.fn(params, batches[0]).full_tensor()
+            serve = sharding.build_serve_step(cfg, mesh, ShapeCfg("d", SHARD_S, SHARD_B,
+                                                                  "decode"), knobs=knobs)
+            st, logits = decode_state_specs(cfg, SHARD_B, SHARD_S, device="cpu"), []
+            for i in range(GQA_DECODE_TOKENS):
+                lg, st = serve.fn(params, batches[0]["tokens"][:, i:i + 1], st)
+                logits.append(lg.full_tensor())
+            rec.update(logits=torch.stack(logits), state=_full(st))
+        out[arch] = rec
+    return out
+
+
+# the dry run's scenarios: each opens its own fake process group
+FAKE_GROUP = ("dryrun_cells", "dryrun_small_mesh", "fake_collectives")
+
+
+def dryrun_cells(world_size: int, cells) -> dict:
+    """Production cells of ``launch.dryrun``, ``(arch, shape, mesh,
+    layers)`` each, on the CPU: {"arch/shape/mesh": its record}."""
+    from repro_torch.launch import dryrun
+    return {f"{a}/{s}/{m}": dryrun.run_cell(a, s, m, device="cpu", layers=n, verbose=False)
+            for a, s, m, n in cells}
+
+
+def dryrun_small_mesh(world_size: int) -> dict:
+    """The reference's small-mesh dry-run cell: reduced granite trained at
+    ShapeCfg("t", 64, 8) with FSDP on a fake (2, 2, 2) ("pod", "data",
+    "model") mesh, counted by ``dryrun.count_step``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun, sharding
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dryrun.fake_process_group(8)
+    mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+    built = sharding.build_train_step(get_arch("granite-3-2b").reduced(), mesh,
+                                      ShapeCfg("t", 64, 8, "train"), fsdp=True)
+    totals, _ = dryrun.count_step(built, mesh, "cpu")
+    return {"flops": totals.flops, "bytes": totals.bytes,
+            "collective_bytes": totals.total_collective_bytes, "peak": totals.peak_bytes}
+
+
+def fake_collectives(world_size: int) -> dict:
+    """On fake process groups: an all-gather of a (3, 5) float32 shard over
+    4 ranks under ``OpCounter`` (its result bytes and mesh dim), then a
+    (4096, 2048) x (2048, 8192) product of DTensors on a 16 x 16 mesh under
+    fake tensors (the local FLOPs alone)."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_static import OpCounter
+
+    dryrun.fake_process_group(4)
+    mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+    with OpCounter(mesh) as counter:
+        funcol.all_gather_single(torch.zeros(3, 5), 0, (mesh, 0)).wait()
+    out = {"gather": counter.totals}
+    dryrun.fake_process_group(256)
+    mesh = init_device_mesh("cpu", (16, 16), mesh_dim_names=("data", "model"))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        a = distribute_tensor(torch.empty(4096, 2048), mesh, (Shard(0), Replicate()))
+        b = distribute_tensor(torch.empty(2048, 8192), mesh, (Replicate(), Shard(1)))
+        with OpCounter(mesh) as counter:
+            a @ b
+    del mode
+    out["matmul"] = counter.totals
+    return out
+
+
 SCENARIOS = {"everything": everything, "pinn_loss_parity": pinn_loss_parity,
              "train_parity": train_parity, "serving_idle": serving_idle,
              "sharding_train": sharding_train, "sharding_serve": sharding_serve,
-             "pipeline_restore": pipeline_restore}
+             "pipeline_restore": pipeline_restore, "gqa_ranks": gqa_ranks,
+             "dryrun_cells": dryrun_cells, "dryrun_small_mesh": dryrun_small_mesh,
+             "fake_collectives": fake_collectives}

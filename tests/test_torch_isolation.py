@@ -108,6 +108,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
     from repro_torch.data.tokens import synthetic_batch
     from repro_torch.models import decode_state_specs, init_model
     from repro_torch.models.attention import init_kv_cache
+    from repro_torch.launch import dryrun
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     lm = get_arch("qwen3-0.6b").reduced()
@@ -127,7 +128,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
                  lambda: init_model(lm, 0, device="cuda"),
                  lambda: synthetic_batch(lm, ShapeCfg("t", 8, 1, "train"), 0),
                  lambda: init_kv_cache(lm, 1, 8, 2),
-                 lambda: decode_state_specs(lm, 1, 8)):
+                 lambda: decode_state_specs(lm, 1, 8),
+                 lambda: dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     with DerivativeServer(net, params, "ntp/cuda", device="cpu") as srv:
