@@ -199,11 +199,14 @@ Phases, each failing loudly with a non-zero exit:
    mesh, bit for bit; (e) the production plan: per-rank bytes of every
    arch on both production meshes at every applicable shape;
    6i. the dry run and its roofline (``launch/dryrun.py``, ``op_static.py``,
-   ``op_analysis.py``), within LM_DRYRUN_LIMIT_S: (a) LM_DRYRUN_CELLS, one
-   cell per fault the sharded steps raised in before their repair, at
+   ``op_analysis.py``), within LM_DRYRUN_LIMIT_S: (a) the gate cells of
+   ``launch/dryrun_gate.py`` (one per fault the sharded steps raised in
+   before their repair, and llama4's ``prefill_32k`` at 2 layers) at
    published widths on fake process groups of 256 / 512 ranks and the
-   card's torch, in two child processes (per-rank GiB, TFLOP, GB,
-   collective GB by kind, the three terms and the bottleneck); (b) 6h
+   card's torch, in three child processes (per-rank GiB, TFLOP, GB,
+   collective GB by kind, the three terms and the bottleneck), each
+   cell's dot FLOPs and collective bytes of each kind held within
+   ``dryrun_gate.RTOL`` of the CPU's count, its GiB printed beside; (b) 6h
    (a)'s qwen3 step calibrating ``op_static`` and the roofline on the
    card: its FLOPs against ``torch.profiler``'s products (checkpoint's
    early stop off), the (1, 1) mesh's and the fake run's counts equal to
@@ -543,12 +546,11 @@ TOL_LM_SHARD_MOE = 1e-12
 LM_SHARD_LIMIT_S = 180.0
 
 # phase 6i: the dry run and its roofline (launch/dryrun.py, op_static.py,
-# op_analysis.py).  (a) the dry run on the card's torch, in two child
+# op_analysis.py).  (a) the dry run on the card's torch, in three child
 # processes on a fake process group of 256 / 512 ranks, the production
-# meshes on CUDA, fake tensors: one cell per fault the sharded steps
-# raised before they were repaired, at published widths, the depth cut to
-# a layer (zamba2: its group of 6, the shared block's; llama4: 2, its MoE
-# layer); (b) the calibration on the card: 6h (a)'s qwen3 step, bf16,
+# meshes on CUDA, fake tensors: the cells of launch/dryrun_gate.py, their
+# counts held to the CPU's there; (b)
+# the calibration on the card: 6h (a)'s qwen3 step, bf16,
 # unsharded and on the (1, 1) NCCL mesh -- op_static's FLOPs against
 # torch.profiler's count of the same products (mm, addmm, bmm, baddbmm,
 # convolution; its total adds one FLOP an element of mul and add, which
@@ -559,12 +561,6 @@ LM_SHARD_LIMIT_S = 180.0
 # equal to the unsharded one, the measured step no faster than the
 # roofline's bound, the predicted peak (arguments + the fake run's
 # temporaries) within LM_DRYRUN_MEM_RTOL of max_memory_allocated.
-LM_DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "single", 1),
-                   ("gemma3-4b", "long_500k", "single", 1),
-                   ("rwkv6-3b", "decode_32k", "single", 1),
-                   ("mixtral-8x7b", "prefill_32k", "multi", 1),
-                   ("llama4-maverick-400b-a17b", "long_500k", "multi", 2),
-                   ("zamba2-2.7b", "train_4k", "single", 6))
 LM_DRYRUN_FLOP_RTOL = 0.01
 LM_DRYRUN_MEM_RTOL = 0.25
 LM_DRYRUN_STEPS = 3
@@ -5165,19 +5161,29 @@ import json, sys
 from repro_torch.launch import dryrun
 for arch, shape, mesh, layers in json.loads(sys.argv[1]):
     rec = dryrun.run_cell(arch, shape, mesh, device=sys.argv[2], layers=layers, verbose=False)
-    print("CELL " + json.dumps(rec), flush=True)
+    print("CELL " + json.dumps(dict(rec, cut=layers)), flush=True)
 """
 
 
+def dryrun_cells() -> tuple:
+    """6i (a)'s cells: the gate's."""
+    from repro_torch.launch import dryrun_gate
+    return tuple(dryrun_gate.CELLS)
+
+
 def lm_dryrun_cells() -> list:
-    """6i (a): start LM_DRYRUN_CELLS in two child processes (zamba2's cell
-    alone in the second); returns the processes."""
+    """6i (a): start the cells in three child processes (zamba2's cell, the
+    longest, alone in one; the prefill cells in another); returns the
+    processes."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    halves = (LM_DRYRUN_CELLS[:-1], LM_DRYRUN_CELLS[-1:])
-    return [subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, json.dumps(cells), DEVICE],
+    cells = dryrun_cells()
+    parts = ([c for c in cells if c[0] != "zamba2-2.7b" and c[1] != "prefill_32k"],
+             [c for c in cells if c[0] == "zamba2-2.7b"],
+             [c for c in cells if c[0] != "zamba2-2.7b" and c[1] == "prefill_32k"])
+    return [subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, json.dumps(part), DEVICE],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                             env=env) for cells in halves]
+                             env=env) for part in parts if part]
 
 
 def lm_dryrun_read(procs: list, out: dict) -> None:
@@ -5190,18 +5196,33 @@ def lm_dryrun_read(procs: list, out: dict) -> None:
                                       f"{stderr[-3000:]}")
         recs += [json.loads(line[5:]) for line in stdout.splitlines()
                  if line.startswith("CELL ")]
-    require(len(recs) == len(LM_DRYRUN_CELLS), f"6i (a): {len(recs)} of "
-                                               f"{len(LM_DRYRUN_CELLS)} cells came back")
+    from repro_torch.launch import dryrun_gate
+    cells = dryrun_cells()
+    require(len(recs) == len(cells), f"6i (a): {len(recs)} of {len(cells)} cells came back")
+    differ = []
     for rec in recs:
         require("error" not in rec and rec["hlo_gflops"] > 0,
                 f"6i (a): {rec.get('arch')} {rec.get('shape')}: {rec.get('error')}")
+        key = (rec["arch"], rec["shape"], rec["mesh"], rec["cut"])
+        want = dryrun_gate.CELLS.get(key)
+        rec["cpu"] = want
+        rec["differences"] = ([] if want is None else dryrun_gate.differences(rec, want))
+        differ += [f"{' '.join(map(str, key))}: {d}" for d in rec["differences"]]
         print(f"    (a) {rec['arch']} {rec['shape']} {rec['mesh']} ({rec['layers']} layers, "
               f"{rec['n_chips']} ranks, {rec['device']}, torch {rec['torch']}): "
               f"{rec['per_device_mem_gb']:.2f} GiB a rank, {rec['hlo_gflops'] / 1e3:.3f} TFLOP, "
               f"{rec['hlo_gbytes']:.2f} GB, collectives GB {rec['collectives']}; terms "
               f"c/m/x {rec['compute_s']:.4f} / {rec['memory_s']:.4f} / "
               f"{rec['collective_s']:.4f} s -> {rec['bottleneck']} ({rec['run_s']} s)")
+        if rec["cpu"] is not None:
+            print(f"        against the CPU's count (torch 2.13): FLOPs {rec['flops']:.6e} / "
+                  f"{rec['cpu']['flops']:.6e}, collective bytes {rec['collective_bytes']} / "
+                  f"{rec['cpu']['collectives']}; GiB {rec['per_device_mem_gb']:.2f} / "
+                  f"{rec['cpu']['gib']:.2f} (not held); "
+                  f"{'equal' if not rec['differences'] else 'DIFFERENT'} within "
+                  f"{dryrun_gate.RTOL:.0%}")
     out["cells"] = recs
+    require(not differ, "6i (a): the card's counts differ from the CPU's: " + "; ".join(differ))
 
 
 def _profiler_flops(step, args) -> tuple[float, dict]:
@@ -5345,7 +5366,7 @@ def lm_dryrun_calibrate(seed: int, mesh, smi: str, out: dict) -> None:
 
 
 def lm_dryrun(seed: int, report: dict) -> dict:
-    """Phase 6i: the dry run's cells on the card's torch (two children,
+    """Phase 6i: the dry run's cells on the card's torch (three children,
     fake process groups) while the main process calibrates op_static and
     the roofline on the card (NCCL at world size 1, a (1, 1) mesh); launch
     counters zeroed before and read after (none of the port's kernels),

@@ -130,7 +130,29 @@ def fake_process_group(world_size: int) -> None:
         if dist.get_world_size() == world_size:
             return
         dist.destroy_process_group()
+        _forget_meshes()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+
+
+def _forget_meshes() -> None:
+    """Clear DTensor's caches of sharding decisions and redistribution
+    plans.  Their keys compare meshes by layout, so a mesh of a new group
+    equal in layout to one of the group just destroyed would be handed the
+    old mesh's entries, whose process groups no longer resolve (a training
+    cell on the single-pod mesh after cells on the multi-pod one)."""
+    from torch.distributed.tensor import DTensor, _redistribute
+    clear = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+    if clear is not None:          # the C++ dispatch's own cache
+        clear()
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for fn in (getattr(prop, "propagate_op_sharding", None),
+               getattr(prop, "_propagate_tensor_meta_cached", None),
+               getattr(_redistribute, "_gen_transform_infos", None)):
+        if hasattr(fn, "cache_clear"):
+            fn.cache_clear()
+    planners = getattr(_redistribute, "_planner_cache", None)
+    if isinstance(planners, dict):
+        planners.clear()
 
 
 @contextlib.contextmanager
@@ -265,7 +287,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     rec = rl.asdict()
     rec.update(run_s=round(run_s, 1), argument_gb=arg_bytes / 2**30,
                temp_gb=totals.peak_bytes / 2**30, ops=totals.ops, layers=cfg.n_layers,
-               device=device, torch=torch.__version__)
+               device=device, torch=torch.__version__, flops=totals.flops,
+               collective_bytes=dict(totals.collective_bytes))
     if verbose:
         print(f"[{arch} x {shape_name} x {mesh_kind}] run {run_s:.0f}s | mem/dev "
               f"{rl.per_device_mem_gb:.2f} GiB | flops {rl.hlo_gflops:.1f}G | bytes "

@@ -27,7 +27,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from .layers import Maker, Params, recompute, rms_norm, rope, softcap
-from .sharding_rules import Spec, dense, even_placements, on_shards, split_dim
+from .sharding_rules import Spec, dense, even_placements, on_shards, reduced, split_dim
 
 NEG = -2.0e38  # safe -inf for fp32 masks
 
@@ -266,7 +266,7 @@ def _scores(q, k, cfg: ArchConfig):
     g, scale = q.shape[2] // k.shape[2], q.shape[-1] ** -0.5
     s = _by_heads(lambda q, k, h0: _scores_of(q, k, h0, g, scale), q, (k,), 2, None,
                   "scores")
-    return softcap(s.to(torch.float32), cfg.attn_softcap)
+    return softcap(reduced(s).to(torch.float32), cfg.attn_softcap)
 
 
 def _apply_probs(probs, v):

@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
-from .sharding_rules import Spec, dense, even_placements, on_shards
+from .sharding_rules import Spec, dense, even_placements, on_shards, reduced
 
 Params = Dict[str, Any]
 
@@ -200,7 +200,7 @@ def apply_mlp_block(p: Params, cfg: ArchConfig, x: torch.Tensor,
         xk = x + (xs - x) * p["mix_k"]
         k = torch.square(torch.relu(dense(xk, p["wk"])))
         r = torch.sigmoid(dense(x, p["wr"]))
-        return r * dense(k, p["wv"])
+        return r * reduced(dense(k, p["wv"]))
     raise ValueError(cfg.mlp)
 
 

@@ -28,6 +28,7 @@ production meshes can be planned without their 256 ranks.
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -274,30 +275,121 @@ def dense(x, w):
     rules' "model"), or on any axis that does not split ``x``'s rows,
     makes the output's columns sharded and ``x`` gathered (Megatron's
     sequence-parallel gather); a row-sharded one (Shard(0)) against ``x``
-    sharded along K makes the output partial (row parallel); where ``x``'s
-    rows are split, ``w`` is gathered (FSDP: the weight all-gathered at
-    use) and the output's rows split alike; else both are gathered.
-    GSPMD's choices for these products, taken here rather than searched:
-    DTensor's own search over a product's strategies on the three-dim mesh
-    takes minutes a product (torch 2.13)."""
+    sharded along K, or against ``x`` not split there at all on a
+    tensor-parallel axis or, on another (FSDP's), where ``x`` has no more
+    rows than K (``x``'s slice along K taken: a local chunk; a decode
+    token's partial output moves less than the gathered weight would),
+    makes the output partial (row parallel); where ``x``'s rows are split,
+    ``w`` is gathered (FSDP: the weight all-gathered at use) and the
+    output's rows split alike; else both are gathered.  GSPMD's choices for these products, taken here rather than
+    searched: DTensor's own search over a product's strategies on the
+    three-dim mesh takes minutes a product (torch 2.13), and the layout
+    its propagation hands a product differs between torch versions, which
+    the rule must not follow (a replicated ``x`` against a row-sharded
+    ``w`` gathered the weight on torch 2.11)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if not isinstance(x, DTensor) or not isinstance(w, DTensor):
         return x @ w
     k = x.ndim - 1
     mesh = x.device_mesh
     tp = set(_ACTIVE.model) if _ACTIVE is not None else set()
+    few_rows = math.prod(x.shape[:-1]) <= x.shape[-1]
     px, pw, po = [], [], []
     for name, p, q in zip(mesh.mesh_dim_names, even_placements(x), even_placements(w)):
         rows = isinstance(p, Shard) and p.dim < k
         if q == Shard(1) and (name in tp or not rows):
             px.append(Replicate()), pw.append(q), po.append(Shard(k))
-        elif q == Shard(0) and p == Shard(k):
-            px.append(p), pw.append(q), po.append(Partial())
+        elif q == Shard(0) and (p == Shard(k) or (not isinstance(p, Shard)
+                                                  and (name in tp or few_rows))):
+            px.append(Shard(k)), pw.append(q), po.append(Partial())
         elif rows:
             px.append(p), pw.append(Replicate()), po.append(p)
         else:
             px.append(Replicate()), pw.append(Replicate()), po.append(Replicate())
     return on_shards(torch.matmul, (x, w), (tuple(px), tuple(pw)), po, mesh)
+
+
+def _summed(placements) -> tuple:
+    """``placements`` with each ``Partial()`` reduced to ``Replicate()``."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple(Replicate() if isinstance(p, Partial) else p for p in placements)
+
+
+def reduced(x):
+    """``x`` with each partial placement reduced (all-reduced to
+    ``Replicate()``); ``x`` itself where nothing is partial or it is no
+    DTensor.  For a partial sum whose consumers need whole values: left
+    partial, DTensor's propagation picks where and how it is reduced, and
+    torch 2.11 and 2.13 pick differently (2.13 reduce-scatters partial
+    attention scores that it then gathers back)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor) or _summed(x.placements) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, _summed(x.placements))
+
+
+def gathered(t):
+    """``t`` replicated over every mesh dim (itself without active rules):
+    a small parameter sharded over "model" (a per-head or per-channel
+    vector) all-gathered before it meets an activation that is whole over
+    "model".  Left to DTensor, torch 2.13 splits the activation
+    instead and gathers its results back later (gigabytes a layer in
+    zamba2's mamba blocks, where 2.11 gathers the vector)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if _ACTIVE is None or not isinstance(t, DTensor):
+        return t
+    target = (Replicate(),) * t.device_mesh.ndim
+    return t if tuple(t.placements) == target else t.redistribute(t.device_mesh, target)
+
+
+class _Entry(torch.autograd.Function):
+    """Identity forward; the gradient reduced onto the input's layout."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        target = _summed(ctx.placements)
+        if isinstance(g, DTensor) and tuple(g.placements) != target:
+            g = g.redistribute(ctx.mesh, target)
+        return g
+
+
+def entry(x):
+    """``x`` as a block takes it in (a normed residual, the encoder's
+    output): the identity, whose gradient -- the sum of the partial shares
+    of the block's products that split their work over mesh dims where
+    ``x`` is whole -- is reduced here, once, onto ``x``'s own layout
+    (Megatron's conjugate of the block output's reduction, ``residual``).
+    Left to DTensor, torch 2.11 all-reduces each product's share and 2.13
+    reduce-scatters some of them."""
+    from torch.distributed.tensor import DTensor
+    if _ACTIVE is None or not isinstance(x, DTensor):
+        return x
+    return _Entry.apply(x)
+
+
+def residual(x, y):
+    """``x + y`` for a residual stream ``x`` and a block's output ``y``.
+    Where both are DTensors, a partial ``x`` is reduced and ``y`` is laid
+    out as ``x`` before the sum: a partial ``y`` (a row-parallel product's)
+    is reduced once, onto ``x``'s layout -- an all-reduce where ``x`` is
+    replicated, a reduce-scatter where it is split.  GSPMD's choice for
+    the sum, taken here because DTensor's differs by torch version: torch
+    2.11 reduces ``y`` before the sum, 2.13 makes ``x`` partial and leaves
+    the sum partial, so that each of its consumers reduces it again (the
+    float32 square in ``rms_norm`` all-reduced twice)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor) or not isinstance(y, DTensor):
+        return x + y
+    x = reduced(x)
+    if tuple(y.placements) != tuple(x.placements):
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
 
 
 def split_dim(x, dim: int, sizes: tuple):
@@ -338,14 +430,16 @@ def bind_pspec(spec: Spec, rules: Rules) -> Spec:
     return Spec(*out)
 
 
-def local(fn: Callable, out_specs, in_specs) -> Callable:
+def local(fn: Callable, out_specs, in_specs, partial: Optional[str] = None) -> Callable:
     """``fn`` run on each rank's shards where DTensor has no sharding
     strategy for its ops (``torch.distributed.tensor.experimental.
     local_map``): its DTensor arguments are redistributed to the logical
     ``in_specs`` (one per argument, None for a non-tensor) bound by the
     active rules, ``fn`` sees their local tensors, and its outputs are
     wrapped with the bound ``out_specs`` (one spec, or a tuple of specs for
-    a tuple of outputs).  A logical axis whose dim does not divide in some
+    a tuple of outputs); with ``partial`` (a logical axis), the outputs are
+    each rank's share of a sum over that axis's mesh dims (``Partial()``
+    there).  A logical axis whose dim does not divide in some
     argument (``fitted``: a batch of 1 against 16 data ranks) is dropped
     from every in and out spec, so each rank runs ``fn`` on the whole of
     that dim.  Without active rules, or without a DTensor argument, it is
@@ -372,9 +466,16 @@ def local(fn: Callable, out_specs, in_specs) -> Callable:
             return placements(Spec(*(None if e in dropped else _ACTIVE.resolve(e)
                                      for e in spec)), mesh)
 
+        summed = set(_axes(_ACTIVE.resolve(partial))) if partial not in (None, *dropped) else set()
+
+        def bind_out(spec):
+            from torch.distributed.tensor import Partial
+            return tuple(Partial() if name in summed and mesh.size(m) > 1 else p
+                         for m, (name, p) in enumerate(zip(mesh.mesh_dim_names, bind(spec))))
+
         # local_map reads a tuple as one placement list per output
-        outs = (list(bind(out_specs)) if isinstance(out_specs, Spec)
-                else tuple(bind(s) for s in out_specs))
+        outs = (list(bind_out(out_specs)) if isinstance(out_specs, Spec)
+                else tuple(bind_out(s) for s in out_specs))
         return on_shards(fn, args, [bind(s) for s in in_specs], outs, mesh)
 
     return run

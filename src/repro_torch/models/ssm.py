@@ -22,7 +22,7 @@ from repro_torch.device import resolve_device
 
 from .gla import chunked_gla, gla_decode_step
 from .layers import Maker, Params, rms_norm
-from .sharding_rules import Spec, batch_local, dense, shard
+from .sharding_rules import Spec, batch_local, dense, gathered, shard
 
 CONV_K = 4
 
@@ -87,8 +87,8 @@ def _log_decay(p: Params, dt: torch.Tensor):
     """(softplus(dt + bias), its log decay -softplus(..) exp(A_log)) in
     float32; dt: (..., H)."""
     f32 = torch.float32
-    dt_act = softplus(dt.to(f32) + p["dt_bias"].to(f32))
-    return dt_act, (-dt_act * torch.exp(p["a_log"].to(f32)))[..., None]
+    dt_act = softplus(dt.to(f32) + gathered(p["dt_bias"]).to(f32))
+    return dt_act, (-dt_act * torch.exp(gathered(p["a_log"]).to(f32)))[..., None]
 
 
 def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -107,9 +107,9 @@ def apply_mamba(p: Params, cfg: ArchConfig, x: torch.Tensor,
     q = cmat[:, :, None, :].expand(b, s, heads, n)
 
     y, _ = chunked_gla(q, k, v, log_decay, mode="mamba", chunk=chunk)
-    y = y + xin.reshape(b, s, heads, hd) * p["d_skip"].to(y.dtype)[:, None]
+    y = y + xin.reshape(b, s, heads, hd) * gathered(p["d_skip"]).to(y.dtype)[:, None]
     y = y.reshape(b, s, d_inner)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = rms_norm(y * F.silu(z), gathered(p["norm"]))
     return dense(y, p["out_proj"])
 
 
@@ -156,8 +156,8 @@ def mamba_decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
     k = bmat[:, None, :].expand(b, heads, n)
     q = cmat[:, None, :].expand(b, heads, n)
     y, new_ssm = gla_decode_step(q, k, v, log_decay, state.ssm.to(f32), mode="mamba")
-    y = y + xin.reshape(b, heads, hd) * p["d_skip"].to(y.dtype)[:, None]
+    y = y + xin.reshape(b, heads, hd) * gathered(p["d_skip"]).to(y.dtype)[:, None]
     y = y.reshape(b, 1, d_inner)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = rms_norm(y * F.silu(z), gathered(p["norm"]))
     out = dense(y, p["out_proj"])
     return out, MambaState(new_ssm.to(state.ssm.dtype), new_conv.to(state.conv.dtype))

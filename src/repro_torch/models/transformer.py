@@ -46,7 +46,8 @@ from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .layers import (Maker, Params, StackedMaker, apply_mlp_block, embed, gelu,
                      init_embed, init_mlp_block, logits, recompute, rms_norm)
-from .sharding_rules import Spec, even_placements, on_shards, shard
+from .sharding_rules import (Spec, dense, entry, even_placements, on_shards, reduced, residual,
+                             shard)
 
 VLM_EMBED_DIM = 1024  # CLIP-large patch width (anyres frontend stub)
 
@@ -207,13 +208,14 @@ def _sublayer_seq(lp: Params, cfg: ArchConfig, x: torch.Tensor, j: int,
     blocks, xkv None without cross-attention, aux (the MoE balance loss)
     None but for a MoE layer."""
     if cfg.block_type == "mamba2":
-        x = x + ssm_mod.apply_mamba(lp["mamba"], cfg, rms_norm(x, lp["ln"]),
-                                    chunk=knobs.gla_chunk)
+        x = residual(x, ssm_mod.apply_mamba(lp["mamba"], cfg, entry(rms_norm(x, lp["ln"])),
+                                            chunk=knobs.gla_chunk))
         return x, None, None, None
     if cfg.block_type == "rwkv6":
-        x = x + rwkv_mod.apply_rwkv_tm(lp["tm"], cfg, rms_norm(x, lp["ln1"]),
-                                       chunk=knobs.rwkv_chunk, pair_bf16=knobs.gla_pair_bf16)
-        x = x + apply_mlp_block(lp["cm"], cfg, rms_norm(x, lp["ln2"]))
+        x = residual(x, rwkv_mod.apply_rwkv_tm(lp["tm"], cfg, entry(rms_norm(x, lp["ln1"])),
+                                               chunk=knobs.rwkv_chunk,
+                                               pair_bf16=knobs.gla_pair_bf16))
+        x = residual(x, apply_mlp_block(lp["cm"], cfg, entry(rms_norm(x, lp["ln2"]))))
         return x, None, None, None
     # Megatron-SP: residuals are S-sharded between groups; gather the
     # sequence once on attention entry.  Skipped for hd-sharded attention,
@@ -221,6 +223,7 @@ def _sublayer_seq(lp: Params, cfg: ArchConfig, x: torch.Tensor, j: int,
     h = rms_norm(x, lp["ln1"])
     if not attn.q_hd_sharded(cfg):
         h = shard(h, "batch", None, None)
+    h = entry(h)
     if causal:
         window = cfg.window if _pattern_at(cfg, j) == "local" else None
         a_out, akv = attn.blocked_attention(lp["attn"], cfg, h, window=window,
@@ -228,22 +231,22 @@ def _sublayer_seq(lp: Params, cfg: ArchConfig, x: torch.Tensor, j: int,
                                             kv_chunk=knobs.kv_chunk)
     else:
         a_out, akv = attn.full_attention(lp["attn"], cfg, h, causal=False)
-    x = x + a_out
+    x = residual(x, a_out)
     xkv = None
     if "xattn" in lp and enc_out is not None:
-        c_out, xkv = attn.full_attention(lp["xattn"], cfg, rms_norm(x, lp["lnx"]),
-                                         causal=False, kv_x=enc_out, use_rope=False)
-        x = x + c_out
+        c_out, xkv = attn.full_attention(lp["xattn"], cfg, entry(rms_norm(x, lp["lnx"])),
+                                         causal=False, kv_x=entry(enc_out), use_rope=False)
+        x = residual(x, c_out)
     h = rms_norm(x, lp["ln2"])
     aux = None
     if "moe" in lp:
         # batch-align the dispatch input (S-sharded residuals otherwise
         # reshard inside the grouped dispatch)
         h = shard(h, "batch", None, None)
-        f_out, aux = moe_mod.apply_moe(lp["moe"], cfg, h, training=training)
+        f_out, aux = moe_mod.apply_moe(lp["moe"], cfg, entry(h), training=training)
     else:
-        f_out = apply_mlp_block(lp["ffn"], cfg, h)
-    return x + f_out, akv, xkv, aux
+        f_out = apply_mlp_block(lp["ffn"], cfg, entry(h))
+    return residual(x, f_out), akv, xkv, aux
 
 
 def _stack_seq(stack: Params, cfg: ArchConfig, x: torch.Tensor, knobs: Knobs,
@@ -296,7 +299,7 @@ def _fuse_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     x = embed(params["embed"], batch["tokens"], cfg)
     if cfg.vlm_image_tokens:
         pj = params["projector"]
-        img = gelu(batch["image_embeds"].to(x.dtype) @ pj["w1"]) @ pj["w2"]
+        img = dense(gelu(dense(batch["image_embeds"].to(x.dtype), pj["w1"])), pj["w2"])
         x = torch.cat([img, x], dim=1)
         n_prefix = cfg.vlm_image_tokens
     return x, enc_out, n_prefix
@@ -364,10 +367,10 @@ def _ce_of_chunk(params, cfg, xc, tc):
     the chunk.  The log-sum-exp is the reference's jax.nn.logsumexp (the
     max held constant), spelled out so that it stays sharded over the
     vocab (model) axis."""
-    lg = logits(params["embed"], xc, cfg).to(torch.float32)
+    lg = logits(params["embed"], entry(xc), cfg).to(torch.float32)
     lg = shard(lg, "batch", None, "model")
-    top = lg.detach().amax(-1, keepdim=True)
-    se, picked = _vocab_sums(lg, top, tc)
+    top = reduced(lg.detach().amax(-1, keepdim=True))
+    se, picked = map(reduced, _vocab_sums(lg, top, tc))
     lse = torch.log(se) + top[..., 0]
     return torch.sum(lse - picked)
 
@@ -458,29 +461,29 @@ def _sublayer_decode(lp: Params, cfg: ArchConfig, x, j: int, li: int,
         out, ms = ssm_mod.mamba_decode_step(lp["mamba"], cfg, rms_norm(x, lp["ln"]),
                                             _slice(st["mamba"], li))
         _write(st["mamba"], li, ms)
-        return x + out
+        return residual(x, out)
     if cfg.block_type == "rwkv6":
         wkv, shift_tm, shift_cm = _slice(st["rwkv"], li)
         h = rms_norm(x, lp["ln1"])
         out, new_wkv, _ = rwkv_mod.rwkv_tm_decode_step(lp["tm"], cfg, h, wkv, shift_tm)
-        x = x + out
+        x = residual(x, out)
         h2 = rms_norm(x, lp["ln2"])
         cm_out = apply_mlp_block(lp["cm"], cfg, h2, x_prev=shift_cm)
         _write(st["rwkv"], li, (new_wkv, h, h2))
-        return x + cm_out
+        return residual(x, cm_out)
     window = cfg.window if _pattern_at(cfg, j) == "local" else None
     out, _ = attn.decode_attention(lp["attn"], cfg, rms_norm(x, lp["ln1"]),
                                    _slice(st["kv"], li), pos, window=window)
-    x = x + out
+    x = residual(x, out)
     if "xattn" in lp and "cross_kv" in st:
         cout, _ = attn.decode_attention(lp["xattn"], cfg, rms_norm(x, lp["lnx"]),
                                         _slice(st["cross_kv"], li), pos, window=None,
                                         cross=True)
-        x = x + cout
+        x = residual(x, cout)
     h = rms_norm(x, lp["ln2"])
     f_out = (moe_mod.apply_moe(lp["moe"], cfg, h)[0] if "moe" in lp
              else apply_mlp_block(lp["ffn"], cfg, h))
-    return x + f_out
+    return residual(x, f_out)
 
 
 def _shared_decode(shared: Params, cfg: ArchConfig, x, gi: int, st: Dict[str, Any], pos):
@@ -489,8 +492,8 @@ def _shared_decode(shared: Params, cfg: ArchConfig, x, gi: int, st: Dict[str, An
     acfg = _attn_cfg(cfg)
     out, _ = attn.decode_attention(shared["attn"], acfg, rms_norm(x, shared["ln1"]),
                                    _slice(st["shared_kv"], gi), pos, window=None)
-    x = x + out
-    return x + apply_mlp_block(shared["ffn"], acfg, rms_norm(x, shared["ln2"]))
+    x = residual(x, out)
+    return residual(x, apply_mlp_block(shared["ffn"], acfg, rms_norm(x, shared["ln2"])))
 
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, st: Dict[str, Any]):

@@ -663,15 +663,112 @@ def gqa_ranks(world_size: int) -> dict:
     return out
 
 
+def _dense_case(mesh, x, w, x_placements) -> dict:
+    """``sharding_rules.dense`` of ``x`` laid out by ``x_placements``
+    against ``w`` row-sharded over "model", under ``OpCounter``: the
+    output's placements, each local product's contracted size, the
+    collectives the product moved, and the output gathered."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.op_static import OpCounter
+    from repro_torch.models.sharding_rules import dense, make_rules, use_rules
+    xd = distribute_tensor(x, mesh, x_placements)
+    wd = distribute_tensor(w, mesh, (Replicate(), Shard(0)))
+    with use_rules(make_rules(mesh)), OpCounter(mesh) as counter:
+        y = dense(xd, wd)
+    ks = [flops * x.element_size() // (2 * res) for op, flops, res, *_ in counter.log()
+          if op == "aten.mm"]
+    return {"placements": str(tuple(y.placements)), "k": ks,
+            "collectives": dict(counter.totals.collective_bytes), "y": y.full_tensor()}
+
+
+MOE_CASE = dict(batch=4, seq=64)   # 256 tokens: 32 groups of 8, capacity 1 in training
+
+
+def _moe_run(cfg, params, x, c, training: bool):
+    """``apply_moe`` of ``x`` and the gradients of (y * c).sum() + aux with
+    respect to ``x`` and every parameter leaf, gathered."""
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves
+    y, aux = moe.apply_moe(params, cfg, x, training=training)
+    loss = (y * c).sum() + aux
+    grads = torch.autograd.grad(loss, [x] + leaves(params))
+    full = [(t.full_tensor() if hasattr(t, "full_tensor") else t).detach() for t in [y, aux, *grads]]
+    return {"y": full[0], "aux": full[1], "grads": full[2:]}
+
+
+def sharding_faults(world_size: int) -> dict:
+    """On a (1, 4) ("data", "model") mesh: ``dense`` of a replicated and of
+    a K-sharded activation against a row-sharded weight (``_dense_case``),
+    and reduced llama4's MoE layer with 16 experts (expert parallel: 4 a
+    rank) in inference and in training (capacity 1 binds), its output and
+    gradients against the unsharded layer's and the dispatch buffer's
+    local expert count, float64 with the islands lifted."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import (Sharding, _model_context, bind_param_shardings,
+                                             distribute_params, place)
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Maker
+    from repro_torch.models.sharding_rules import Spec, make_rules
+
+    mesh = make_debug_mesh(1, world_size, "cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(2, 3, 4 * world_size)))
+    w = torch.from_numpy(rng.normal(size=(4 * world_size, 5)))
+    out = {"want": x @ w,
+           "replicated": _dense_case(mesh, x, w, (Replicate(), Replicate())),
+           "split": _dense_case(mesh, x, w, (Replicate(), Shard(2)))}
+
+    cfg = shard_cfg("llama4-maverick-400b-a17b")
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe(Maker(gen, F64, "cpu"), cfg)
+    specs = moe.init_moe(Maker(None, F64, "meta", specs=True), cfg)
+    rules = make_rules(mesh)
+    shardings = bind_param_shardings(mesh, specs, params, rules)
+    b, s = MOE_CASE["batch"], MOE_CASE["seq"]
+    xm = torch.from_numpy(rng.normal(size=(b, s, cfg.d_model)))
+    c = torch.from_numpy(rng.normal(size=(b, s, cfg.d_model)))
+    buffers = []
+    dispatch = moe._dispatch
+
+    def recorded(*args):
+        res = dispatch(*args)
+        buffers.append(tuple(res[0].shape))
+        return res
+
+    moe._dispatch = recorded
+    try:
+        with lifted_islands():
+            for training in (False, True):
+                plain = _moe_run(cfg, {k: v.clone().requires_grad_() for k, v in params.items()},
+                                 xm.clone().requires_grad_(), c, training)
+                with _model_context(rules):
+                    pd = {k: v.detach().requires_grad_() for k, v in
+                          distribute_params(params, shardings).items()}
+                    xd = place(xm, Sharding(mesh, Spec("data"))).requires_grad_()
+                    cd = place(c, Sharding(mesh, Spec("data")))
+                    sharded = _moe_run(cfg, pd, xd, cd, training)
+                out[f"moe_{'train' if training else 'infer'}"] = {"plain": plain,
+                                                                    "sharded": sharded}
+    finally:
+        moe._dispatch = dispatch
+    out["moe_buffers"] = buffers
+    return out
+
+
 # the dry run's scenarios: each opens its own fake process group
 FAKE_GROUP = ("dryrun_cells", "dryrun_small_mesh", "fake_collectives")
 
 
-def dryrun_cells(world_size: int, cells) -> dict:
+def dryrun_cells(world_size: int, cells, trace_dir=None) -> dict:
     """Production cells of ``launch.dryrun``, ``(arch, shape, mesh,
-    layers)`` each, on the CPU: {"arch/shape/mesh": its record}."""
+    layers)`` each, on the CPU: {"arch/shape/mesh": its record}; with
+    ``trace_dir``, each cell's op log is kept there (``--trace-dir``)."""
     from repro_torch.launch import dryrun
-    return {f"{a}/{s}/{m}": dryrun.run_cell(a, s, m, device="cpu", layers=n, verbose=False)
+    return {f"{a}/{s}/{m}": dryrun.run_cell(a, s, m, device="cpu", layers=n, verbose=False,
+                                            trace_dir=trace_dir)
             for a, s, m, n in cells}
 
 
@@ -727,5 +824,6 @@ SCENARIOS = {"everything": everything, "pinn_loss_parity": pinn_loss_parity,
              "train_parity": train_parity, "serving_idle": serving_idle,
              "sharding_train": sharding_train, "sharding_serve": sharding_serve,
              "pipeline_restore": pipeline_restore, "gqa_ranks": gqa_ranks,
+             "sharding_faults": sharding_faults,
              "dryrun_cells": dryrun_cells, "dryrun_small_mesh": dryrun_small_mesh,
              "fake_collectives": fake_collectives}

@@ -7,9 +7,17 @@ side by side:
   ShapeCfg("t", 64, 8) with FSDP on a fake (2, 2, 2) mesh, its FLOPs
   against the reference's ``hlo_static.analyze`` of the same cell,
   compiled in its own interpreter on 8 forced host devices;
-* the cells whose steps raised in DTensor before the repairs, at their
+* the cells whose steps raised in DTensor before the repairs, and
+  llama4's ``prefill_32k`` (``launch/dryrun_gate.py``'s cells), at their
   published widths on the fake production meshes (depth cut): each runs
-  to its end;
+  to its end, and its dot FLOPs and collective bytes are the gate's, which
+  ``chip_smoke.py`` holds the card's torch to;
+* zamba2's group of 6 (its op log): mamba's ``out_proj`` contracts each
+  rank's K / 16 (a row-parallel product), whatever layout its input
+  arrives in;
+* llama4's ``prefill_32k`` on the multi-pod mesh at 2 and at 4 layers: a
+  rank's GiB fits the card's 80 and grows by no more than the two layers'
+  parameters and KV cache;
 * the uneven GQA split with numbers: reduced qwen3 and mixtral with 16
   query heads, sharded over "model", against 2 kv heads on a real (1, 4)
   gloo mesh, trained, prefilled and decoded against the reference within
@@ -17,6 +25,8 @@ side by side:
   ``tests/test_torch_sharding_ranks.py``).
 """
 
+import gzip
+import json
 import os
 import subprocess
 import sys
@@ -39,6 +49,7 @@ from repro.models import forward_seq as jforward_seq
 from repro.models import layers as jlayers
 from repro.models.transformer import Knobs as JKnobs
 from repro_torch import bridge
+from repro_torch.launch import dryrun_gate
 from repro_torch.tree import leaves
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,17 +65,18 @@ JKNOBS = JKnobs(q_chunk=R.SHARD_CHUNKS[0], kv_chunk=R.SHARD_CHUNKS[1])
 # the head_dim and all-reduces the partial scores.
 TOL_SMALL_MESH = 0.30
 
-# (arch, shape, mesh, layers): the cells that raised in DTensor's sharding
-# propagation, at their published widths; the depth cut to one layer, or
-# one group where a layer alone would leave weights unused (zamba2's
-# shared block follows its group of 6) or skip the fault (llama4's second
-# layer is its MoE layer).  zamba2 runs in a child of its own.
-FAULT_CELLS = (("qwen3-0.6b", "train_4k", "single", 1),
-               ("gemma3-4b", "long_500k", "single", 1),
-               ("rwkv6-3b", "decode_32k", "single", 1),
-               ("mixtral-8x7b", "prefill_32k", "multi", 1),
-               ("llama4-maverick-400b-a17b", "long_500k", "multi", 2),
-               ("zamba2-2.7b", "train_4k", "single", 6))
+# (arch, shape, mesh, layers): the gate's cells (``launch/dryrun_gate.py``):
+# the cells that raised in DTensor's sharding propagation, at their
+# published widths, the depth cut to one layer, or one group where a layer
+# alone would leave weights unused (zamba2's shared block follows its group
+# of 6) or skip the fault (llama4's second layer is its MoE layer); and
+# llama4's prefill at 2 layers.  zamba2 runs in a child of its own (its op
+# log kept), the prefill cells in another.
+FAULT_CELLS = tuple(dryrun_gate.CELLS)
+ZAMBA2 = ("zamba2-2.7b", "train_4k", "single", 6)
+# llama4's prefill at 4 layers beside the gate's 2 (the depth check)
+LLAMA4_DEEPER = ("llama4-maverick-400b-a17b", "prefill_32k", "multi", 4)
+CARD_GIB = 80.0
 
 REFERENCE_SMALL_MESH = """
     import jax
@@ -156,17 +168,26 @@ def runs(tmp_path_factory):
     the four gloo ranks, side by side; the references in the parent
     meanwhile."""
     tmp = {name: tmp_path_factory.mktemp(name.replace(":", "_")) for name in
-           ("dryrun_cells:a", "dryrun_cells:b", "dryrun_small_mesh", "gqa_ranks")}
-    half = len(FAULT_CELLS) - 1
-    out = R.spawn_many({"dryrun_cells:a": (1, tmp["dryrun_cells:a"],
-                                           {"cells": FAULT_CELLS[:half]}),
+           ("dryrun_cells:a", "dryrun_cells:b", "dryrun_cells:c", "dryrun_cells:d",
+            "dryrun_small_mesh", "gqa_ranks")}
+    prefill = tuple(c for c in FAULT_CELLS if c[1] == "prefill_32k")
+    rest = tuple(c for c in FAULT_CELLS if c != ZAMBA2 and c not in prefill)
+    out = R.spawn_many({"dryrun_cells:a": (1, tmp["dryrun_cells:a"], {"cells": rest}),
                         "dryrun_cells:b": (1, tmp["dryrun_cells:b"],
-                                           {"cells": FAULT_CELLS[half:]}),
+                                           {"cells": (ZAMBA2,),
+                                            "trace_dir": str(tmp["dryrun_cells:b"])}),
+                        "dryrun_cells:c": (1, tmp["dryrun_cells:c"], {"cells": prefill}),
+                        "dryrun_cells:d": (1, tmp["dryrun_cells:d"],
+                                           {"cells": (LLAMA4_DEEPER,)}),
                         "dryrun_small_mesh": (1, tmp["dryrun_small_mesh"], {}),
                         "gqa_ranks": (4, tmp["gqa_ranks"], {})},
                        timeout=900, meanwhile=_references)
-    cells = {**out["dryrun_cells:a"][0], **out["dryrun_cells:b"][0]}
-    return {"cells": cells, "small_mesh": out["dryrun_small_mesh"][0],
+    cells = {**out["dryrun_cells:a"][0], **out["dryrun_cells:b"][0],
+             **out["dryrun_cells:c"][0]}
+    with gzip.open(tmp["dryrun_cells:b"] / "zamba2-2.7b__train_4k__single.ops.gz", "rt") as f:
+        zamba2_log = json.load(f)
+    return {"cells": cells, "deeper": next(iter(out["dryrun_cells:d"][0].values())),
+            "zamba2_log": zamba2_log, "small_mesh": out["dryrun_small_mesh"][0],
             "gqa": out["gqa_ranks"], "reference": out["meanwhile"]}
 
 
@@ -193,6 +214,78 @@ def test_fault_cell_runs_to_its_end(runs, cell):
                 "model_gflops"):
         assert np.isfinite(rec[key]) and rec[key] > 0, (key, rec[key])
     assert rec["bottleneck"] in ("compute", "memory", "collective")
+
+
+@pytest.mark.parametrize("cell", [f"{a}/{s}/{m}" for a, s, m, _ in FAULT_CELLS])
+def test_gate_counts_hold_on_this_cpu(runs, cell):
+    """The cell's dot FLOPs and collective bytes of each kind are the
+    gate's (``dryrun_gate.CELLS``, which the card's torch is held to): a
+    change of the port that moves them moves the gate with it."""
+    a, s, m = cell.split("/")
+    key = next(c for c in FAULT_CELLS if c[:3] == (a, s, m))
+    rec = runs["cells"][cell]
+    assert dryrun_gate.differences(rec, dryrun_gate.CELLS[key], rtol=dryrun_gate.CPU_RTOL,
+                                   floor=0) == []
+
+
+def test_zamba2_out_proj_is_row_parallel(runs):
+    """Every product into zamba2's residual stream -- a (tokens, d_model)
+    result -- contracts less than mamba's d_inner, and mamba's out_proj,
+    one a layer forward and again in its recomputation, contracts each
+    rank's d_inner / 16 = 320.  Gathered, it would contract all 5120, as
+    it did on torch 2.11 when its input arrived replicated."""
+    log = runs["zamba2_log"]
+    tokens = 256 // 16 * 4096                  # a rank's rows: batch over "data"
+    d_model, d_inner = 2560, 5120
+    ks = {}
+    for op, flops, res, _, _, _, n in log["log"]:
+        if op == "aten.mm" and res == tokens * d_model * 2:     # bf16
+            k = flops // (2 * tokens * d_model)
+            ks[k] = ks.get(k, 0) + n
+    assert max(ks) < d_inner, ks
+    assert ks.get(d_inner // 16) == 2 * log["layers"], ks
+
+
+def test_llama4_prefill_fits_and_does_not_grow(runs):
+    """llama4 ``prefill_32k`` on the multi-pod mesh: at 2 layers a rank
+    needs less than the card's 80 GiB, and 2 more layers add no more than
+    their parameters (the arguments' growth) and their KV cache, plus
+    10%.  Before its MoE dispatch packed each rank's experts alone, a
+    rank held whole (E, capacity) buffers: 96.49 GiB at 2 layers.  (That
+    tree grew by 0.24 GiB to 4 layers: nothing outlived its layer.)"""
+    two = runs["cells"]["llama4-maverick-400b-a17b/prefill_32k/multi"]
+    four = runs["deeper"]
+    assert (two["layers"], four["layers"]) == (2, 4)
+    assert two["per_device_mem_gb"] < CARD_GIB, two["per_device_mem_gb"]
+    # two layers' K and V, bf16: a rank's batch row (32 over pod x data),
+    # the 8 kv heads whole (16 "model" ranks do not divide them)
+    kv_gib = 2 * 2 * 1 * 32768 * 8 * 128 * 2 / 2**30
+    params_gib = four["argument_gb"] - two["argument_gb"]
+    growth = four["per_device_mem_gb"] - two["per_device_mem_gb"]
+    assert growth <= 1.1 * (params_gib + kv_gib), (growth, params_gib, kv_gib)
+
+
+def test_gate_compare_holds_sweeps_cell_by_cell(tmp_path):
+    """``dryrun_gate.compare`` matches two sweeps' cells by file name and
+    holds each by ``differences``: a kind 2% off differs, one 0.5% off
+    or under the byte floor does not, a skipped cell is left out and an
+    error differs."""
+    rec = {"flops": 1e12, "collective_bytes": {"all-gather": 1e9, "all-reduce": 4.0},
+           "per_device_mem_gb": 1.0}
+    cells = {"same": dict(rec, collective_bytes={"all-gather": 1.005e9, "all-reduce": 8.0}),
+             "off": dict(rec, collective_bytes={"all-gather": 1.02e9, "all-reduce": 4.0}),
+             "skip": {"skipped": "pure full-attention arch"},
+             "err": {"error": "RuntimeError('boom')"}}
+    for side in ("a", "b"):
+        (tmp_path / side).mkdir()
+        for name, r in cells.items():
+            (tmp_path / side / f"{name}.json").write_text(json.dumps(r if side == "a" else (
+                rec if name in ("same", "off") else r)))
+    rows = {name: diff for name, _, _, diff in
+            dryrun_gate.compare(str(tmp_path / "a"), str(tmp_path / "b"))}
+    assert set(rows) == {"same.json", "off.json", "err.json"}
+    assert rows["same.json"] == [] and len(rows["off.json"]) == 1
+    assert rows["err.json"] == ["RuntimeError('boom')"]
 
 
 @pytest.mark.parametrize("arch", R.GQA_ARCHS)
