@@ -199,11 +199,14 @@ Phases, each failing loudly with a non-zero exit:
    mesh, bit for bit; (e) the production plan: per-rank bytes of every
    arch on both production meshes at every applicable shape;
    6i. the dry run and its roofline (``launch/dryrun.py``, ``op_static.py``,
-   ``op_analysis.py``), within LM_DRYRUN_LIMIT_S: (a) the gate cells of
-   ``launch/dryrun_gate.py`` (one per fault the sharded steps raised in
-   before their repair, and llama4's ``prefill_32k`` at 2 layers) at
-   published widths on fake process groups of 256 / 512 ranks and the
-   card's torch, in three child processes (per-rank GiB, TFLOP, GB,
+   ``op_analysis.py``), within LM_DRYRUN_LIMIT_S: (a) the nine gate cells
+   of ``launch/dryrun_gate.py`` (one per fault the sharded steps raised
+   in before their repair, llama4's ``prefill_32k`` at 2 layers, and
+   rwkv6's and mixtral's ``train_4k``, whose backward the torch versions
+   reduced differently) at published widths on fake process groups of
+   256 / 512 ranks and the card's torch, in five child processes
+   (zamba2's cell, the prefill cells, each of the two backward cells, the
+   rest; per-rank GiB, TFLOP, GB,
    collective GB by kind, the three terms and the bottleneck), each
    cell's dot FLOPs and collective bytes of each kind held within
    ``dryrun_gate.RTOL`` of the CPU's count, its GiB printed beside; (b) 6h
@@ -546,10 +549,12 @@ TOL_LM_SHARD_MOE = 1e-12
 LM_SHARD_LIMIT_S = 180.0
 
 # phase 6i: the dry run and its roofline (launch/dryrun.py, op_static.py,
-# op_analysis.py).  (a) the dry run on the card's torch, in three child
+# op_analysis.py).  (a) the dry run on the card's torch, in five child
 # processes on a fake process group of 256 / 512 ranks, the production
-# meshes on CUDA, fake tensors: the cells of launch/dryrun_gate.py, their
-# counts held to the CPU's there; (b)
+# meshes on CUDA, fake tensors: the nine cells of launch/dryrun_gate.py,
+# their counts held to the CPU's there (rwkv6's and mixtral's train_4k,
+# 16-43 s each on an H100 host's CPU cores, a child each beside zamba2's,
+# the longest there at 75-115 s); (b)
 # the calibration on the card: 6h (a)'s qwen3 step, bf16,
 # unsharded and on the (1, 1) NCCL mesh -- op_static's FLOPs against
 # torch.profiler's count of the same products (mm, addmm, bmm, baddbmm,
@@ -5172,15 +5177,17 @@ def dryrun_cells() -> tuple:
 
 
 def lm_dryrun_cells() -> list:
-    """6i (a): start the cells in three child processes (zamba2's cell, the
-    longest, alone in one; the prefill cells in another); returns the
-    processes."""
+    """6i (a): start the cells in five child processes (zamba2's cell, the
+    longest, alone in one; the prefill cells in another; rwkv6's and
+    mixtral's training cells one each); returns the processes."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC))
     cells = dryrun_cells()
-    parts = ([c for c in cells if c[0] != "zamba2-2.7b" and c[1] != "prefill_32k"],
-             [c for c in cells if c[0] == "zamba2-2.7b"],
-             [c for c in cells if c[0] != "zamba2-2.7b" and c[1] == "prefill_32k"])
+    alone = [c for c in cells if c[0] == "zamba2-2.7b"
+             or (c[1] == "train_4k" and c[0] in ("rwkv6-3b", "mixtral-8x7b"))]
+    prefill = [c for c in cells if c not in alone and c[1] == "prefill_32k"]
+    parts = ([c for c in cells if c not in alone and c not in prefill], prefill,
+             *([c] for c in alone))
     return [subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, json.dumps(part), DEVICE],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                              env=env) for part in parts if part]
@@ -5366,7 +5373,7 @@ def lm_dryrun_calibrate(seed: int, mesh, smi: str, out: dict) -> None:
 
 
 def lm_dryrun(seed: int, report: dict) -> dict:
-    """Phase 6i: the dry run's cells on the card's torch (three children,
+    """Phase 6i: the dry run's cells on the card's torch (five children,
     fake process groups) while the main process calibrates op_static and
     the roofline on the card (NCCL at world size 1, a (1, 1) mesh); launch
     counters zeroed before and read after (none of the port's kernels),

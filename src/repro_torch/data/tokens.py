@@ -17,7 +17,7 @@ compare them pass tokens explicitly.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator
 
 import torch
 
@@ -69,3 +69,13 @@ def synthetic_batch(cfg: ArchConfig, shape: ShapeCfg, step: int,
                                           dtype=dtype).to(device)
     return out
 
+
+def batch_stream(cfg: ArchConfig, shape: ShapeCfg, start_step: int = 0,
+                 dtype: torch.dtype = torch.float32, device=None
+                 ) -> Iterator[Dict[str, torch.Tensor]]:
+    """``synthetic_batch`` of steps ``start_step``, ``start_step + 1``, ...
+    without end: a restart resumes from its step counter alone."""
+    step = start_step
+    while True:
+        yield synthetic_batch(cfg, shape, step, dtype=dtype, device=device)
+        step += 1

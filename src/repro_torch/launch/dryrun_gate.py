@@ -18,8 +18,14 @@ the peak follows the allocator's frees.  The cells: one for each fault in
 which the sharded steps raised in DTensor at the production meshes
 before their repair, at published widths with the depth cut to one layer
 (zamba2: its group of 6, the shared block's; llama4's ``long_500k``: 2,
-its MoE layer), and llama4's ``prefill_32k`` at 2 layers, whose MoE
-dispatch held whole (E, capacity) buffers on every rank.
+its MoE layer), llama4's ``prefill_32k`` at 2 layers, whose MoE
+dispatch held whole (E, capacity) buffers on every rank, and one layer
+each of the two training cells whose backward the torch versions
+reduced differently before the models stated it: rwkv6's (the token-
+shift mixes' gradients all-reduced one by one on torch 2.11, summed
+partial on 2.13, which also reduce-scattered the decay's low-rank
+gradient) and mixtral's multi-pod (the balance loss's mean, whose
+gradient 2.13 reduce-scattered at (groups, tokens, experts)).
 
 Refresh after a deliberate change of the counts:
 ``PYTHONPATH=src python -m repro_torch.launch.dryrun_gate`` prints the
@@ -46,10 +52,10 @@ CELLS = {
         flops=141950976, collectives={'all-gather': 16781312, 'all-reduce': 538624},
         gib=0.25),
     ('rwkv6-3b', 'decode_32k', 'single', 1): dict(
-        flops=356679680, collectives={'all-gather': 5739520, 'all-reduce': 122880},
+        flops=356679680, collectives={'all-gather': 5534720, 'all-reduce': 122880},
         gib=0.07),
     ('mixtral-8x7b', 'prefill_32k', 'multi', 1): dict(
-        flops=6633593372672, collectives={'all-gather': 229900288, 'all-reduce': 2684354688},
+        flops=6633593372672, collectives={'all-gather': 229900288, 'all-reduce': 2684354752},
         gib=9.14),
     ('llama4-maverick-400b-a17b', 'long_500k', 'multi', 2): dict(
         flops=179130880, collectives={'all-gather': 213277952, 'all-reduce': 2743040},
@@ -58,8 +64,15 @@ CELLS = {
         flops=17953813954560, collectives={'all-gather': 21131661952, 'all-reduce': 8439703692},
         gib=75.42),
     ('llama4-maverick-400b-a17b', 'prefill_32k', 'multi', 2): dict(
-        flops=79414074613760, collectives={'all-gather': 12503891968, 'all-reduce': 1677723648},
+        flops=79414074613760, collectives={'all-gather': 12503891968, 'all-reduce': 1677724672},
         gib=22.24),
+    ('rwkv6-3b', 'train_4k', 'single', 1): dict(
+        flops=8936048558080, collectives={'all-gather': 2013271040, 'all-reduce': 2075092108},
+        gib=16.61),
+    ('mixtral-8x7b', 'train_4k', 'multi', 1): dict(
+        flops=9639660879872, collectives={'all-gather': 229900288, 'all-reduce': 2580742264,
+                                          'reduce-scatter': 14368768},
+        gib=7.33),
 }
 
 

@@ -26,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
-from .sharding_rules import Spec, dense, even_placements, on_shards, reduced
+from .sharding_rules import (Spec, _summed, active_rules, dense, even_placements, on_shards,
+                             reduced, share)
 
 Params = Dict[str, Any]
 
@@ -196,10 +197,9 @@ def apply_mlp_block(p: Params, cfg: ArchConfig, x: torch.Tensor,
         return dense(gelu(dense(x, p["wi"])), p["wo"])
     if cfg.mlp == "rwkv_channel_mix":
         # RWKV channel mix: token-shifted key, squared relu, receptance gate
-        xs = token_shift(x, x_prev)
-        xk = x + (xs - x) * p["mix_k"]
+        xk, xr = token_mix(x, x_prev, (p["mix_k"], None))
         k = torch.square(torch.relu(dense(xk, p["wk"])))
-        r = torch.sigmoid(dense(x, p["wr"]))
+        r = torch.sigmoid(dense(xr, p["wr"]))
         return r * reduced(dense(k, p["wv"]))
     raise ValueError(cfg.mlp)
 
@@ -209,6 +209,136 @@ def token_shift(x: torch.Tensor, x_prev: torch.Tensor | None) -> torch.Tensor:
     carried ``x_prev`` (B, 1, D), at t = 0).  x: (B, S, D)."""
     first = torch.zeros_like(x[:, :1]) if x_prev is None else x_prev.to(x.dtype)
     return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def token_mix(x: torch.Tensor, x_prev: torch.Tensor | None, mixes: tuple) -> tuple:
+    """RWKV's token-shift lerps ``x + (token_shift(x, x_prev) - x) * mix``,
+    one a mix of ``mixes`` (None: ``x`` itself).  Where ``x``, ``x_prev``
+    and the mixes are DTensors under active rules, they run on the local
+    tensors of ``x``'s own layout with their backward stated
+    (``_TokenMix``): the lerps are linear in ``x``, so its gradient is
+    summed from the outputs' partial gradients and returned partial, to be
+    reduced once where the block takes ``x`` in (``entry``); left to
+    DTensor, torch 2.11 all-reduces each output's gradient and 2.13 sums
+    them partial."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x_prev = None if x_prev is None else x_prev.to(x.dtype)
+    tensors = [t for t in (x, x_prev, *mixes) if t is not None]
+    if active_rules() is None or not all(isinstance(t, DTensor) for t in tensors):
+        xs = token_shift(x, x_prev)
+        return tuple(x if m is None else x + (xs - x) * m for m in mixes)
+    mesh = x.device_mesh
+    plc = _summed(even_placements(x))
+    if tuple(x.placements) != plc:
+        x = x.redistribute(mesh, plc)
+    if x_prev is not None:
+        one = tuple(Replicate() if p == Shard(1) else p for p in plc)   # a single token
+        if tuple(x_prev.placements) != one:
+            x_prev = x_prev.redistribute(mesh, one)
+    return _TokenMix.apply(x, x_prev, *mixes)
+
+
+def _seq_index(mesh, plc: tuple) -> tuple:
+    """(this rank's shard of the sequence, the shards) of a tensor laid out
+    by ``plc``, in DTensor's order (the first mesh dim major)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    index, n = 0, 1
+    for m, p in enumerate(plc):
+        if p == Shard(1):
+            index, n = index * mesh.size(m) + coord[m], n * mesh.size(m)
+    return index, n
+
+
+def _neighbour(edge: torch.Tensor, mesh, plc: tuple, step: int):
+    """The (B, 1, D) ``edge`` of the sequence shard ``step`` away from this
+    rank's (-1: the previous, +1: the next), where each rank holds its
+    own shard's ``edge`` of a tensor laid out by ``plc``: the edges
+    all-gathered over the mesh dims that split the sequence (every rank
+    takes part), None past either end or where the sequence is whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    index, n = _seq_index(mesh, plc)
+    if n == 1:
+        return None
+    whole = tuple(Replicate() if p == Shard(1) else p for p in plc)
+    edges = DTensor.from_local(edge, mesh, plc, run_check=False).redistribute(mesh, whole)
+    j = index + step
+    return edges.to_local()[:, j:j + 1] if 0 <= j < n else None
+
+
+class _TokenMix(torch.autograd.Function):
+    """``token_mix`` on the local tensors of ``x`` (split along its batch,
+    sequence or channels, nothing partial) and of ``x_prev`` (laid out as
+    ``x``, its one token whole), each mix sliced as ``x``'s channels are.
+    A split sequence takes the previous shard's last token (``_neighbour``)
+    where the shift crosses shards.  The backward takes each output's
+    gradient in ``x``'s layout, partial over the mesh dims where ``x`` is
+    whole and some output's gradient is partial (``share``), and returns
+    ``x``'s gradient so, each mix's reduced onto the mix's own layout."""
+
+    @staticmethod
+    def forward(ctx, x, x_prev, *mixes):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        mesh, plc = x.device_mesh, tuple(x.placements)
+        ctx.set_materialize_grads(False)
+        ctx.mesh, ctx.plc, ctx.dtype = mesh, plc, x.dtype
+        ctx.prev = None if x_prev is None else tuple(x_prev.placements)
+        ctx.mix_plc = [None if m is None else tuple(m.placements) for m in mixes]
+        xl = x.to_local()
+        first = _neighbour(xl[:, -1:], mesh, plc, -1)
+        if first is None and x_prev is not None:
+            first = x_prev.to_local()
+        d = token_shift(xl, first) - xl
+        by_channel = tuple(Shard(0) if p == Shard(2) else Replicate() for p in plc)
+        ml = [None if m is None else m.redistribute(mesh, by_channel).to_local() for m in mixes]
+        ctx.save_for_backward(d, *(m for m in ml if m is not None))
+        return tuple(DTensor.from_local(xl.view_as(xl) if m is None else xl + d * m, mesh, plc,
+                                        run_check=False) for m in ml)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        mesh, plc = ctx.mesh, ctx.plc
+        d, *saved = ctx.saved_tensors
+        saved = iter(saved)
+        ml = [None if mp is None else next(saved) for mp in ctx.mix_plc]
+        target = tuple(Partial() if p == Replicate() and any(
+            g is not None and isinstance(g.placements[m], Partial) for g in gs) else p
+            for m, p in enumerate(plc))
+        # a mix's gradient sums over the rows: partial where they are split
+        summed = tuple(Shard(0) if p == Shard(2) else Partial() if isinstance(p, Shard) else p
+                       for p in target)
+        dx = dxs = None
+        dmix = []
+        for g, m, mp in zip(gs, ml, ctx.mix_plc):
+            g = None if g is None else share(g, target)
+            if m is None or g is None:
+                dmix.append(None)
+                if g is not None:
+                    dx = g if dx is None else dx + g
+                continue
+            gm = g * m
+            dx = g - gm if dx is None else dx + (g - gm)
+            dxs = gm if dxs is None else dxs + gm
+            dm = (g * d).sum_to_size(m.shape).to(m.dtype)
+            dmix.append(DTensor.from_local(dm, mesh, summed, run_check=False)
+                        .redistribute(mesh, mp))
+        dprev = None
+        if dxs is not None:
+            dx[:, :-1] += dxs[:, 1:]
+            after = _neighbour(dxs[:, :1], mesh, target, +1)
+            if after is not None:
+                dx[:, -1:] += after
+            if ctx.prev is not None:
+                # the carry's gradient: the first shard's first token, partial
+                # over the mesh dims that split the sequence
+                first = _seq_index(mesh, target)[0] == 0
+                mine = dxs[:, :1] if first else torch.zeros_like(dxs[:, :1])
+                one = tuple(Partial() if p == Shard(1) else p for p in target)
+                dprev = DTensor.from_local(mine, mesh, one, run_check=False)
+        if dx is not None:
+            dx = DTensor.from_local(dx.to(ctx.dtype), mesh, target, run_check=False)
+        return (dx, dprev, *dmix)
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,7 @@ from repro_torch.configs.base import ArchConfig
 
 from .layers import Maker, Params
 from .sharding_rules import (Spec, active_rules, batch_local, even_placements, local, on_shards,
-                             shard)
+                             reduced, shard)
 
 EP_MIN_EXPERTS = 16  # model-axis size on both production meshes
 DISPATCH_GROUPS = 32  # the reference's pod x data shards; local dispatch per group
@@ -121,6 +121,43 @@ def _combine(h_out: torch.Tensor, slot: torch.Tensor, stok: torch.Tensor,
     y = h_out.new_zeros((g * n_loc, d))
     y.index_add_(0, (rows * n_loc + stok).reshape(-1), gathered.reshape(-1, d))
     return y.reshape(g, n_loc, d)
+
+
+def group_mean(t: torch.Tensor) -> torch.Tensor:
+    """``t.mean((0, 1))`` of a (G, N, E) tensor.  Where ``t`` is a DTensor
+    under active rules, each rank sums its own rows and the (E,) sum is
+    reduced once over the mesh dims that split them; the backward expands
+    the (E,) gradient onto each rank's own rows (``_GroupMean``).  Left to
+    DTensor, torch 2.13 keeps the mean partial, and its backward
+    reduce-scatters the gradient at (G, N, E) where torch 2.11 reduces the
+    (E,) vector."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if active_rules() is None or not isinstance(t, DTensor):
+        return t.mean((0, 1))
+    rows = tuple(p if p == Shard(0) else Replicate() for p in even_placements(t))
+    if tuple(t.placements) != rows:
+        t = t.redistribute(t.device_mesh, rows)
+    return _GroupMean.apply(t)
+
+
+class _GroupMean(torch.autograd.Function):
+    """``group_mean`` of a DTensor split by its leading rows at most."""
+
+    @staticmethod
+    def forward(ctx, t):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        mesh, plc = t.device_mesh, tuple(t.placements)
+        ctx.mesh, ctx.plc, ctx.shape = mesh, plc, t.to_local().shape
+        ctx.count = t.shape[0] * t.shape[1]
+        part = tuple(Replicate() if p == Replicate() else Partial() for p in plc)
+        total = DTensor.from_local(t.to_local().sum((0, 1)), mesh, part, run_check=False)
+        return total.redistribute(mesh, (Replicate(),) * mesh.ndim) / ctx.count
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
+        g = g.redistribute(ctx.mesh, (Replicate(),) * ctx.mesh.ndim).to_local() / ctx.count
+        return DTensor.from_local(g.expand(ctx.shape), ctx.mesh, ctx.plc, run_check=False)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -225,10 +262,10 @@ def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor,
     top_w, top_e = batch_local(lambda p: _top_k(p, k), (probs,), n_out=2)  # (G,N_loc,k)
 
     # ---- aux loss (Switch): E * sum_e f_e * P_e (global averages); the
-    # counts by comparison, which stays sharded (an exact integer sum)
-    me = probs.mean((0, 1))
+    # counts by comparison, each rank's summed and reduced as integers (exact)
+    me = group_mean(probs)
     hits = top_e[..., None] == torch.arange(e, device=x.device)
-    ce = hits.sum((0, 1, 2)).to(f32) / (n * k)
+    ce = reduced(hits.sum((0, 1, 2))).to(f32) / (n * k)
     aux = e * torch.sum(me * ce)
 
     # logical specs of the group-led tensors the local steps exchange; the

@@ -23,8 +23,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from .gla import chunked_gla, gla_decode_step
-from .layers import Maker, Params, token_shift
-from .sharding_rules import Spec, batch_local, dense, split_dim
+from .layers import Maker, Params, token_mix
+from .sharding_rules import Spec, batch_local, dense, entry, split_dim
 
 LORA_R = 64
 
@@ -59,17 +59,20 @@ def init_rwkv_tm(mk: Maker, cfg: ArchConfig) -> Params:
     }
 
 
-def _mixes(p: Params, x: torch.Tensor, xs: torch.Tensor):
-    def lerp(name):
-        return x + (xs - x) * p[f"mix_{name}"]
-
-    return lerp("r"), lerp("k"), lerp("v"), lerp("g"), lerp("w")
+def _mixes(p: Params, x: torch.Tensor, x_prev: torch.Tensor | None):
+    """The r, k, v, g, w lerps of ``x`` and its token shift (``x_prev``:
+    the carried last token, or None from a sequence's start)."""
+    return token_mix(x, x_prev, tuple(p[f"mix_{n}"] for n in "rkvgw"))
 
 
 def _log_decay(p: Params, xw: torch.Tensor) -> torch.Tensor:
-    """w_t = exp(-exp(...)): returns log w_t (strictly negative)."""
+    """w_t = exp(-exp(...)): returns log w_t (strictly negative).  The
+    low-rank product's gradient, partial over "model" from the
+    column-sharded ``w_lora_b``, is reduced once at its input (``entry``):
+    left to DTensor, torch 2.13 reduce-scatters it and gathers it back."""
     f32 = torch.float32
-    lora = dense(torch.tanh(dense(xw.to(f32), p["w_lora_a"].to(f32))), p["w_lora_b"].to(f32))
+    lora = dense(entry(torch.tanh(dense(xw.to(f32), p["w_lora_a"].to(f32)))),
+                 p["w_lora_b"].to(f32))
     return -torch.exp(p["w0"].to(f32) + lora)
 
 
@@ -89,8 +92,7 @@ def _group_norm(y: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
 def apply_rwkv_tm(p: Params, cfg: ArchConfig, x: torch.Tensor,
                   chunk: int = 32, pair_bf16: bool = False) -> torch.Tensor:
     h, hd = cfg.n_heads, cfg.hd
-    xs = token_shift(x, None)
-    xr, xk, xv, xg, xw = _mixes(p, x, xs)
+    xr, xk, xv, xg, xw = _mixes(p, x, None)
     r = split_dim(dense(xr, p["wr"]), -1, (h, hd))
     k = split_dim(dense(xk, p["wk"]), -1, (h, hd))
     v = split_dim(dense(xv, p["wv"]), -1, (h, hd))
@@ -124,7 +126,7 @@ def rwkv_tm_decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
     """x: (B,1,D); wkv: (B,H,hd,hd); shift: (B,1,D) previous token features.
     Returns (out, the new wkv in its dtype, the new shift: ``x``)."""
     h, hd = cfg.n_heads, cfg.hd
-    xr, xk, xv, xg, xw = _mixes(p, x, shift.to(x.dtype))
+    xr, xk, xv, xg, xw = _mixes(p, x, shift)
     r = split_dim(dense(xr, p["wr"])[:, 0], -1, (h, hd))
     k = split_dim(dense(xk, p["wk"])[:, 0], -1, (h, hd))
     v = split_dim(dense(xv, p["wv"])[:, 0], -1, (h, hd))

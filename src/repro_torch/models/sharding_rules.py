@@ -359,6 +359,24 @@ class _Entry(torch.autograd.Function):
         return g
 
 
+def share(g, target) -> torch.Tensor:
+    """The local tensor of the DTensor ``g`` laid out by ``target``.  On a
+    mesh dim where ``g`` is whole and ``target`` partial, this rank's share
+    of the sum: the whole on the dim's coordinate 0, zeros on the others
+    (exact, and nothing moves; DTensor's own conversion divides by the
+    dim's size); any other difference redistributed."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    plc, mine = list(g.placements), True
+    for m, (p, q) in enumerate(zip(plc, target)):
+        if isinstance(q, Partial) and p == Replicate():
+            plc[m], mine = q, mine and g.device_mesh.get_coordinate()[m] == 0
+    t = g.to_local() if mine else torch.zeros_like(g.to_local())
+    if tuple(plc) == tuple(target):
+        return t
+    g = DTensor.from_local(t, g.device_mesh, plc, run_check=False)
+    return g.redistribute(g.device_mesh, tuple(target)).to_local()
+
+
 def entry(x):
     """``x`` as a block takes it in (a normed residual, the encoder's
     output): the identity, whose gradient -- the sum of the partial shares

@@ -127,7 +127,7 @@ def islands(mode):
         yield
 
 
-def reference_train_steps(jcfg, jshape, params, batches, jknobs, **kw):
+def reference_train_steps(jcfg, jshape, params, batches, jknobs, record=None, **kw):
     """The reference's ``launch.sharding.build_train_step`` on an in-process
     (1, 1) ("data", "model") mesh, one step a batch from the port's
     ``params`` and ``batches`` (numpy-converted), float64 with every float32
@@ -135,21 +135,35 @@ def reference_train_steps(jcfg, jshape, params, batches, jknobs, **kw):
     another order, and float32 Adam would round that into the parameters at
     1e-9) and the microbatch loop's accumulator (a scan carry, which
     float64 gradients would otherwise widen).  Returns (losses, the final
-    parameters' leaves)."""
+    parameters' leaves).  With a dict ``record``, also each step's
+    gradients as they reach ``adam_update`` (``record["grads"]``) and
+    parameters after it (``record["params"]``), as lists of leaves."""
     from repro.launch import sharding as jsharding
     from repro.optim import adam as jadam
     mesh = jax.make_mesh((1, 1), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
     wide = _Wide(jnp, jnp.float64)
+    grads = []
+
+    def adam_update(g, *args, **kwargs):
+        jax.debug.callback(lambda *leaves: grads.append([np.asarray(a) for a in leaves]),
+                           *jax.tree_util.tree_leaves(g))
+        return jadam.adam_update(g, *args, **kwargs)
+
     with islands("float64"), mock.patch.object(jadam, "jnp", wide), \
-            mock.patch.object(jsharding, "jnp", wide):
+            mock.patch.object(jsharding, "jnp", wide), \
+            mock.patch.object(jsharding, "adam_update", adam_update):
         built = jsharding.build_train_step(jcfg, mesh, jshape, knobs=jknobs, **kw)
         p = jax.tree_util.tree_map(jnp.asarray, bridge.params_to_numpy(params))
-        o, losses = jadam.adam_init(p), []
+        o, losses, steps = jadam.adam_init(p), [], []
         for b in batches:
             p, o, loss, _ = built.fn(p, o, {"tokens": jnp.asarray(b["tokens"].numpy(),
                                                                  jnp.int32)})
             losses.append(float(loss))
+            # copied: the next step donates its parameters
+            steps.append([np.asarray(a) for a in jax.tree_util.tree_leaves(p)])
+    if record is not None:
+        record.update(grads=grads, params=steps)
     return losses, jax.tree_util.tree_leaves(p)
 
 

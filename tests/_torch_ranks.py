@@ -465,13 +465,22 @@ def _full(tree):
 
 SHARD_FSDP_LEAF_MIN = 1 << 10   # the reduced leaves are below FSDP_LEAF_MIN
 
+# arch -> (global batch, build_train_step's keywords) of the trained cases
+TRAIN_CASES = {"qwen3-0.6b": (SHARD_B, dict(policy="tp")),
+               "granite-3-2b": (2 * SHARD_B, dict(policy="dp", fsdp=True, accum=2)),
+               "rwkv6-3b": (SHARD_B, dict(policy="tp")),
+               "mixtral-8x7b": (SHARD_B, dict(policy="tp"))}
+
 
 def sharding_train(world_size: int) -> dict:
-    """``build_train_step`` on the (2, 2) mesh: qwen3 two steps at
-    ``policy="tp"``; granite two steps at ``policy="dp"``, ``fsdp=True``,
-    ``accum=2``, with FSDP on every leaf of SHARD_FSDP_LEAF_MIN elements or
-    more.  Returns each case's losses and final parameters (full tensors)
-    and the placements its parameters and tokens took."""
+    """``build_train_step`` on the (2, 2) mesh, two steps a case of
+    TRAIN_CASES: qwen3, rwkv6 (its token-shift mixes' stated backward) and
+    mixtral (its balance loss's mean over groups) at ``policy="tp"``;
+    granite at ``policy="dp"``, ``fsdp=True``, ``accum=2``, with FSDP on
+    every leaf of SHARD_FSDP_LEAF_MIN elements or more.  Returns each
+    case's losses, its gradients as they reach ``adam_update`` and its
+    parameters after each step (full tensors), and the placements its
+    parameters and tokens took."""
     from unittest import mock
 
     from repro_torch.launch import sharding
@@ -483,18 +492,23 @@ def sharding_train(world_size: int) -> dict:
     mesh = make_debug_mesh(2, 2, "cpu")
     knobs = Knobs(q_chunk=SHARD_CHUNKS[0], kv_chunk=SHARD_CHUNKS[1])
     out = {}
-    for arch, batch, kw in (("qwen3-0.6b", SHARD_B, dict(policy="tp")),
-                            ("granite-3-2b", 2 * SHARD_B, dict(policy="dp", fsdp=True, accum=2))):
+    for arch, (batch, kw) in TRAIN_CASES.items():
         cfg, shape, params, batches = shard_case(arch, "train", batch)
         with mock.patch.object(sharding, "FSDP_LEAF_MIN", SHARD_FSDP_LEAF_MIN):
             built = sharding.build_train_step(cfg, mesh, shape, knobs=knobs, **kw)
-        p, o, losses = params, adam_init(params), []
-        with lifted_islands():
+        p, o, losses, grads, steps = params, adam_init(params), [], [], []
+
+        def adam_update(g, *args, _update=sharding.adam_update, **kwargs):
+            grads.append(_full(g))
+            return _update(g, *args, **kwargs)
+
+        with lifted_islands(), mock.patch.object(sharding, "adam_update", adam_update):
             for b in batches:
                 p, o, loss, _ = built.fn(p, o, b)
                 losses.append(float(loss.full_tensor()))
+                steps.append(_full(p))
         tokens = sharding.input_shardings(mesh, cfg, shape, built.rules)["tokens"]
-        out[arch] = {"losses": losses, "params": _full(p),
+        out[arch] = {"losses": losses, "grads": grads, "params": steps,
                      "placements": sorted({str(t.placements) for t in leaves(p)}),
                      "tokens": str(tokens.placements)}
     return out

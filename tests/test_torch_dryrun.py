@@ -7,8 +7,9 @@ side by side:
   ShapeCfg("t", 64, 8) with FSDP on a fake (2, 2, 2) mesh, its FLOPs
   against the reference's ``hlo_static.analyze`` of the same cell,
   compiled in its own interpreter on 8 forced host devices;
-* the cells whose steps raised in DTensor before the repairs, and
-  llama4's ``prefill_32k`` (``launch/dryrun_gate.py``'s cells), at their
+* the cells whose steps raised in DTensor before the repairs,
+  llama4's ``prefill_32k`` and rwkv6's and mixtral's ``train_4k``
+  (``launch/dryrun_gate.py``'s cells), at their
   published widths on the fake production meshes (depth cut): each runs
   to its end, and its dot FLOPs and collective bytes are the gate's, which
   ``chip_smoke.py`` holds the card's torch to;
@@ -70,10 +71,14 @@ TOL_SMALL_MESH = 0.30
 # published widths, the depth cut to one layer, or one group where a layer
 # alone would leave weights unused (zamba2's shared block follows its group
 # of 6) or skip the fault (llama4's second layer is its MoE layer); and
-# llama4's prefill at 2 layers.  zamba2 runs in a child of its own (its op
-# log kept), the prefill cells in another.
+# llama4's prefill at 2 layers; and the two training cells whose backward
+# the torch versions reduced differently.  zamba2 runs in a child of its
+# own (its op log kept), the prefill cells in another.
 FAULT_CELLS = tuple(dryrun_gate.CELLS)
 ZAMBA2 = ("zamba2-2.7b", "train_4k", "single", 6)
+# rwkv6's and mixtral's training cells, whose backward the torch versions
+# reduced differently before the models stated it, in a child of their own
+BACKWARD_CELLS = (("rwkv6-3b", "train_4k", "single", 1), ("mixtral-8x7b", "train_4k", "multi", 1))
 # llama4's prefill at 4 layers beside the gate's 2 (the depth check)
 LLAMA4_DEEPER = ("llama4-maverick-400b-a17b", "prefill_32k", "multi", 4)
 CARD_GIB = 80.0
@@ -164,15 +169,18 @@ def _references():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The fake-group children (the fault cells in two, the small mesh) and
-    the four gloo ranks, side by side; the references in the parent
-    meanwhile."""
+    """The fake-group children (the gate's cells in four, llama4's deeper
+    prefill, the small mesh) and the four gloo ranks, side by side; the
+    references in the parent meanwhile."""
     tmp = {name: tmp_path_factory.mktemp(name.replace(":", "_")) for name in
            ("dryrun_cells:a", "dryrun_cells:b", "dryrun_cells:c", "dryrun_cells:d",
-            "dryrun_small_mesh", "gqa_ranks")}
+            "dryrun_cells:e", "dryrun_small_mesh", "gqa_ranks")}
     prefill = tuple(c for c in FAULT_CELLS if c[1] == "prefill_32k")
-    rest = tuple(c for c in FAULT_CELLS if c != ZAMBA2 and c not in prefill)
+    rest = tuple(c for c in FAULT_CELLS if c != ZAMBA2 and c not in prefill
+                 and c not in BACKWARD_CELLS)
     out = R.spawn_many({"dryrun_cells:a": (1, tmp["dryrun_cells:a"], {"cells": rest}),
+                        "dryrun_cells:e": (1, tmp["dryrun_cells:e"],
+                                           {"cells": BACKWARD_CELLS}),
                         "dryrun_cells:b": (1, tmp["dryrun_cells:b"],
                                            {"cells": (ZAMBA2,),
                                             "trace_dir": str(tmp["dryrun_cells:b"])}),
@@ -183,7 +191,7 @@ def runs(tmp_path_factory):
                         "gqa_ranks": (4, tmp["gqa_ranks"], {})},
                        timeout=900, meanwhile=_references)
     cells = {**out["dryrun_cells:a"][0], **out["dryrun_cells:b"][0],
-             **out["dryrun_cells:c"][0]}
+             **out["dryrun_cells:c"][0], **out["dryrun_cells:e"][0]}
     with gzip.open(tmp["dryrun_cells:b"] / "zamba2-2.7b__train_4k__single.ops.gz", "rt") as f:
         zamba2_log = json.load(f)
     return {"cells": cells, "deeper": next(iter(out["dryrun_cells:d"][0].values())),

@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeCfg
-from repro_torch.data.tokens import synthetic_batch
+from repro_torch.data.tokens import batch_stream, synthetic_batch
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
 from repro_torch.models.transformer import VLM_EMBED_DIM
@@ -137,6 +137,20 @@ def test_synthetic_batch_is_deterministic_per_step_and_in_range(arch):
     # a host slice is its own draw from the row offset
     part = synthetic_batch(cfg, shape, 5, batch_slice=slice(1, 3), device="cpu")
     assert part["tokens"].shape[0] == 2
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "whisper-large-v3"])
+@pytest.mark.parametrize("start", [0, 7])
+def test_batch_stream_yields_the_steps_batches(arch, start):
+    """The stream's n-th batch is ``synthetic_batch`` of step start + n,
+    bit for bit (the reference's ``batch_stream``)."""
+    cfg = get_arch(arch).reduced()
+    shape = ShapeCfg("t", 16, 2, "train")
+    stream = batch_stream(cfg, shape, start, dtype=torch.float64, device="cpu")
+    for n in range(3):
+        got = next(stream)
+        want = synthetic_batch(cfg, shape, start + n, dtype=torch.float64, device="cpu")
+        assert sorted(got) == sorted(want) and all(bit_equal(got[k], want[k]) for k in want)
 
 
 # ---------------------------------------------------------------------------
